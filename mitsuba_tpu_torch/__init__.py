@@ -1,0 +1,22 @@
+"""mitsuba_tpu_torch: the PyTorch/CUDA port of mitsuba_tpu for NVIDIA Hopper.
+
+Module paths mirror the JAX package's, so each module has its counterpart
+there. The package imports torch and numpy, never jax, flax or mitsuba_tpu.
+Hot loops that the JAX package wrote as Pallas kernels for the TPU are CUDA
+kernels written by hand (``csrc/``), built with nvcc at first use.
+
+Entry points run on the card unless the caller names another device:
+
+    import mitsuba_tpu_torch as mi
+    mi.set_variant("llvm_ad_rgb")
+    scene = mi.load_dict(mi.cornell_box())          # on "cuda"
+    img = mi.render(scene, spp=64)                  # [H, W, 3] on scene.device
+"""
+from .variant import set_variant, variant, variants, current_variant, Variant
+from .core.rng import RNG
+from .core.transform import Transform, build_transform
+from .render.scene_loader import load_dict, cornell_box
+from .render.params import traverse, SceneParameters
+from .render_api import render
+
+__version__ = "0.1.0"

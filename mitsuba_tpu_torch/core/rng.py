@@ -1,0 +1,92 @@
+"""Counter-based RNG streams (counterpart of mitsuba_tpu/core/rng.py).
+
+Every draw is threefry2x32(key=(seed, SALT), counter=(lane, dim)), so a
+lane's numbers depend only on (seed, lane, dim): they do not change with the
+pass partitioning and are bitwise the JAX package's numbers.
+
+PyTorch has no arithmetic on uint32 tensors (add, shifts and compares raise
+on the CPU), so the 32-bit words live in int64 tensors and are reduced with
+``& 0xFFFFFFFF`` after every add and left shift. The same code runs on the
+CPU and the card.
+
+Only the independent sampler is ported: the low-discrepancy and
+orthogonal-array modes raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_ROT_0 = (13, 15, 26, 6)
+_ROT_1 = (17, 29, 16, 24)
+_STREAM_SALT = 0x9E3779B9
+
+
+def _u32(x, like):
+    """Python int or tensor -> int64 tensor holding a uint32 word."""
+    if torch.is_tensor(x):
+        return x.to(torch.int64) & MASK32
+    return torch.tensor(int(x) & MASK32, dtype=torch.int64, device=like.device)
+
+
+def _rotl(x, d):
+    return ((x << d) & MASK32) | (x >> (32 - d))
+
+
+def threefry2x32(k0, k1, c0, c1):
+    """Threefry-2x32 block cipher (20 rounds) on uint32 words held in int64.
+
+    Arguments are Python ints or int64 tensors with values in [0, 2^32);
+    at least one counter must be a tensor. Returns two int64 tensors."""
+    like = c0 if torch.is_tensor(c0) else c1
+    k0 = _u32(k0, like)
+    k1 = _u32(k1, like)
+    x0 = (_u32(c0, like) + k0) & MASK32
+    x1 = (_u32(c1, like) + k1) & MASK32
+    ks2 = k0 ^ k1 ^ 0x1BD11BDA
+    keys = (k0, k1, ks2)
+    for block in range(5):
+        rots = _ROT_0 if block % 2 == 0 else _ROT_1
+        for r in rots:
+            x0 = (x0 + x1) & MASK32
+            x1 = _rotl(x1, r) ^ x0
+        inj = block + 1
+        x0 = (x0 + keys[inj % 3]) & MASK32
+        x1 = (x1 + keys[(inj + 1) % 3] + inj) & MASK32
+    return x0, x1
+
+
+def uniform_from_bits(bits):
+    """uint32 word -> float32 uniform in [0, 1) with 24-bit precision."""
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+class RNG:
+    """Per-lane random stream with a dimension counter (independent mode).
+
+    ``lane`` is an int64 tensor of uint32 lane keys, ``seed`` and ``dim``
+    are Python ints: every lane of a wavefront shares its dimension
+    counter, so the counter needs no tensor."""
+
+    __slots__ = ("seed", "lane", "dim")
+
+    def __init__(self, seed, lane, dim=0, pixel=None, sidx=None, lds=False, oa=0):
+        if lds or oa:
+            raise NotImplementedError(
+                "low-discrepancy and orthogonal-array RNG modes are not yet ported"
+            )
+        self.seed = int(seed) & MASK32
+        self.lane = lane.to(torch.int64) & MASK32
+        self.dim = int(dim)
+
+    def next_1d(self):
+        b0, _ = threefry2x32(self.seed, _STREAM_SALT, self.lane, self.dim)
+        return uniform_from_bits(b0), RNG(self.seed, self.lane, self.dim + 1)
+
+    def next_2d(self):
+        b0, b1 = threefry2x32(self.seed, _STREAM_SALT, self.lane, self.dim)
+        return (
+            uniform_from_bits(b0),
+            uniform_from_bits(b1),
+            RNG(self.seed, self.lane, self.dim + 2),
+        )

@@ -1,0 +1,62 @@
+"""Sampling warps used by the Cornell-box path (counterpart of
+mitsuba_tpu/core/warp.py): the concentric disk, the cosine hemisphere, the
+uniform triangle and the tent.
+
+Inputs carry a trailing dimension of 2 (or none, for 1D warps) and
+broadcast over the leading wavefront axes; there is no data-dependent
+control flow.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .math import INV_PI, safe_sqrt
+
+
+def square_to_uniform_disk_concentric(u):
+    """Concentric (Shirley) square-to-disk mapping."""
+    x = 2.0 * u[..., 0] - 1.0
+    y = 2.0 * u[..., 1] - 1.0
+    is_zero = (x == 0.0) & (y == 0.0)
+    quadrant_x = torch.abs(x) > torch.abs(y)
+    r = torch.where(quadrant_x, x, y)
+    ratio = torch.where(
+        quadrant_x,
+        y / torch.where(x == 0, 1.0, x),
+        x / torch.where(y == 0, 1.0, y),
+    )
+    phi = torch.where(
+        quadrant_x, 0.25 * math.pi * ratio, 0.5 * math.pi - 0.25 * math.pi * ratio
+    )
+    phi = torch.where(is_zero, 0.0, phi)
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+
+
+def square_to_cosine_hemisphere(u):
+    """Cosine-weighted hemisphere: concentric disk, then projection."""
+    p = square_to_uniform_disk_concentric(u)
+    z = safe_sqrt(1.0 - p[..., 0] ** 2 - p[..., 1] ** 2)
+    return torch.stack([p[..., 0], p[..., 1], z], dim=-1)
+
+
+def square_to_cosine_hemisphere_pdf(d):
+    return torch.clamp(d[..., 2], min=0.0) * INV_PI
+
+
+def square_to_uniform_triangle(u):
+    """Uniform barycentric coordinates on the unit triangle."""
+    t = safe_sqrt(1.0 - u[..., 0])
+    return torch.stack([1.0 - t, t * u[..., 1]], dim=-1)
+
+
+def interval_to_tent(u):
+    """[0,1] -> [-1,1] tent distribution."""
+    u2 = 2.0 * u
+    side = u2 < 1.0
+    return torch.where(
+        side,
+        torch.sqrt(torch.clamp(u2, min=0.0)) - 1.0,
+        1.0 - torch.sqrt(torch.clamp(2.0 - u2, min=0.0)),
+    )

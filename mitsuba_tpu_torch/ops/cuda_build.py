@@ -1,0 +1,88 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+Each source under ``mitsuba_tpu_torch/csrc/`` exports plain ``extern "C"``
+launchers and includes no PyTorch header, so one nvcc call builds it in
+seconds. The shared library goes to ``build/mitsuba_tpu_torch/`` at the
+root of the checkout (listed in .gitignore), under a name keyed by a hash
+of the source and the flags: an edited source is rebuilt at its first use,
+an unchanged one is loaded as it is.
+
+Nothing here runs at import time; the first launch of a kernel builds it.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mitsuba_tpu_torch"
+
+# sm_90a: Hopper with its arch-specific instructions (wgmma, setmaxnreg).
+# -Xptxas -v reports registers, shared memory and spills into the build log.
+BASE_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+@dataclass(frozen=True)
+class Build:
+    path: Path        # the shared library
+    seconds: float    # nvcc wall time; 0.0 when an earlier build was reused
+    log: str          # nvcc's output, including the -Xptxas -v report
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def build(name: str, flags: tuple = ()) -> Build:
+    """Compile csrc/<name>.cu into a shared library, or reuse the one an
+    earlier call built from the same source and flags."""
+    src = CSRC / f"{name}.cu"
+    all_flags = BASE_FLAGS + tuple(flags)
+    key = hashlib.sha256(src.read_bytes() + " ".join(all_flags).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{name}-{key}.so"
+    log_path = out.with_suffix(".log")
+    if out.exists() and log_path.exists():
+        return Build(out, 0.0, log_path.read_text())
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build under a temporary name and rename: concurrent builders (several
+    # test workers) never load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc, *all_flags, "-o", tmp, str(src)],
+        capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, out)
+    return Build(out, seconds, log)
+
+
+@functools.cache
+def load(name: str, flags: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built on first use."""
+    return ctypes.CDLL(str(build(name, flags).path))

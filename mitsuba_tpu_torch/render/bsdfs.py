@@ -1,0 +1,46 @@
+"""BSDFs: the smooth Lambertian (counterpart of mitsuba_tpu/render/bsdfs.py).
+
+As in the reference, eval(si, wo) returns f(wi, wo) * |cos_theta_o|, and
+sample() returns (BSDFSample, weight) with weight = eval / pdf. The other
+BSDF plugins are not yet ported.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..core import warp
+from ..core.math import INV_PI
+from .records import BSDFSample
+
+
+@dataclass
+class DiffuseBSDF:
+    reflectance: object   # texture
+
+    def eval(self, si, wo):
+        cos_i = si.wi[..., 2]
+        cos_o = wo[..., 2]
+        valid = (cos_i > 0) & (cos_o > 0)
+        refl = self.reflectance.eval(si.uv)
+        val = refl * (INV_PI * torch.clamp(cos_o, min=0.0))[..., None]
+        return torch.where(valid[..., None], val, 0.0)
+
+    def pdf(self, si, wo):
+        valid = (si.wi[..., 2] > 0) & (wo[..., 2] > 0)
+        return torch.where(valid, warp.square_to_cosine_hemisphere_pdf(wo), 0.0)
+
+    def sample(self, u_lobe, u2, si):
+        wo = warp.square_to_cosine_hemisphere(u2)
+        pdf = warp.square_to_cosine_hemisphere_pdf(wo)
+        valid = si.wi[..., 2] > 0
+        refl = self.reflectance.eval(si.uv)
+        weight = torch.where(valid[..., None], refl, 0.0)
+        bs = BSDFSample(
+            wo=wo,
+            pdf=torch.where(valid, pdf, 0.0),
+            eta=torch.ones_like(pdf),
+            delta=torch.zeros_like(valid),
+        )
+        return bs, weight

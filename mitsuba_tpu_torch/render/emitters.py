@@ -1,0 +1,118 @@
+"""Area emitters (counterpart of mitsuba_tpu/render/emitters.py, the area
+light only).
+
+As in the reference: sample_direction(ref_p, u) returns (DirectionSample,
+weight) with weight = radiance / pdf, pdf_direction is a solid-angle
+density, and eval(si) is the radiance of a ray that hits the emitter.
+
+An area light samples its shape's triangles by area (an inverse-cdf lookup
+with searchsorted(side="right")), then a uniform point in the triangle. The
+cdf is derived from the triangle table on the host, in numpy, the way the
+JAX package's loader derives it, so both packages hold the same bits.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core import warp
+from ..core.frame import dot
+from .records import DirectionSample
+
+
+def area_cdf(geometry, shape_index):
+    """(triangle ids, unnormalized area cdf) of one shape's triangles."""
+    tri_shape = geometry.tri_shape.cpu().numpy()
+    e1 = geometry.tri_e1.cpu().numpy()
+    e2 = geometry.tri_e2.cpu().numpy()
+    tri_idx = np.nonzero(tri_shape == shape_index)[0].astype(np.int32)
+    areas = 0.5 * np.linalg.norm(np.cross(e1[tri_idx], e2[tri_idx]), axis=-1)
+    return tri_idx, np.cumsum(areas).astype(np.float32)
+
+
+@dataclass
+class AreaEmitter:
+    """Diffuse area light attached to a triangle shape."""
+
+    radiance: object            # texture
+    shape_index: int
+    tri_index: torch.Tensor     # [K] int64 triangle ids in the scene Geometry
+    tri_cdf: torch.Tensor       # [K] area cdf (unnormalized, ends at total area)
+    total_area: torch.Tensor    # [] float32
+
+    @staticmethod
+    def attach(radiance, shape_index, geometry):
+        tri_idx, cdf = area_cdf(geometry, shape_index)
+        dev = geometry.tri_e1.device
+        return AreaEmitter(
+            radiance=radiance,
+            shape_index=shape_index,
+            tri_index=torch.from_numpy(tri_idx.astype(np.int64)).to(dev),
+            tri_cdf=torch.from_numpy(cdf).to(dev),
+            total_area=torch.tensor(cdf[-1] if len(cdf) else 0.0, dtype=torch.float32, device=dev),
+        )
+
+    def parameters_changed(self, geometry):
+        """Re-derive the area cdf after the shape's vertices moved."""
+        fresh = AreaEmitter.attach(self.radiance, self.shape_index, geometry)
+        return dataclasses.replace(
+            self, tri_cdf=fresh.tri_cdf, total_area=fresh.total_area
+        )
+
+    def eval(self, si):
+        """Radiance toward si.wi; the front face only."""
+        front = si.wi[..., 2] > 0
+        return torch.where(front[..., None], self.radiance.eval(si.uv), 0.0)
+
+    def sample_direction(self, ref_p, u2, geom, emitter_index):
+        n_lanes = ref_p.shape[0]
+        scaled = u2[..., 0] * self.total_area
+        K = self.tri_cdf.shape[0]
+        k = torch.clamp(torch.searchsorted(self.tri_cdf, scaled, right=True), 0, K - 1)
+        tri = self.tri_index[k]
+        v0, e1, e2, ng = geom.tri_v0[tri], geom.tri_e1[tri], geom.tri_e2[tri], geom.tri_ng[tri]
+        cdf_lo = torch.cat([torch.zeros_like(self.tri_cdf[:1]), self.tri_cdf[:-1]])
+        lo = cdf_lo[k]
+        seg = torch.clamp(self.tri_cdf[k] - lo, min=1e-20)
+        # reuse u0 within the chosen triangle
+        u0r = torch.clamp((scaled - lo) / seg, 0.0, 1.0)
+        bary = warp.square_to_uniform_triangle(torch.stack([u0r, u2[..., 1]], dim=-1))
+        p = v0 + bary[..., 0:1] * e1 + bary[..., 1:2] * e2
+
+        to_p = p - ref_p
+        dist2 = dot(to_p, to_p)
+        dist = torch.sqrt(torch.clamp(dist2, min=1e-20))
+        d = to_p / dist[..., None]
+        cos_e = -dot(d, ng)
+        # solid-angle pdf = dist^2 / (cos_e * A)
+        valid = cos_e > 1e-6
+        pdf = torch.where(
+            valid, dist2 / torch.where(valid, cos_e * self.total_area, 1.0), 0.0
+        )
+        val = self.radiance.eval(bary)
+        pos = pdf > 0
+        weight = torch.where(
+            pos[..., None], val / torch.where(pos, pdf, 1.0)[..., None], 0.0
+        )
+        ds = DirectionSample(
+            p=p, n=ng, d=d, dist=dist, pdf=pdf,
+            delta=torch.zeros(n_lanes, dtype=torch.bool, device=p.device),
+            emitter_index=torch.full((n_lanes,), emitter_index, dtype=torch.int32, device=p.device),
+            uv=bary,
+        )
+        return ds, weight
+
+    def pdf_direction(self, ref_p, si):
+        """Solid-angle pdf of having sampled si.p on this emitter from ref_p."""
+        to_p = si.p - ref_p
+        dist2 = dot(to_p, to_p)
+        ok = dist2 > 1e-18
+        d = to_p * torch.rsqrt(torch.where(ok, dist2, 1.0))[..., None]
+        cos_e = -dot(d, si.n)
+        valid = ok & (cos_e > 1e-6)
+        return torch.where(
+            valid, dist2 / torch.where(valid, cos_e * self.total_area, 1.0), 0.0
+        )

@@ -1,0 +1,77 @@
+"""Film and filter-importance-sampled reconstruction (counterpart of
+mitsuba_tpu/render/film.py).
+
+Each sample's film position is drawn from the normalized reconstruction
+filter around its pixel, so every sample adds weight 1 to its own pixel and
+developing is a mean over the samples of a pixel. The box, tent and
+gaussian filters take this path. The weighted filters with negative lobes
+(mitchell, catmullrom, lanczos) and crop windows are not yet ported.
+
+The port sums a pixel's samples one sample index after another, always in
+that order (``accumulate``): a render split into several passes then adds
+the same numbers in the same order as one pass, and the image is bitwise
+independent of the split.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from ..core.warp import interval_to_tent
+
+FIS_FILTERS = ("box", "tent", "gaussian")
+
+
+@dataclass(frozen=True)
+class Film:
+    """hdrfilm configuration."""
+
+    width: int
+    height: int
+    rfilter: str = "gaussian"
+
+    def __post_init__(self):
+        if self.rfilter not in FIS_FILTERS:
+            raise NotImplementedError(
+                f"reconstruction filter {self.rfilter!r} is not yet ported; "
+                f"ported: {FIS_FILTERS}"
+            )
+
+    @property
+    def n_pixels(self):
+        return self.width * self.height
+
+
+def sample_filter_offset(rfilter: str, u2):
+    """Offset within a pixel, importance-sampled from the reconstruction
+    filter, in pixel units from the pixel's lower corner."""
+    if rfilter == "box":
+        return u2
+    if rfilter == "tent":
+        # tent of radius 1 px
+        return 0.5 + torch.stack(
+            [interval_to_tent(u2[..., 0]), interval_to_tent(u2[..., 1])], dim=-1
+        )
+    if rfilter != "gaussian":
+        raise NotImplementedError(f"reconstruction filter {rfilter!r} is not yet ported")
+    # gaussian: standard deviation 1/3 px, loosely truncated
+    r = torch.sqrt(-2.0 * torch.log(torch.clamp(1.0 - u2[..., 0] * 0.9999, min=1e-9)))
+    phi = 2.0 * math.pi * u2[..., 1]
+    sigma = 1.0 / 3.0
+    return 0.5 + sigma * torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+
+
+def accumulate(film: Film, values, spp: int, acc=None):
+    """Add pixel-major per-lane values [H*W*spp, C] into the per-pixel sums
+    acc [H, W, C], one sample index after the other."""
+    rows = values.reshape(film.height, film.width, spp, values.shape[-1])
+    for s in range(spp):
+        acc = rows[:, :, s] if acc is None else acc + rows[:, :, s]
+    return acc
+
+
+def develop(film: Film, values, spp: int):
+    """Pixel-major per-lane radiance [H*W*spp, C] -> image [H, W, C]."""
+    return accumulate(film, values, spp) / spp

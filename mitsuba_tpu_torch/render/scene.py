@@ -1,0 +1,247 @@
+"""Scene: the geometry and every plugin instance, on one device
+(counterpart of mitsuba_tpu/render/scene.py).
+
+Dispatch over plugin instances is a Python loop with lane masks, the
+wavefront analog of the reference's vectorized virtual calls. The shape ->
+BSDF / emitter maps are small index tensors read by plain indexing.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..core import warp
+from ..core.math import INV_PI
+from . import shapes as shapes_mod
+from .bsdfs import DiffuseBSDF
+from .records import BSDFSample, DirectionSample, PreliminaryIntersection, Ray, spawn_ray
+from .textures import ConstantTexture
+
+
+@dataclass
+class Scene:
+    geometry: shapes_mod.Geometry
+    bsdfs: tuple                 # BSDF instances
+    emitters: tuple              # emitter instances
+    sensors: tuple               # sensor instances
+    integrator: object
+    film: object
+    shape_bsdf: torch.Tensor     # [n_shapes] int64 index into bsdfs
+    shape_emitter: torch.Tensor  # [n_shapes] int64 index into emitters, -1 none
+    spp: int
+    device: torch.device
+    n_channels: int = 3
+    # (key, path) pairs for traverse()/SceneParameters
+    param_paths: tuple = ()
+
+    # -- intersection -------------------------------------------------------
+    def ray_intersect(self, ray: Ray, active=None):
+        pi = shapes_mod.ray_intersect_preliminary(self.geometry, ray, active)
+        return shapes_mod.compute_surface_interaction(self.geometry, ray, pi)
+
+    def ray_test(self, ray: Ray, active=None):
+        return shapes_mod.ray_test(self.geometry, ray, active)
+
+    def ray_intersect_and_test(self, ray: Ray, sray: Ray, active, s_active):
+        """Closest hit of `ray` and occlusion of `sray` in ONE kernel launch
+        over the concatenated 2N-ray batch (the deferred-NEE path: bounce k's
+        shadow rays ride bounce k+1's intersect launch)."""
+        n = ray.o.shape[0]
+        batch = Ray(
+            o=torch.cat([ray.o, sray.o]),
+            d=torch.cat([ray.d, sray.d]),
+            maxt=torch.cat([ray.maxt, sray.maxt]),
+        )
+        pi = shapes_mod.ray_intersect_preliminary(
+            self.geometry, batch, torch.cat([active, s_active])
+        )
+        pi_hit = PreliminaryIntersection(
+            t=pi.t[:n], prim_index=pi.prim_index[:n], prim_uv=pi.prim_uv[:n]
+        )
+        si = shapes_mod.compute_surface_interaction(self.geometry, ray, pi_hit)
+        occluded = pi.is_valid[n:] & s_active
+        return si, occluded
+
+    # -- emitters -----------------------------------------------------------
+    @property
+    def n_emitters(self):
+        return len(self.emitters)
+
+    def _emitter_at(self, si):
+        shape_idx = torch.clamp(si.shape_index, min=0).to(torch.int64)
+        return torch.where(si.shape_index >= 0, self.shape_emitter[shape_idx], -1)
+
+    def sample_emitter_direction(self, ref_p, u0, u2, active, test_visibility=True, ref_n=None):
+        """Pick an emitter uniformly, sample a direction toward it and, with
+        test_visibility, shadow-test it. The weight (radiance / pdf)
+        includes the 1/n_emitters selection factor."""
+        n_lanes = ref_p.shape[0]
+        E = self.n_emitters
+        if E == 0:
+            zero3 = torch.zeros_like(ref_p)
+            zero = torch.zeros(n_lanes, dtype=torch.float32, device=ref_p.device)
+            ds = DirectionSample(
+                p=ref_p, n=zero3, d=zero3, dist=zero, pdf=zero,
+                delta=torch.zeros(n_lanes, dtype=torch.bool, device=ref_p.device),
+                emitter_index=torch.full((n_lanes,), -1, dtype=torch.int32, device=ref_p.device),
+                uv=torch.zeros(n_lanes, 2, dtype=torch.float32, device=ref_p.device),
+            )
+            return ds, torch.zeros(n_lanes, self.n_channels, dtype=torch.float32, device=ref_p.device)
+
+        sel = torch.clamp((u0 * E).to(torch.int32), 0, E - 1)
+        ds_out = w_out = None
+        for i, em in enumerate(self.emitters):
+            ds_i, w_i = em.sample_direction(ref_p, u2, self.geometry, i)
+            m = sel == i
+            if ds_out is None:
+                ds_out, w_out = ds_i, torch.where(m[..., None], w_i, 0.0)
+                continue
+            m3 = m[..., None]
+            ds_out = DirectionSample(
+                p=torch.where(m3, ds_i.p, ds_out.p),
+                n=torch.where(m3, ds_i.n, ds_out.n),
+                d=torch.where(m3, ds_i.d, ds_out.d),
+                dist=torch.where(m, ds_i.dist, ds_out.dist),
+                pdf=torch.where(m, ds_i.pdf, ds_out.pdf),
+                delta=torch.where(m, ds_i.delta, ds_out.delta),
+                emitter_index=torch.where(m, ds_i.emitter_index, ds_out.emitter_index),
+                uv=torch.where(m3, ds_i.uv, ds_out.uv),
+            )
+            w_out = torch.where(m3, w_i, w_out)
+        # uniform selection probability 1/E
+        ds_out.pdf = ds_out.pdf / E
+        w_out = w_out * E
+
+        if test_visibility:
+            sray = spawn_ray(
+                ref_p, ref_n if ref_n is not None else ds_out.d, ds_out.d,
+                maxt=ds_out.dist * (1.0 - 1e-3),
+            )
+            occluded = self.ray_test(sray, active & (ds_out.pdf > 0))
+            w_out = torch.where(occluded[..., None], 0.0, w_out)
+
+        w_out = torch.where(active[..., None], w_out, 0.0)
+        return ds_out, w_out
+
+    def pdf_emitter_direction_hit(self, ref_p, si):
+        """Solid-angle NEE pdf of the emitter hit at si (0 where no emitter
+        was hit), for MIS at emitter hits."""
+        pdf = torch.zeros(ref_p.shape[:-1], dtype=torch.float32, device=ref_p.device)
+        E = self.n_emitters
+        if E == 0:
+            return pdf
+        em_idx = self._emitter_at(si)
+        sel_p = 1.0 / E
+        for i, em in enumerate(self.emitters):
+            pdf = torch.where(em_idx == i, em.pdf_direction(ref_p, si) * sel_p, pdf)
+        return pdf
+
+    def eval_emitter_hit(self, si):
+        """Radiance of the emitter (if any) at surface hit si."""
+        out = torch.zeros(si.p.shape[0], self.n_channels, dtype=torch.float32, device=si.p.device)
+        if self.n_emitters == 0:
+            return out
+        em_idx = self._emitter_at(si)
+        for i, em in enumerate(self.emitters):
+            out = torch.where((em_idx == i)[..., None], em.eval(si), out)
+        return out
+
+    def eval_environment(self, d):
+        """Radiance of escaped rays: no environment emitter is ported, so 0."""
+        return torch.zeros(d.shape[:-1] + (self.n_channels,), dtype=torch.float32, device=d.device)
+
+    def pdf_emitter_direction_escaped(self, d):
+        return torch.zeros(d.shape[:-1], dtype=torch.float32, device=d.device)
+
+    # -- BSDF dispatch ------------------------------------------------------
+    def bsdf_index_at(self, si):
+        shape_idx = torch.clamp(si.shape_index, min=0).to(torch.int64)
+        return torch.where(si.shape_index >= 0, self.shape_bsdf[shape_idx], -1)
+
+    def _fused_diffuse_idxs(self):
+        """Indices of the Lambertian BSDFs with a constant reflectance. When
+        there are several (the cbox has white, red and green), one closed
+        form with a per-lane reflectance row replaces a masked evaluation
+        per instance."""
+        idxs = tuple(
+            i for i, b in enumerate(self.bsdfs)
+            if type(b) is DiffuseBSDF and type(b.reflectance) is ConstantTexture
+        )
+        return idxs if len(idxs) >= 2 else ()
+
+    def _fused_diffuse_refl(self, idxs, b_idx):
+        """(in_group mask [N], per-lane reflectance [N, 3]) of the fused group."""
+        uv0 = torch.zeros(1, 2, dtype=torch.float32, device=b_idx.device)
+        refl = torch.zeros(b_idx.shape + (self.n_channels,), dtype=torch.float32, device=b_idx.device)
+        in_group = torch.zeros(b_idx.shape, dtype=torch.bool, device=b_idx.device)
+        for i in idxs:
+            hit = b_idx == i
+            refl = torch.where(hit[..., None], self.bsdfs[i].reflectance.eval(uv0)[0], refl)
+            in_group = in_group | hit
+        return in_group, refl
+
+    def bsdf_eval_pdf(self, si, wo, active):
+        """eval and pdf of the BSDF at each lane's hit, fused."""
+        n_lanes = si.p.shape[0]
+        val = torch.zeros(n_lanes, self.n_channels, dtype=torch.float32, device=si.p.device)
+        pdf = torch.zeros(n_lanes, dtype=torch.float32, device=si.p.device)
+        b_idx = self.bsdf_index_at(si)
+        fused = self._fused_diffuse_idxs()
+        if fused:
+            in_group, refl = self._fused_diffuse_refl(fused, b_idx)
+            cos_o = wo[..., 2]
+            ok = (si.wi[..., 2] > 0) & (cos_o > 0)
+            m = in_group & active
+            val = torch.where(
+                (m & ok)[..., None],
+                refl * (INV_PI * torch.clamp(cos_o, min=0.0))[..., None],
+                val,
+            )
+            pdf = torch.where(m & ok, warp.square_to_cosine_hemisphere_pdf(wo), pdf)
+        for i, b in enumerate(self.bsdfs):
+            if i in fused:
+                continue
+            m = (b_idx == i) & active
+            val = torch.where(m[..., None], b.eval(si, wo), val)
+            pdf = torch.where(m, b.pdf(si, wo), pdf)
+        return val, pdf
+
+    def bsdf_sample(self, si, u_lobe, u2, active):
+        n_lanes = si.p.shape[0]
+        dev = si.p.device
+        b_idx = self.bsdf_index_at(si)
+        bs = BSDFSample(
+            wo=torch.tensor([0.0, 0.0, 1.0], device=dev).expand(n_lanes, 3),
+            pdf=torch.zeros(n_lanes, dtype=torch.float32, device=dev),
+            eta=torch.ones(n_lanes, dtype=torch.float32, device=dev),
+            delta=torch.zeros(n_lanes, dtype=torch.bool, device=dev),
+        )
+        weight = torch.zeros(n_lanes, self.n_channels, dtype=torch.float32, device=dev)
+        fused = self._fused_diffuse_idxs()
+        if fused:
+            in_group, refl = self._fused_diffuse_refl(fused, b_idx)
+            wo_c = warp.square_to_cosine_hemisphere(u2)
+            pdf_c = warp.square_to_cosine_hemisphere_pdf(wo_c)
+            ok = si.wi[..., 2] > 0
+            m = in_group & active
+            bs = BSDFSample(
+                wo=torch.where(m[..., None], wo_c, bs.wo),
+                pdf=torch.where(m & ok, pdf_c, bs.pdf),
+                eta=bs.eta,
+                delta=bs.delta,
+            )
+            weight = torch.where((m & ok)[..., None], refl, weight)
+        for i, b in enumerate(self.bsdfs):
+            if i in fused:
+                continue
+            m = (b_idx == i) & active
+            bs_i, w_i = b.sample(u_lobe, u2, si)
+            bs = BSDFSample(
+                wo=torch.where(m[..., None], bs_i.wo, bs.wo),
+                pdf=torch.where(m, bs_i.pdf, bs.pdf),
+                eta=torch.where(m, bs_i.eta, bs.eta),
+                delta=torch.where(m, bs_i.delta, bs.delta),
+            )
+            weight = torch.where(m[..., None], w_i, weight)
+        return bs, weight

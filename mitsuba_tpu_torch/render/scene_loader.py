@@ -1,0 +1,320 @@
+"""Scene-dict loader for the Cornell-box vocabulary (counterpart of
+mitsuba_tpu/render/scene_loader.py).
+
+Accepted plugin types: ``scene``; the ``path`` integrator; the
+``perspective`` sensor with an ``independent`` sampler and an ``hdrfilm``
+with a ``gaussian``, ``box`` or ``tent`` filter; ``diffuse`` BSDFs with
+``rgb`` or scalar reflectance; ``rectangle`` and ``cube`` shapes; ``area``
+emitters; ``ref`` to a named BSDF. Any other type raises
+``NotImplementedError``: it is not yet ported.
+
+The scene is built on the host in numpy, with the same operations as the
+JAX package's loader, then moved to its device once.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.transform import Transform, build_transform
+from .bsdfs import DiffuseBSDF
+from .emitters import AreaEmitter
+from .film import Film
+from .scene import Scene
+from .sensors import PerspectiveCamera
+from . import shapes as SH
+from .textures import ConstantTexture
+
+SHAPE_TYPES = ("rectangle", "cube")
+FILM_KEYS_NOT_PORTED = ("crop_offset_x", "crop_offset_y", "crop_width", "crop_height")
+
+
+def resolve_device(device=None):
+    """The device a scene lives on: the card unless the caller names
+    another. Without a card, only an explicit non-CUDA device is accepted;
+    nothing falls back to the CPU quietly."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "mitsuba_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+def _not_ported(what):
+    return NotImplementedError(f"{what} is not yet ported")
+
+
+def parse_texture(spec, device, default=1.0):
+    """(texture, name of its parameter leaf) from a float, a list or an
+    rgb dict."""
+    if spec is None:
+        spec = default
+    if isinstance(spec, (int, float)):
+        value = np.asarray([float(spec)], np.float32)
+    elif isinstance(spec, (list, tuple, np.ndarray)):
+        value = np.asarray(spec, np.float32)
+        if value.ndim != 1:
+            raise _not_ported("a bitmap texture")
+    elif spec.get("type") in ("rgb", "srgb"):
+        value = np.asarray(spec["color"] if "color" in spec else spec["value"], np.float32)
+    else:
+        raise _not_ported(f"texture type {spec.get('type')!r}")
+    return ConstantTexture(value=torch.from_numpy(value).to(device)), "value"
+
+
+def parse_bsdf(spec, name, paths, device):
+    t = spec["type"]
+    if t != "diffuse":
+        raise _not_ported(f"BSDF type {t!r}")
+    tex, leaf = parse_texture(spec.get("reflectance", 0.5), device)
+    paths.append((f"{name}.reflectance.{leaf}", ("reflectance", leaf)))
+    return DiffuseBSDF(reflectance=tex)
+
+
+def parse_sensor(spec, device):
+    t = spec["type"]
+    if t != "perspective":
+        raise _not_ported(f"sensor type {t!r}")
+    film_spec = spec.get("film", {})
+    if film_spec.get("type", "hdrfilm") != "hdrfilm":
+        raise _not_ported(f"film type {film_spec.get('type')!r}")
+    if any(k in film_spec for k in FILM_KEYS_NOT_PORTED):
+        raise _not_ported("a film crop window")
+    w = int(film_spec.get("width", 768))
+    h = int(film_spec.get("height", 576))
+    rfilter = film_spec.get("rfilter", {"type": "gaussian"})
+    film = Film(width=w, height=h, rfilter=rfilter["type"] if isinstance(rfilter, dict) else str(rfilter))
+    sampler_spec = spec.get("sampler", {})
+    if sampler_spec.get("type", "independent") != "independent":
+        raise _not_ported(f"sampler type {sampler_spec.get('type')!r}")
+    spp = int(sampler_spec.get("sample_count", 16))
+    to_world = build_transform(spec.get("to_world", Transform.identity()))
+    aspect = w / h
+    fov = float(spec.get("fov", 45.0))
+    fov_axis = spec.get("fov_axis", "x")
+    tan_half = np.tan(np.deg2rad(fov) / 2)
+    # the stored fov is along x; tan_y = tan_x / aspect
+    if fov_axis == "y" or (fov_axis == "smaller" and aspect >= 1.0) or (
+        fov_axis == "larger" and aspect < 1.0
+    ):
+        tan_half = tan_half * aspect
+    cam = PerspectiveCamera(
+        to_world_m=torch.from_numpy(np.asarray(to_world.m, np.float32)).to(device),
+        tan_half_fov_x=torch.tensor(float(tan_half), dtype=torch.float32, device=device),
+        aspect=aspect,
+    )
+    return cam, film, spp
+
+
+def load_dict(d, device=None):
+    """Build a Scene from a reference-style nested dict, on `device` (the
+    card unless the caller names another)."""
+    from ..integrators import make_integrator
+
+    device = resolve_device(device)
+    d = dict(d)
+    if d.pop("type", "scene") != "scene":
+        raise ValueError("the root of a scene dict must have type 'scene'")
+
+    named_bsdfs = {}      # id -> index
+    bsdf_list = []
+    sensor = film = None
+    spp = 16
+    integrator_spec = {"type": "path"}
+    tri_meshes = []
+    shape_records = []    # per shape: dict(name, bsdf index, emitter index)
+    emitter_specs = []    # (shape index, emitter spec, shape name)
+    param_paths = []      # (key, full path tuple)
+
+    def register_bsdf(spec, name):
+        local_paths = []
+        inst = parse_bsdf(spec, name, local_paths, device)
+        idx = len(bsdf_list)
+        bsdf_list.append(inst)
+        for key, sub in local_paths:
+            param_paths.append((key, ("bsdfs", idx) + sub))
+        return idx
+
+    def resolve_bsdf(spec, shape_name):
+        if spec is None:
+            return register_bsdf({"type": "diffuse"}, f"{shape_name}.bsdf")
+        if spec.get("type") == "ref":
+            if spec["id"] not in named_bsdfs:
+                raise ValueError(f"unresolved bsdf ref {spec['id']!r}")
+            return named_bsdfs[spec["id"]]
+        return register_bsdf(spec, f"{shape_name}.bsdf")
+
+    # pass 1: named top-level BSDFs, so that refs resolve
+    for name, spec in d.items():
+        if isinstance(spec, dict) and spec.get("type") == "diffuse":
+            named_bsdfs[name] = register_bsdf(spec, name)
+
+    # pass 2: everything else
+    for name, spec in d.items():
+        if not isinstance(spec, dict):
+            continue
+        t = spec.get("type")
+        if t == "diffuse":
+            continue
+        if t in ("integrator", "path"):
+            integrator_spec = spec
+        elif t == "perspective":
+            sensor, film, spp = parse_sensor(spec, device)
+        elif t in SHAPE_TYPES:
+            if "interior" in spec or "exterior" in spec:
+                raise _not_ported("participating media")
+            to_world = build_transform(spec.get("to_world", Transform.identity()))
+            m = SH.make_rectangle(to_world) if t == "rectangle" else SH.make_cube(to_world)
+            m["shape_index"] = len(shape_records)
+            tri_meshes.append(m)
+            if "emitter" in spec:
+                emitter_specs.append((len(shape_records), spec["emitter"], name))
+            shape_records.append(
+                {"name": name, "bsdf": resolve_bsdf(spec.get("bsdf"), name), "emitter": -1}
+            )
+        else:
+            raise _not_ported(f"scene entry {name!r} of plugin type {t!r}")
+
+    if sensor is None:
+        raise _not_ported("a scene without a perspective sensor")
+
+    geometry = SH.build_geometry(tri_meshes, device)
+    for mesh, (v_start, v_count) in zip(tri_meshes, geometry.mesh_vertex_slices):
+        sname = shape_records[mesh["shape_index"]]["name"]
+        param_paths.append(
+            (f"{sname}.vertex_positions",
+             ("geometry", "vertices", ("slice", v_start, v_start + v_count)))
+        )
+
+    emitters = []
+    for shape_index, em_spec, shape_name in emitter_specs:
+        if em_spec.get("type") != "area":
+            raise _not_ported(f"emitter type {em_spec.get('type')!r}")
+        tex, leaf = parse_texture(em_spec.get("radiance", 1.0), device)
+        e_idx = len(emitters)
+        emitters.append(AreaEmitter.attach(tex, shape_index, geometry))
+        param_paths.append(
+            (f"{shape_name}.emitter.radiance.{leaf}", ("emitters", e_idx, "radiance", leaf))
+        )
+        shape_records[shape_index]["emitter"] = e_idx
+
+    if not bsdf_list:
+        bsdf_list.append(DiffuseBSDF(reflectance=parse_texture(0.5, device)[0]))
+    n_shapes = max(len(shape_records), 1)
+    shape_bsdf = np.zeros(n_shapes, np.int64)
+    shape_emitter = np.full(n_shapes, -1, np.int64)
+    for i, rec in enumerate(shape_records):
+        shape_bsdf[i] = rec["bsdf"]
+        shape_emitter[i] = rec["emitter"]
+
+    return Scene(
+        geometry=geometry,
+        bsdfs=tuple(bsdf_list),
+        emitters=tuple(emitters),
+        sensors=(sensor,),
+        integrator=make_integrator(integrator_spec),
+        film=film,
+        shape_bsdf=torch.from_numpy(shape_bsdf).to(device),
+        shape_emitter=torch.from_numpy(shape_emitter).to(device),
+        spp=spp,
+        device=device,
+        param_paths=tuple(param_paths),
+    )
+
+
+def cornell_box():
+    """The canonical Cornell box scene dict (mirrors mi.cornell_box)."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": 8},
+        "sensor": {
+            "type": "perspective",
+            "fov_axis": "smaller",
+            "near_clip": 0.001,
+            "far_clip": 100.0,
+            "focus_distance": 1000,
+            "fov": 39.3077,
+            "to_world": [
+                {"type": "look_at", "origin": [0, 0, 3.90], "target": [0, 0, 0], "up": [0, 1, 0]}
+            ],
+            "sampler": {"type": "independent", "sample_count": 64},
+            "film": {
+                "type": "hdrfilm",
+                "width": 256,
+                "height": 256,
+                "rfilter": {"type": "gaussian"},
+                "pixel_format": "rgb",
+                "component_format": "float32",
+            },
+        },
+        "white": {"type": "diffuse", "reflectance": {"type": "rgb", "value": [0.885809, 0.698859, 0.666422]}},
+        "green": {"type": "diffuse", "reflectance": {"type": "rgb", "value": [0.105421, 0.37798, 0.076425]}},
+        "red": {"type": "diffuse", "reflectance": {"type": "rgb", "value": [0.570068, 0.0430135, 0.0443706]}},
+        "light": {
+            "type": "rectangle",
+            "to_world": [
+                {"type": "scale", "value": [0.23, 0.19, 0.19]},
+                {"type": "rotate", "axis": [1, 0, 0], "angle": 90},
+                {"type": "translate", "value": [0.0, 0.99, 0.01]},
+            ],
+            "bsdf": {"type": "ref", "id": "white"},
+            "emitter": {"type": "area", "radiance": {"type": "rgb", "value": [18.387, 13.9873, 6.75357]}},
+        },
+        "floor": {
+            "type": "rectangle",
+            "to_world": [
+                {"type": "rotate", "axis": [1, 0, 0], "angle": -90},
+                {"type": "translate", "value": [0.0, -1.0, 0.0]},
+            ],
+            "bsdf": {"type": "ref", "id": "white"},
+        },
+        "ceiling": {
+            "type": "rectangle",
+            "to_world": [
+                {"type": "rotate", "axis": [1, 0, 0], "angle": 90},
+                {"type": "translate", "value": [0.0, 1.0, 0.0]},
+            ],
+            "bsdf": {"type": "ref", "id": "white"},
+        },
+        "back": {
+            "type": "rectangle",
+            "to_world": [{"type": "translate", "value": [0.0, 0.0, -1.0]}],
+            "bsdf": {"type": "ref", "id": "white"},
+        },
+        "green-wall": {
+            "type": "rectangle",
+            "to_world": [
+                {"type": "rotate", "axis": [0, 1, 0], "angle": -90},
+                {"type": "translate", "value": [1.0, 0.0, 0.0]},
+            ],
+            "bsdf": {"type": "ref", "id": "green"},
+        },
+        "red-wall": {
+            "type": "rectangle",
+            "to_world": [
+                {"type": "rotate", "axis": [0, 1, 0], "angle": 90},
+                {"type": "translate", "value": [-1.0, 0.0, 0.0]},
+            ],
+            "bsdf": {"type": "ref", "id": "red"},
+        },
+        "small-box": {
+            "type": "cube",
+            "to_world": [
+                {"type": "scale", "value": 0.3},
+                {"type": "rotate", "axis": [0, 1, 0], "angle": -17},
+                {"type": "translate", "value": [0.335, -0.7, 0.38]},
+            ],
+            "bsdf": {"type": "ref", "id": "white"},
+        },
+        "large-box": {
+            "type": "cube",
+            "to_world": [
+                {"type": "scale", "value": [0.3, 0.61, 0.3]},
+                {"type": "rotate", "axis": [0, 1, 0], "angle": 18.25},
+                {"type": "translate", "value": [-0.33, -0.4, -0.28]},
+            ],
+            "bsdf": {"type": "ref", "id": "white"},
+        },
+    }

@@ -1,0 +1,34 @@
+"""Perspective camera (counterpart of mitsuba_tpu/render/sensors.py).
+
+``sample_ray`` makes one camera ray per lane from a film-plane sample in
+[0,1]^2 (u right, v down: film row 0 is the top of the image). The camera
+looks along +z of its to_world frame.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..core.frame import normalize
+from .records import Ray
+
+
+@dataclass
+class PerspectiveCamera:
+    """Pinhole camera; tan_half_fov_x is the tangent of half the field of
+    view along the film's x axis."""
+
+    to_world_m: torch.Tensor      # [4,4]
+    tan_half_fov_x: torch.Tensor  # [] float32
+    aspect: float                 # width / height
+
+    def sample_ray(self, pos_sample, ap_sample=None):
+        x = (1.0 - 2.0 * pos_sample[..., 0]) * self.tan_half_fov_x
+        y = (1.0 - 2.0 * pos_sample[..., 1]) * self.tan_half_fov_x / self.aspect
+        d_cam = normalize(torch.stack([x, y, torch.ones_like(x)], dim=-1))
+        R = self.to_world_m[:3, :3]
+        o = self.to_world_m[:3, 3].expand(d_cam.shape)
+        # d = d_cam @ R.T, written out so the summation order is fixed
+        d = d_cam[..., 0:1] * R[:, 0] + d_cam[..., 1:2] * R[:, 1] + d_cam[..., 2:3] * R[:, 2]
+        return Ray.make(o, d)

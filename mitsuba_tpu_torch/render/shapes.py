@@ -1,0 +1,232 @@
+"""Triangle geometry: host-side build, closest-hit query and shading
+(counterpart of mitsuba_tpu/render/shapes.py, triangles only).
+
+All shapes of a scene are compiled into one struct-of-arrays triangle table
+(a rectangle is 2 triangles, a cube 12), padded with degenerate rows to a
+multiple of TRI_CHUNK. Closest-hit queries go through kernel K1
+(``ops/intersect.py``). Spheres, capsules, SDF grids and meshes above
+MAX_SMEM_TRIS triangles (the BVH path) are not yet ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core.frame import coordinate_system, cross, dot
+from ..ops.intersect import MAX_SMEM_TRIS, build_tri_table, tri_intersect
+from .records import PreliminaryIntersection, Ray, SurfaceInteraction
+
+TRI_CHUNK = 64
+
+
+@dataclass
+class Geometry:
+    """Flattened triangle geometry. ``vertices`` is the source of truth: the
+    per-triangle tables tri_v0/e1/e2/ng are derived from it by refresh()."""
+
+    vertices: torch.Tensor    # [V, 3] concatenated per-mesh vertex buffer
+    tri_face: torch.Tensor    # [T, 3] int64 vertex indices (padding: all 0)
+    tri_v0: torch.Tensor      # [T, 3]
+    tri_e1: torch.Tensor      # [T, 3] v1 - v0
+    tri_e2: torch.Tensor      # [T, 3] v2 - v0
+    tri_ng: torch.Tensor      # [T, 3] unit geometric normal (0 on padding)
+    tri_uv: torch.Tensor      # [T, 3, 2] per-vertex uv
+    tri_shape: torch.Tensor   # [T] int32 shape index (-1 on padding)
+    n_tris: int               # T, padded
+    # (start, count) per mesh into `vertices`, in build order; traverse()
+    # exposes each as `<shape>.vertex_positions`
+    mesh_vertex_slices: tuple = ()
+
+    def refresh(self):
+        """Recompute the derived per-triangle tables from `vertices`."""
+        f = self.tri_face
+        p0 = self.vertices[f[:, 0]]
+        p1 = self.vertices[f[:, 1]]
+        p2 = self.vertices[f[:, 2]]
+        e1 = p1 - p0
+        e2 = p2 - p0
+        ng = cross(e1, e2)
+        # degenerate padding rows get a zero normal
+        n2 = dot(ng, ng, keepdims=True)
+        good = n2 > 1e-24
+        ng = torch.where(good, ng * torch.rsqrt(torch.where(good, n2, 1.0)), 0.0)
+        return dataclasses.replace(self, tri_v0=p0, tri_e1=e1, tri_e2=e2, tri_ng=ng)
+
+
+def build_geometry(tri_meshes, device):
+    """Host-side geometry compile. tri_meshes: list of dicts {vertices
+    [V,3], faces [F,3], shape_index, uvs (optional) [V,2]}."""
+    v0s, e1s, e2s, ngs, uvs, sids = [], [], [], [], [], []
+    verts_all, faces_all, vslices = [], [], []
+    v_off = 0
+    for m in tri_meshes:
+        if m.get("normals") is not None:
+            raise NotImplementedError("meshes with vertex normals are not yet ported")
+        V = np.asarray(m["vertices"], np.float32)
+        F = np.asarray(m["faces"], np.int32)
+        verts_all.append(V)
+        faces_all.append(F + v_off)
+        vslices.append((v_off, V.shape[0]))
+        v_off += V.shape[0]
+        p0, p1, p2 = V[F[:, 0]], V[F[:, 1]], V[F[:, 2]]
+        e1, e2 = p1 - p0, p2 - p0
+        ng = np.cross(e1, e2)
+        area2 = np.linalg.norm(ng, axis=-1, keepdims=True)
+        ng = ng / np.maximum(area2, 1e-20)
+        v0s.append(p0)
+        e1s.append(e1)
+        e2s.append(e2)
+        ngs.append(ng)
+        if m.get("uvs") is not None:
+            U = np.asarray(m["uvs"], np.float32)
+            uvs.append(np.stack([U[F[:, 0]], U[F[:, 1]], U[F[:, 2]]], axis=1))
+        else:
+            default_uv = np.array([[0, 0], [1, 0], [1, 1]], np.float32)
+            uvs.append(np.tile(default_uv[None], (F.shape[0], 1, 1)))
+        sids.append(np.full((F.shape[0],), m["shape_index"], np.int32))
+
+    def cat(lst, empty_shape):
+        if lst:
+            return np.concatenate(lst, axis=0)
+        return np.zeros(empty_shape, np.float32)
+
+    T = sum(x.shape[0] for x in v0s)
+    if T > MAX_SMEM_TRIS:
+        raise NotImplementedError(
+            f"{T} triangles > {MAX_SMEM_TRIS}: the BVH path for large meshes "
+            "is not yet ported"
+        )
+    # pad to a chunk multiple with degenerate triangles (e1=e2=0 -> det=0, no hit)
+    T_pad = max(((T + TRI_CHUNK - 1) // TRI_CHUNK) * TRI_CHUNK, TRI_CHUNK)
+
+    def pad(x, total, fill=0.0):
+        pad_n = total - x.shape[0]
+        if pad_n <= 0:
+            return x
+        return np.concatenate(
+            [x, np.full((pad_n,) + x.shape[1:], fill, x.dtype)], axis=0
+        )
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    tri_shape = pad(
+        np.concatenate(sids, axis=0) if sids else np.zeros((0,), np.int32), T_pad, -1
+    ).astype(np.int32)
+    tri_face = pad(
+        np.concatenate(faces_all, axis=0) if faces_all else np.zeros((0, 3), np.int32),
+        T_pad, 0,
+    ).astype(np.int64)
+    return Geometry(
+        vertices=dev(cat(verts_all, (1, 3))),
+        tri_face=dev(tri_face),
+        tri_v0=dev(pad(cat(v0s, (0, 3)), T_pad)),
+        tri_e1=dev(pad(cat(e1s, (0, 3)), T_pad)),
+        tri_e2=dev(pad(cat(e2s, (0, 3)), T_pad)),
+        tri_ng=dev(pad(cat(ngs, (0, 3)), T_pad)),
+        tri_uv=dev(pad(cat(uvs, (0, 3, 2)), T_pad)),
+        tri_shape=dev(tri_shape),
+        n_tris=T_pad,
+        mesh_vertex_slices=tuple(vslices),
+    )
+
+
+def ray_intersect_preliminary(geom: Geometry, ray: Ray, active=None):
+    """Closest-hit query through kernel K1; inactive lanes never hit."""
+    if active is None:
+        active = torch.ones(ray.o.shape[0], dtype=torch.bool, device=ray.o.device)
+    maxt = torch.where(active, ray.maxt, -float("inf"))
+    t, prim, u, v = tri_intersect(
+        build_tri_table(geom), ray.o.contiguous(), ray.d.contiguous(), maxt.contiguous()
+    )
+    return PreliminaryIntersection(t=t, prim_index=prim, prim_uv=torch.stack([u, v], dim=-1))
+
+
+def ray_test(geom: Geometry, ray: Ray, active=None):
+    """Shadow query: on triangle tables it is a closest-hit query."""
+    return ray_intersect_preliminary(geom, ray, active).is_valid
+
+
+def compute_surface_interaction(geom: Geometry, ray: Ray, pi: PreliminaryIntersection):
+    """Shading frame, uv and shape index of the closest hits."""
+    valid = pi.is_valid
+    tprim = torch.clamp(pi.prim_index, 0, geom.n_tris - 1).to(torch.int64)
+
+    t = torch.where(valid, pi.t, float("inf"))
+    p = ray.at(torch.where(valid, pi.t, 0.0))
+
+    u = pi.prim_uv[:, 0]
+    v = pi.prim_uv[:, 1]
+    w = 1.0 - u - v
+    ng = geom.tri_ng[tprim]
+    sh_n = ng
+    uv3 = geom.tri_uv[tprim]
+    uv = w[:, None] * uv3[:, 0] + u[:, None] * uv3[:, 1] + v[:, None] * uv3[:, 2]
+    shape_index = geom.tri_shape[tprim]
+
+    # orient the geometric normal to the shading normal's hemisphere
+    ng = torch.where(dot(ng, sh_n, keepdims=True) < 0.0, -ng, ng)
+
+    sh_s, sh_t = coordinate_system(sh_n)
+    wi_world = -ray.d
+    wi_local = torch.stack(
+        [dot(wi_world, sh_s), dot(wi_world, sh_t), dot(wi_world, sh_n)], dim=-1
+    )
+    return SurfaceInteraction(
+        t=t, p=p, n=ng, sh_n=sh_n, sh_s=sh_s, sh_t=sh_t, uv=uv, wi=wi_local,
+        shape_index=torch.where(valid, shape_index, -1),
+        prim_index=torch.where(valid, pi.prim_index, -1),
+        prim_uv=pi.prim_uv,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Host-side shape builders
+# ---------------------------------------------------------------------------
+
+def make_rectangle(to_world):
+    """Unit rectangle [-1,1]^2 in the z=0 plane -> 2 triangles."""
+    V = np.array(
+        [[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]], np.float32
+    )
+    F = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    UV = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    Vw = np.asarray(to_world.m)[:3, :3] @ V.T
+    Vw = (Vw + np.asarray(to_world.m)[:3, 3:4]).T
+    return {"vertices": Vw.astype(np.float32), "faces": F, "uvs": UV}
+
+
+def make_cube(to_world):
+    """Unit cube [-1,1]^3 -> 12 triangles."""
+    faces6 = []
+    verts = []
+    uvs = []
+    idx = 0
+    axes = [
+        np.array([0, 0, -1.0]), np.array([0, 0, 1.0]),
+        np.array([0, -1.0, 0]), np.array([0, 1.0, 0]),
+        np.array([-1.0, 0, 0]), np.array([1.0, 0, 0]),
+    ]
+    for n in axes:
+        # a face with outward normal n
+        a = np.array([1.0, 0, 0]) if abs(n[0]) < 0.9 else np.array([0, 1.0, 0])
+        u = np.cross(n, a)
+        u /= np.linalg.norm(u)
+        v = np.cross(n, u)
+        c = np.stack([n + (-u - v), n + (u - v), n + (u + v), n + (-u + v)])
+        # wind so that the face normal points outward
+        wind_n = np.cross(c[1] - c[0], c[2] - c[0])
+        if np.dot(wind_n, n) < 0:
+            c = c[::-1]
+        verts.append(c)
+        uvs.append(np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32))
+        faces6.append(np.array([[idx, idx + 1, idx + 2], [idx, idx + 2, idx + 3]]))
+        idx += 4
+    V = np.concatenate(verts).astype(np.float32)
+    F = np.concatenate(faces6).astype(np.int32)
+    UV = np.concatenate(uvs).astype(np.float32)
+    Vw = (np.asarray(to_world.m)[:3, :3] @ V.T + np.asarray(to_world.m)[:3, 3:4]).T
+    return {"vertices": Vw.astype(np.float32), "faces": F, "uvs": UV}
