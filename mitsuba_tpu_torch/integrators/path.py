@@ -9,7 +9,9 @@ the same (lane, dim) counters as in the JAX package.
 
 With deferred NEE, bounce k's shadow rays are traced in bounce k+1's
 intersect launch, one fused launch of 2N rays per bounce, and the last
-bounce's shadow rays in one final flush launch.
+bounce's shadow rays in one final flush launch. Deferred NEE is off on BVH
+geometry, as in the JAX package: there each bounce's shadow rays take
+their own any-hit launch, which is cheaper than riding a closest-hit batch.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ class PathIntegrator:
     rr_depth: int = 5
     hide_emitters: bool = False
     # trace bounce k's shadow rays in bounce k+1's fused 2N-ray launch
+    # (not on BVH geometry)
     defer_nee: bool = True
 
     def sample(self, scene, rng, ray, active):
@@ -42,7 +45,7 @@ class PathIntegrator:
         nc = scene.n_channels
         dev = ray.o.device
         max_depth = self.max_depth if self.max_depth > 0 else 1024
-        defer = self.defer_nee
+        defer = self.defer_nee and not scene.geometry.has_bvh
 
         L = torch.zeros(n, nc, dtype=torch.float32, device=dev)
         beta = torch.ones(n, nc, dtype=torch.float32, device=dev)

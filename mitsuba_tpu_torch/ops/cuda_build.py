@@ -1,13 +1,16 @@
-"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+"""Build the package's native code and load it with ctypes.
 
-Each source under ``mitsuba_tpu_torch/csrc/`` exports plain ``extern "C"``
-launchers and includes no PyTorch header, so one nvcc call builds it in
-seconds. The shared library goes to ``build/mitsuba_tpu_torch/`` at the
-root of the checkout (listed in .gitignore), under a name keyed by a hash
-of the source and the flags: an edited source is rebuilt at its first use,
-an unchanged one is loaded as it is.
+Each CUDA source under ``mitsuba_tpu_torch/csrc/`` exports plain
+``extern "C"`` launchers and includes no PyTorch header, so one nvcc call
+builds it in seconds. The host C++ under ``csrc/host/`` (the mesh loaders
+and the BVH builder) is built the same way with the host compiler, so it
+builds where there is no nvcc too. Each shared library goes to
+``build/mitsuba_tpu_torch/`` at the root of the checkout (listed in
+.gitignore), under a name keyed by a hash of the sources and the flags: an
+edited source is rebuilt at its first use, an unchanged one is loaded as it
+is.
 
-Nothing here runs at import time; the first launch of a kernel builds it.
+Nothing here runs at import time; the first use of a library builds it.
 """
 from __future__ import annotations
 
@@ -36,8 +39,8 @@ BASE_FLAGS = (
 @dataclass(frozen=True)
 class Build:
     path: Path        # the shared library
-    seconds: float    # nvcc wall time; 0.0 when an earlier build was reused
-    log: str          # nvcc's output, including the -Xptxas -v report
+    seconds: float    # compiler wall time; 0.0 when an earlier build was reused
+    log: str          # the compiler's output (nvcc's has the -Xptxas -v report)
 
 
 def _nvcc():
@@ -51,17 +54,17 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build(name: str, flags: tuple = ()) -> Build:
-    """Compile csrc/<name>.cu into a shared library, or reuse the one an
-    earlier call built from the same source and flags."""
-    src = CSRC / f"{name}.cu"
-    all_flags = BASE_FLAGS + tuple(flags)
-    key = hashlib.sha256(src.read_bytes() + " ".join(all_flags).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{key}.so"
+def _compile(name, compiler, flags, sources) -> Build:
+    """Compile `sources` with `compiler` and `flags` into one shared
+    library, or reuse the one an earlier call built from the same sources
+    and flags."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        digest.update(src.read_bytes())
+    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     log_path = out.with_suffix(".log")
     if out.exists() and log_path.exists():
         return Build(out, 0.0, log_path.read_text())
-    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # build under a temporary name and rename: concurrent builders (several
     # test workers) never load a half-written library
@@ -69,20 +72,40 @@ def build(name: str, flags: tuple = ()) -> Build:
     os.close(fd)
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc, *all_flags, "-o", tmp, str(src)],
+        [compiler, *flags, "-o", tmp, *map(str, sources)],
         capture_output=True, text=True,
     )
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n{log}")
+        raise RuntimeError(f"{compiler} failed on {name} (exit {proc.returncode}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, out)
     return Build(out, seconds, log)
+
+
+def build(name: str, flags: tuple = ()) -> Build:
+    """Compile csrc/<name>.cu with nvcc into a shared library, or reuse the
+    one an earlier call built from the same source and flags."""
+    return _compile(name, _nvcc(), BASE_FLAGS + tuple(flags), [CSRC / f"{name}.cu"])
 
 
 @functools.cache
 def load(name: str, flags: tuple = ()) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built on first use."""
     return ctypes.CDLL(str(build(name, flags).path))
+
+
+# the flags of the JAX package's native/Makefile, so that the BVH builder
+# gives the same nodes bit for bit
+HOST_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")
+
+
+def build_host(name: str, sources: tuple) -> Build:
+    """Compile the host C++ files csrc/host/<source> with g++ into one
+    shared library, or reuse an earlier build."""
+    cxx = shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("g++ not found: the mesh loaders and the BVH builder need it")
+    return _compile(name, cxx, HOST_FLAGS, [CSRC / "host" / s for s in sources])

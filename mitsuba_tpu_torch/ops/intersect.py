@@ -62,12 +62,14 @@ def _check(table, o, d, maxt):
         raise ValueError("tri_intersect: more than 2^31 - 1 rays in one launch")
 
 
-def _hit_chunk(o, d, tri):
-    """Moller-Trumbore of rays [R] against triangles [C]: (t, u, v, hit),
-    each [R, C]. The same operations in the same order as the kernel."""
+def moller_trumbore(o, d, tri):
+    """Moller-Trumbore of rays [R] against triangles, (t, u, v, hit), each
+    [R, C]: tri is [C, 9] (every ray against the same C triangles) or
+    [R, C, 9] (each ray against its own). The same operations in the same
+    order as the kernels K1 and K2."""
     o_x, o_y, o_z = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     d_x, d_y, d_z = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri.unbind(1)
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri.unbind(-1)
     # pvec = d x e2
     pvx = d_y * e2z - d_z * e2y
     pvy = d_z * e2x - d_x * e2z
@@ -106,7 +108,7 @@ def tri_intersect_reference(table, o, d, maxt, tri_chunk=64, ray_chunk=1 << 20):
         bv = torch.zeros_like(bt)
         for c0 in range(0, T, tri_chunk):
             tri = table[c0:c0 + tri_chunk]
-            t, u, v, hit = _hit_chunk(ro, rd, tri)
+            t, u, v, hit = moller_trumbore(ro, rd, tri)
             t = torch.where(hit, t, float("inf"))
             tmin = t.amin(dim=1)
             col = torch.arange(tri.shape[0], device=t.device)

@@ -1,21 +1,29 @@
-"""Scene-dict loader for the Cornell-box vocabulary (counterpart of
-mitsuba_tpu/render/scene_loader.py).
+"""Scene-dict loader for the Cornell-box and mesh vocabulary (counterpart
+of mitsuba_tpu/render/scene_loader.py).
 
 Accepted plugin types: ``scene``; the ``path`` integrator; the
 ``perspective`` sensor with an ``independent`` sampler and an ``hdrfilm``
 with a ``gaussian``, ``box`` or ``tent`` filter; ``diffuse`` BSDFs with
-``rgb`` or scalar reflectance; ``rectangle`` and ``cube`` shapes; ``area``
-emitters; ``ref`` to a named BSDF. Any other type raises
-``NotImplementedError``: it is not yet ported.
+``rgb`` or scalar reflectance; ``rectangle``, ``cube``, ``obj``, ``ply``
+and raw-array ``mesh`` shapes; ``area`` emitters; ``ref`` to a named BSDF.
+Any other type raises ``NotImplementedError``: it is not yet ported
+(``serialized`` and ``blender`` meshes among them).
+
+An ``obj`` or ``ply`` ``filename`` is an absolute path or one relative to
+the working directory: the reference's file-resolver search path is not
+yet ported.
 
 The scene is built on the host in numpy, with the same operations as the
 JAX package's loader, then moved to its device once.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from .. import native
 from ..core.transform import Transform, build_transform
 from .bsdfs import DiffuseBSDF
 from .emitters import AreaEmitter
@@ -25,7 +33,7 @@ from .sensors import PerspectiveCamera
 from . import shapes as SH
 from .textures import ConstantTexture
 
-SHAPE_TYPES = ("rectangle", "cube")
+SHAPE_TYPES = ("rectangle", "cube", "obj", "ply", "mesh")
 FILM_KEYS_NOT_PORTED = ("crop_offset_x", "crop_offset_y", "crop_width", "crop_height")
 
 
@@ -44,6 +52,41 @@ def resolve_device(device=None):
 
 def _not_ported(what):
     return NotImplementedError(f"{what} is not yet ported")
+
+
+def load_mesh_file(kind, filename, to_world):
+    """An ``obj`` or ``ply`` file through the native loaders, in world space:
+    positions by to_world, normals by its inverse transpose, renormalized."""
+    filename = os.fspath(filename)
+    if not os.path.isfile(filename):
+        raise FileNotFoundError(f"{kind} shape: no file {filename!r}")
+    m = native.load_obj(filename) if kind == "obj" else native.load_ply(filename)
+    mm = np.asarray(to_world.m)
+    V = m["vertices"]
+    out = {"vertices": (mm[:3, :3] @ V.T + mm[:3, 3:4]).T.astype(np.float32),
+           "faces": m["faces"]}
+    if "normals" in m:
+        Nw = (np.asarray(to_world.inv)[:3, :3].T @ m["normals"].T).T
+        Nw /= np.maximum(np.linalg.norm(Nw, axis=-1, keepdims=True), 1e-12)
+        out["normals"] = Nw.astype(np.float32)
+    if "uvs" in m:
+        out["uvs"] = m["uvs"]
+    return out
+
+
+def raw_mesh(spec, to_world):
+    """A ``mesh`` shape from arrays in the dict (vertex_positions, faces,
+    optional uvs and normals), in world space."""
+    V = np.asarray(spec["vertex_positions"], np.float32).reshape(-1, 3)
+    F = np.asarray(spec["faces"], np.int32).reshape(-1, 3)
+    mm = np.asarray(to_world.m)
+    m = {"vertices": (mm[:3, :3] @ V.T + mm[:3, 3:4]).T.astype(np.float32), "faces": F}
+    if "uvs" in spec or "vertex_texcoords" in spec:
+        m["uvs"] = np.asarray(spec.get("uvs", spec.get("vertex_texcoords")), np.float32).reshape(-1, 2)
+    if "normals" in spec or "vertex_normals" in spec:
+        nrm = np.asarray(spec.get("normals", spec.get("vertex_normals")), np.float32).reshape(-1, 3)
+        m["normals"] = (np.linalg.inv(mm[:3, :3]).T @ nrm.T).T.astype(np.float32)
+    return m
 
 
 def parse_texture(spec, device, default=1.0):
@@ -166,7 +209,14 @@ def load_dict(d, device=None):
             if "interior" in spec or "exterior" in spec:
                 raise _not_ported("participating media")
             to_world = build_transform(spec.get("to_world", Transform.identity()))
-            m = SH.make_rectangle(to_world) if t == "rectangle" else SH.make_cube(to_world)
+            if t == "rectangle":
+                m = SH.make_rectangle(to_world)
+            elif t == "cube":
+                m = SH.make_cube(to_world)
+            elif t in ("obj", "ply"):
+                m = load_mesh_file(t, spec["filename"], to_world)
+            else:
+                m = raw_mesh(spec, to_world)
             m["shape_index"] = len(shape_records)
             tri_meshes.append(m)
             if "emitter" in spec:
@@ -318,3 +368,58 @@ def cornell_box():
             "bsdf": {"type": "ref", "id": "white"},
         },
     }
+
+
+def spherified_cube(k=130):
+    """(v0, e1, e2) [12 k^2, 3] float32 of a sphere tessellated as a
+    spherified cube (a copy of the JAX package's scripts/bench_bvh.py)."""
+    verts, faces = [], []
+    for axis in range(3):
+        for sgn in (-1.0, 1.0):
+            base = len(verts)
+            for i in range(k + 1):
+                for j in range(k + 1):
+                    uv = [-1 + 2 * i / k, -1 + 2 * j / k]
+                    p = [0.0, 0.0, 0.0]
+                    p[axis] = sgn
+                    p[(axis + 1) % 3] = uv[0]
+                    p[(axis + 2) % 3] = uv[1]
+                    p = np.asarray(p)
+                    verts.append(p / np.linalg.norm(p))
+                    if i < k and j < k:
+                        a = base + i * (k + 1) + j
+                        b, c, d = a + 1, a + (k + 1), a + (k + 1) + 1
+                        faces.append([a, b, d])
+                        faces.append([a, d, c])
+    V = np.asarray(verts, np.float32)
+    F = np.asarray(faces, np.int32)
+    v0 = V[F[:, 0]]
+    return v0, V[F[:, 1]] - v0, V[F[:, 2]] - v0
+
+
+def mesh_scene(obj_path, k=130, res=256):
+    """The large-mesh scene of the JAX package's scripts/bench_mesh.py: the
+    Cornell box without its small box, holding a spherified-cube sphere of
+    12 k^2 triangles (202,800 at k=130), written as an OBJ file at
+    `obj_path`, scaled by 0.35 and moved to (0.2, -0.1, 0.2). Returns the
+    scene dict; the film is res x res."""
+    v0, e1, e2 = spherified_cube(k)
+    verts = np.concatenate([v0, v0 + e1, v0 + e2], axis=0) * 0.35
+    n = v0.shape[0]
+    faces = np.stack([np.arange(n), np.arange(n) + n, np.arange(n) + 2 * n], -1)
+    with open(obj_path, "w") as f:
+        for p in verts:
+            f.write(f"v {p[0]} {p[1]} {p[2]}\n")
+        for a, b, c in faces + 1:
+            f.write(f"f {a} {b} {c}\n")
+    d = cornell_box()
+    d["sensor"]["film"]["width"] = res
+    d["sensor"]["film"]["height"] = res
+    del d["small-box"]
+    d["mesh"] = {
+        "type": "obj",
+        "filename": str(obj_path),
+        "to_world": {"type": "translate", "value": [0.2, -0.1, 0.2]},
+        "bsdf": {"type": "diffuse", "reflectance": {"type": "rgb", "value": [0.6, 0.55, 0.5]}},
+    }
+    return d

@@ -1,11 +1,15 @@
-"""Triangle geometry: host-side build, closest-hit query and shading
-(counterpart of mitsuba_tpu/render/shapes.py, triangles only).
+"""Triangle geometry: host-side build, closest-hit and shadow queries, and
+shading (counterpart of mitsuba_tpu/render/shapes.py, triangles only).
 
 All shapes of a scene are compiled into one struct-of-arrays triangle table
-(a rectangle is 2 triangles, a cube 12), padded with degenerate rows to a
-multiple of TRI_CHUNK. Closest-hit queries go through kernel K1
-(``ops/intersect.py``). Spheres, capsules, SDF grids and meshes above
-MAX_SMEM_TRIS triangles (the BVH path) are not yet ported.
+(a rectangle is 2 triangles, a cube 12, a mesh its faces), padded with
+degenerate rows to a multiple of TRI_CHUNK. A scene of at most
+MAX_SMEM_TRIS triangles is queried through kernel K1
+(``ops/intersect.py``), which sweeps the whole table. A larger one gets a
+wide-leaf BVH (built on the host, ``native.build_bvh_wide``), its
+triangle arrays permuted into leaf order, and is queried through kernel K2
+(``ops/bvh_sweep.py``): closest hit, and any hit for shadow rays. Spheres,
+capsules and SDF grids are not yet ported.
 """
 from __future__ import annotations
 
@@ -15,7 +19,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core.frame import coordinate_system, cross, dot
+from .. import native
+from ..core.frame import coordinate_system, cross, dot, normalize
+from ..ops.bvh_sweep import MAX_WIDE_LEAF, bvh_sweep_intersect, bvh_sweep_occluded
 from ..ops.intersect import MAX_SMEM_TRIS, build_tri_table, tri_intersect
 from .records import PreliminaryIntersection, Ray, SurfaceInteraction
 
@@ -25,20 +31,32 @@ TRI_CHUNK = 64
 @dataclass
 class Geometry:
     """Flattened triangle geometry. ``vertices`` is the source of truth: the
-    per-triangle tables tri_v0/e1/e2/ng are derived from it by refresh()."""
+    per-triangle tables tri_v0/e1/e2/ng/vn are derived from it by refresh().
+    With a BVH, every per-triangle array (tri_face included) is in the
+    BVH's leaf order; refresh() keeps that order and the BVH."""
 
     vertices: torch.Tensor    # [V, 3] concatenated per-mesh vertex buffer
+    vertex_normals: torch.Tensor  # [V, 3] per-vertex normals (zeros if none)
     tri_face: torch.Tensor    # [T, 3] int64 vertex indices (padding: all 0)
     tri_v0: torch.Tensor      # [T, 3]
     tri_e1: torch.Tensor      # [T, 3] v1 - v0
     tri_e2: torch.Tensor      # [T, 3] v2 - v0
     tri_ng: torch.Tensor      # [T, 3] unit geometric normal (0 on padding)
+    tri_vn: torch.Tensor      # [T, 3, 3] per-vertex shading normals
     tri_uv: torch.Tensor      # [T, 3, 2] per-vertex uv
     tri_shape: torch.Tensor   # [T] int32 shape index (-1 on padding)
     n_tris: int               # T, padded
+    has_vertex_normals: bool = False
+    # [M, 8] float32 wide-leaf BVH nodes as native.build_bvh_wide returns
+    # them; None when the scene is small enough for K1
+    bvh_nodes: torch.Tensor | None = None
     # (start, count) per mesh into `vertices`, in build order; traverse()
     # exposes each as `<shape>.vertex_positions`
     mesh_vertex_slices: tuple = ()
+
+    @property
+    def has_bvh(self):
+        return self.bvh_nodes is not None
 
     def refresh(self):
         """Recompute the derived per-triangle tables from `vertices`."""
@@ -53,22 +71,39 @@ class Geometry:
         n2 = dot(ng, ng, keepdims=True)
         good = n2 > 1e-24
         ng = torch.where(good, ng * torch.rsqrt(torch.where(good, n2, 1.0)), 0.0)
-        return dataclasses.replace(self, tri_v0=p0, tri_e1=e1, tri_e2=e2, tri_ng=ng)
+        return dataclasses.replace(self, tri_v0=p0, tri_e1=e1, tri_e2=e2, tri_ng=ng,
+                                   tri_vn=self._shading_normals(ng))
+
+    def _shading_normals(self, ng):
+        """[T, 3, 3] per-vertex shading normals: the vertex normals gathered
+        through tri_face. Meshes without normals carry zero vertex normals:
+        their rows take the face normal ng."""
+        if not self.has_vertex_normals:
+            return ng[:, None, :].expand(-1, 3, -1)
+        f = self.tri_face
+        vn = torch.stack([self.vertex_normals[f[:, k]] for k in range(3)], dim=1)
+        missing = dot(vn, vn, keepdims=True) < 1e-12
+        return torch.where(missing, ng[:, None, :], vn)
 
 
 def build_geometry(tri_meshes, device):
     """Host-side geometry compile. tri_meshes: list of dicts {vertices
-    [V,3], faces [F,3], shape_index, uvs (optional) [V,2]}."""
+    [V,3], faces [F,3], shape_index, normals (optional) [V,3], uvs
+    (optional) [V,2]}."""
     v0s, e1s, e2s, ngs, uvs, sids = [], [], [], [], [], []
-    verts_all, faces_all, vslices = [], [], []
+    verts_all, vnorms_all, faces_all, vslices = [], [], [], []
     v_off = 0
+    any_vn = False
     for m in tri_meshes:
-        if m.get("normals") is not None:
-            raise NotImplementedError("meshes with vertex normals are not yet ported")
         V = np.asarray(m["vertices"], np.float32)
         F = np.asarray(m["faces"], np.int32)
         verts_all.append(V)
         faces_all.append(F + v_off)
+        if m.get("normals") is not None and len(m["normals"]) == len(V):
+            vnorms_all.append(np.asarray(m["normals"], np.float32))
+            any_vn = True
+        else:
+            vnorms_all.append(np.zeros_like(V))
         vslices.append((v_off, V.shape[0]))
         v_off += V.shape[0]
         p0, p1, p2 = V[F[:, 0]], V[F[:, 1]], V[F[:, 2]]
@@ -94,11 +129,6 @@ def build_geometry(tri_meshes, device):
         return np.zeros(empty_shape, np.float32)
 
     T = sum(x.shape[0] for x in v0s)
-    if T > MAX_SMEM_TRIS:
-        raise NotImplementedError(
-            f"{T} triangles > {MAX_SMEM_TRIS}: the BVH path for large meshes "
-            "is not yet ported"
-        )
     # pad to a chunk multiple with degenerate triangles (e1=e2=0 -> det=0, no hit)
     T_pad = max(((T + TRI_CHUNK - 1) // TRI_CHUNK) * TRI_CHUNK, TRI_CHUNK)
 
@@ -110,48 +140,78 @@ def build_geometry(tri_meshes, device):
             [x, np.full((pad_n,) + x.shape[1:], fill, x.dtype)], axis=0
         )
 
+    tri = {
+        "tri_v0": pad(cat(v0s, (0, 3)), T_pad),
+        "tri_e1": pad(cat(e1s, (0, 3)), T_pad),
+        "tri_e2": pad(cat(e2s, (0, 3)), T_pad),
+        "tri_ng": pad(cat(ngs, (0, 3)), T_pad),
+        "tri_uv": pad(cat(uvs, (0, 3, 2)), T_pad),
+        "tri_shape": pad(
+            np.concatenate(sids, axis=0) if sids else np.zeros((0,), np.int32), T_pad, -1
+        ).astype(np.int32),
+        "tri_face": pad(
+            np.concatenate(faces_all, axis=0) if faces_all else np.zeros((0, 3), np.int32),
+            T_pad, 0,
+        ).astype(np.int64),
+    }
+    bvh_nodes = None
+    if T > MAX_SMEM_TRIS:
+        # large scenes: the native binned-SAH BVH, and every per-triangle
+        # array in its leaf order (the padding rows stay at the end: the
+        # leaves never reach them)
+        tris9 = np.concatenate([tri["tri_v0"][:T], tri["tri_e1"][:T], tri["tri_e2"][:T]], axis=-1)
+        bvh_nodes, order = native.build_bvh_wide(tris9, max_leaf=MAX_WIDE_LEAF)
+        perm = np.concatenate([order, np.arange(T, T_pad)]).astype(np.int64)
+        tri = {k: x[perm] for k, x in tri.items()}
+
     def dev(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
-    tri_shape = pad(
-        np.concatenate(sids, axis=0) if sids else np.zeros((0,), np.int32), T_pad, -1
-    ).astype(np.int32)
-    tri_face = pad(
-        np.concatenate(faces_all, axis=0) if faces_all else np.zeros((0, 3), np.int32),
-        T_pad, 0,
-    ).astype(np.int64)
-    return Geometry(
+    geom = Geometry(
         vertices=dev(cat(verts_all, (1, 3))),
-        tri_face=dev(tri_face),
-        tri_v0=dev(pad(cat(v0s, (0, 3)), T_pad)),
-        tri_e1=dev(pad(cat(e1s, (0, 3)), T_pad)),
-        tri_e2=dev(pad(cat(e2s, (0, 3)), T_pad)),
-        tri_ng=dev(pad(cat(ngs, (0, 3)), T_pad)),
-        tri_uv=dev(pad(cat(uvs, (0, 3, 2)), T_pad)),
-        tri_shape=dev(tri_shape),
+        vertex_normals=dev(cat(vnorms_all, (1, 3))),
+        **{k: dev(x) for k, x in tri.items()},
+        tri_vn=None,
         n_tris=T_pad,
+        has_vertex_normals=any_vn,
+        bvh_nodes=None if bvh_nodes is None else dev(bvh_nodes),
         mesh_vertex_slices=tuple(vslices),
     )
+    return dataclasses.replace(geom, tri_vn=geom._shading_normals(geom.tri_ng))
 
 
 def ray_intersect_preliminary(geom: Geometry, ray: Ray, active=None):
-    """Closest-hit query through kernel K1; inactive lanes never hit."""
+    """Closest-hit query through kernel K1, or K2 on a BVH; inactive lanes
+    never hit. t is inf on a miss."""
     if active is None:
         active = torch.ones(ray.o.shape[0], dtype=torch.bool, device=ray.o.device)
-    maxt = torch.where(active, ray.maxt, -float("inf"))
-    t, prim, u, v = tri_intersect(
-        build_tri_table(geom), ray.o.contiguous(), ray.d.contiguous(), maxt.contiguous()
-    )
+    maxt = torch.where(active, ray.maxt, -float("inf")).contiguous()
+    o, d, table = ray.o.contiguous(), ray.d.contiguous(), build_tri_table(geom)
+    if geom.has_bvh:
+        t, prim, u, v = bvh_sweep_intersect(geom.bvh_nodes, table, o, d, maxt)
+        t = torch.where(prim >= 0, t, float("inf"))
+    else:
+        t, prim, u, v = tri_intersect(table, o, d, maxt)
     return PreliminaryIntersection(t=t, prim_index=prim, prim_uv=torch.stack([u, v], dim=-1))
 
 
 def ray_test(geom: Geometry, ray: Ray, active=None):
-    """Shadow query: on triangle tables it is a closest-hit query."""
-    return ray_intersect_preliminary(geom, ray, active).is_valid
+    """Shadow query: any hit through K2 on a BVH (the walk ends at the
+    first hit); on a triangle table it is a closest-hit query."""
+    if not geom.has_bvh:
+        return ray_intersect_preliminary(geom, ray, active).is_valid
+    if active is None:
+        active = torch.ones(ray.o.shape[0], dtype=torch.bool, device=ray.o.device)
+    maxt = torch.where(active, ray.maxt, -float("inf")).contiguous()
+    return bvh_sweep_occluded(
+        geom.bvh_nodes, build_tri_table(geom), ray.o.contiguous(), ray.d.contiguous(), maxt
+    )
 
 
 def compute_surface_interaction(geom: Geometry, ray: Ray, pi: PreliminaryIntersection):
-    """Shading frame, uv and shape index of the closest hits."""
+    """Shading frame, uv and shape index of the closest hits. With vertex
+    normals the shading normal is the normalized barycentric blend of the
+    hit triangle's three."""
     valid = pi.is_valid
     tprim = torch.clamp(pi.prim_index, 0, geom.n_tris - 1).to(torch.int64)
 
@@ -162,7 +222,11 @@ def compute_surface_interaction(geom: Geometry, ray: Ray, pi: PreliminaryInterse
     v = pi.prim_uv[:, 1]
     w = 1.0 - u - v
     ng = geom.tri_ng[tprim]
-    sh_n = ng
+    if geom.has_vertex_normals:
+        vn = geom.tri_vn[tprim]
+        sh_n = normalize(w[:, None] * vn[:, 0] + u[:, None] * vn[:, 1] + v[:, None] * vn[:, 2])
+    else:
+        sh_n = ng
     uv3 = geom.tri_uv[tprim]
     uv = w[:, None] * uv3[:, 0] + u[:, None] * uv3[:, 1] + v[:, None] * uv3[:, 2]
     shape_index = geom.tri_shape[tprim]

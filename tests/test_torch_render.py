@@ -203,21 +203,22 @@ def test_cbox_radiance_matches_jax(max_depth, defer_nee):
 
 
 def test_spp_per_pass_split_is_bitwise_invariant():
-    ts = mt.load_dict(_cbox(), device="cpu")
+    d = _cbox()
+    d["sensor"]["film"]["width"] = d["sensor"]["film"]["height"] = 8
+    ts = mt.load_dict(d, device="cpu")
     a = mt.render(ts, spp=4, seed=3)
     b = mt.render(ts, spp=4, seed=3, spp_per_pass=2)
-    c = mt.render(ts, spp=4, seed=3, spp_per_pass=3)
-    assert torch.equal(a, b) and torch.equal(a, c)
     stats = {}
-    mt.render(ts, spp=4, seed=3, spp_per_pass=2, stats=stats)
-    assert stats["n_rays"] > W * W * 4 and stats["n_invalid"] == 0
+    c = mt.render(ts, spp=4, seed=3, spp_per_pass=3, stats=stats)
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert stats["n_rays"] > 8 * 8 * 4 and stats["n_invalid"] == 0
 
 
 # ---------------------------------------------------------------------------
 # (e) no JAX, (f) device selection, refusals
 # ---------------------------------------------------------------------------
 
-def test_port_imports_and_renders_without_jax():
+def test_port_imports_and_renders_without_jax(tmp_path):
     script = textwrap.dedent("""
         import importlib.abc, sys
         BLOCKED = ("jax", "jaxlib", "flax", "mitsuba_tpu")
@@ -231,16 +232,23 @@ def test_port_imports_and_renders_without_jax():
                 return None
         sys.meta_path.insert(0, Block())
         import mitsuba_tpu_torch as mt
+        from mitsuba_tpu_torch.render.scene_loader import mesh_scene
         d = mt.cornell_box()
         d["sensor"]["film"]["width"] = d["sensor"]["film"]["height"] = 8
         img = mt.render(mt.load_dict(d, device="cpu"), spp=2, seed=0)
+        assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
+        # the mesh path: native loader and BVH builder, K2's plain version
+        scene = mt.load_dict(mesh_scene(sys.argv[1], k=30, res=8), device="cpu")
+        assert scene.geometry.has_bvh
+        img = mt.render(scene, spp=1, seed=0)
         assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         print("OK")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
-        [sys.executable, "-c", script], capture_output=True, text=True, env=env, timeout=120
+        [sys.executable, "-c", script, str(tmp_path / "sphere.obj")],
+        capture_output=True, text=True, env=env, timeout=120,
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("OK")
@@ -270,5 +278,9 @@ def test_unported_parts_raise():
         mt.load_dict(d, device="cpu")
     d = _cbox()
     d["sensor"]["film"]["rfilter"] = {"type": "mitchell"}
+    with pytest.raises(NotImplementedError):
+        mt.load_dict(d, device="cpu")
+    d = _cbox()
+    d["mesh"] = {"type": "serialized", "filename": "mesh.serialized"}
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
