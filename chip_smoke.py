@@ -2,13 +2,19 @@
 
 Builds every hand-written kernel of the port from the sources in this
 checkout (all nvcc and g++ builds started together), holds each against
-its plain PyTorch version on the card, drives the two main paths through
-the user entry points, and checks that each went through its kernels:
+its plain PyTorch version on the card, drives the main paths through the
+user entry points, and checks that each went through its kernels:
 
 - the Cornell box, 256x256 @ 64 spp, path tracer, max_depth 8: kernel K1
   (closest hit over a triangle table);
 - the large-mesh scene (the Cornell box holding a 202,800-triangle sphere,
-  256x256 @ 16 spp): kernel K2, closest hit and any hit over a BVH.
+  256x256 @ 16 spp): kernel K2, closest hit and any hit over a BVH;
+- the Cornell box's PRB gradient step, 256x256 @ 64 spp, max_depth 8, the
+  gradient of white.reflectance.value for the image mean: kernel K1, then
+  again with intersector="mma": kernel K3 (the closest hit with every
+  determinant from the tensor cores); the 64x64 gradient against the JAX
+  package's, and ten Adam steps at 16x16;
+- kernel K4, the device-memory copy probe, swept over its configurations.
 
 Any failure raises and exits non-zero.
 
@@ -22,6 +28,7 @@ its lower bound on this card. The last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -46,6 +53,15 @@ JAX_CBOX_MEANS = (0.2402133047580719, 0.14114509522914886, 0.059986136853694916)
 # scene's dict at res=64 (98 s). The full 256x256 render is too slow for
 # XLA's while-loop traversal on the CPU.
 JAX_MESH64_MEANS = (0.22338911890983582, 0.13317768275737762, 0.057030607014894485)
+# The JAX package's PRB gradient of white.reflectance.value for the image
+# mean of the Cornell box at 64x64, spp=16, seed=0, prb with max_depth 8,
+# computed once with mitsuba_tpu on the CPU:
+# jax.grad(lambda v: mi.render(_tree_set(scene, path, v), spp=16, seed=0).mean())
+# with `path` the parameter's path in scene.param_paths (6.8 s).
+JAX_PRB64_GRAD = (0.09090301394462585, 0.04229336231946945, 0.015745891258120537)
+PRB64_GRAD_RTOL = 0.01
+# the K3 route's gradient against the K1 route's, same seed, per channel
+MMA_GRAD_RTOL = 1e-3
 MEAN_RTOL = 0.03
 # the 64x64 @ 16 spp render draws the same samples as the JAX image above
 MESH64_MEAN_RTOL = 0.005
@@ -58,6 +74,7 @@ MESH64_MEAN_RTOL = 0.005
 # also print the bound at the unfused rate.
 PEAK_FP32_FLOPS = 67e12
 PEAK_FP32_UNFUSED = PEAK_FP32_FLOPS / 2
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 # fp32 arithmetic per (ray, triangle) of the Moller-Trumbore test, counted
 # from the kernel: 2 cross products (18), 4 dot products (20), the 3
@@ -65,7 +82,33 @@ PEAK_BYTES_PER_S = 3.35e12
 # The 6 compares are not counted.
 K1_FLOPS_PER_PAIR = 46
 
+# K3 per (active ray, real triangle): the contraction over the 10
+# geometric feature slots for the 4 quantities (det, u', v', t'), 2 flops a
+# product, 3 products each in the 3xTF32 split, on the tensor cores; and the
+# epilogue's fp32 reciprocal, 3 scalings and u + v on the CUDA cores (the
+# compares not counted)
+K3_TF32_FLOPS_PER_PAIR = 3 * 2 * 10 * 4
+K3_FP32_FLOPS_PER_PAIR = 5
+# K3 against its plain version: prim may differ only at grazing ties (both
+# hit at the same t within 1e-5, or the differing hit lies within 1e-4 of a
+# triangle edge in barycentrics), on at most 1 lane in 1e5; t, u, v on equal
+# prims within 1e-5 * max(|x|, 1) scaled by the hit's conditioning
+# k = max(1, 1 / (|cos| sin)) (cos between ray and normal, sin of the angle
+# between the edges): the 3xTF32 products round to about 2^-22 of each
+# operand, where fp32 rounds to 2^-24, and a grazing ray or a sliver
+# triangle amplifies that by k
+K3_PRIM_RATE = 1e-5
+K3_RTOL = 1e-5
+# K3 against K1: tests/test_mxu_intersect.py's bounds, at most 2 prim
+# differences per 2000 rays and 1e-4 absolute on t, u, v (scaled by k and
+# max(|x|, 1) on the random soup, whose slivers and grazing rays the 2000-ray
+# test does not meet)
+K3_K1_PRIM_RATE = 2 / 2000
+K3_K1_ATOL = 1e-4
+
 MESH_RES, MESH_SPP, MESH_K = 256, 16, 130
+PRB_RES, PRB_SPP, PRB_ITERS = 256, 64, 3
+KEY = "white.reflectance.value"
 
 
 def log(*args):
@@ -108,14 +151,16 @@ def ulp_diff(a, b):
     return int((ia - ib).abs().max().item()) if ia.numel() else 0
 
 
-def build_all(cuda_build, native, K1, K2):
+def build_all(cuda_build, native, K1, K2, K3):
     """Every nvcc build and the g++ build of the host code, started
     together; prints each log. K2 must not spill."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(5) as pool:
         jobs = {
             "tri_intersect": pool.submit(cuda_build.build, "tri_intersect", K1.BUILD_FLAGS),
             "bvh_sweep": pool.submit(cuda_build.build, "bvh_sweep", K2.BUILD_FLAGS),
+            "intersect_mxu": pool.submit(cuda_build.build, "intersect_mxu", K3.BUILD_FLAGS),
+            "dma_probe": pool.submit(cuda_build.build, "dma_probe"),
             "mtpu_native (g++)": pool.submit(cuda_build.build_host, "mtpu_native", native.SOURCES),
         }
         builds = {name: job.result() for name, job in jobs.items()}
@@ -138,7 +183,7 @@ def build_all(cuda_build, native, K1, K2):
 def compare_k1(name, K1, table, o, d, maxt):
     """K1 against its plain version on the same inputs: prim bitwise, and
     t, u, v bitwise or within 2 ulp. Returns (worst ulp, max abs error)."""
-    got = K1.tri_intersect(table, o, d, maxt)
+    got = K1.smem_intersect(table, o, d, maxt)
     ref = K1.tri_intersect_reference(table, o, d, maxt)
     torch.cuda.synchronize()
     if not torch.equal(got[1], ref[1]):
@@ -204,17 +249,17 @@ def phase_k1(mi, K1, make_wavefront):
     maxt = torch.cat([ray.maxt, torch.full_like(ray.maxt, -float("inf"))]).contiguous()
     worst_a, err_a = compare_k1("cbox bounce-0 batch", K1, table, o, d, maxt)
     worst_b, err_b = compare_k1("random soup", K1, *random_soup(4096, 1 << 20, 7, o.device))
-    k1_ms = time_cuda(lambda: K1.tri_intersect(table, o, d, maxt), reps=50)
+    k1_ms = time_cuda(lambda: K1.smem_intersect(table, o, d, maxt), reps=50)
     plain_ms = time_cuda(lambda: K1.tri_intersect_reference(table, o, d, maxt), reps=3, warmup=1)
     maxt_all = torch.full_like(maxt, float("inf"))
-    k1_all_ms = time_cuda(lambda: K1.tri_intersect(table, o, d, maxt_all), reps=50)
+    k1_all_ms = time_cuda(lambda: K1.smem_intersect(table, o, d, maxt_all), reps=50)
     bound_ms, bound_by, n_active, n_real = k1_bound_ms(table, maxt)
     bound_all_ms, _, _, _ = k1_bound_ms(table, maxt_all)
     log(f"K1 timing, cbox bounce-0 batch ({o.shape[0]} rays, {n_active} active, "
         f"{table.shape[0]} rows, {n_real} real): kernel {k1_ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}); all lanes active: kernel {k1_all_ms:.4f} ms, "
         f"bound {bound_all_ms:.4f} ms")
-    return scene, {
+    return scene, (o, d, maxt), {
         "name": "tri_intersect",
         "route": "cuda",
         "source": "mitsuba_tpu_torch/csrc/tri_intersect.cu",
@@ -229,13 +274,29 @@ def phase_k1(mi, K1, make_wavefront):
     }
 
 
-def reset_launches(K1, K2):
-    K1.tri_intersect.launches = 0
+def reset_launches(K1, K2, K3):
+    K1.smem_intersect.launches = 0
     K2.bvh_sweep_intersect.launches = 0
     K2.bvh_sweep_occluded.launches = 0
+    K3.mxu_intersect.launches = 0
 
 
-def phase_cbox_main(mi, K1, K2, scene, shapes_mod):
+@contextlib.contextmanager
+def plain_versions(K1, K2, K3):
+    """Inside, every kernel's wrapper runs its plain version, on the card:
+    the renders through the kernels are held against these."""
+    saved = K1.smem_intersect, K3.mxu_intersect, K2.bvh_sweep
+    K1.smem_intersect = K1.tri_intersect_reference
+    K3.mxu_intersect = K3.mxu_intersect_reference
+    K2.bvh_sweep = lambda nodes, table, o, d, maxt, anyhit=False: K2.bvh_sweep_reference(
+        nodes, table, o, d, maxt, anyhit)
+    try:
+        yield
+    finally:
+        K1.smem_intersect, K3.mxu_intersect, K2.bvh_sweep = saved
+
+
+def phase_cbox_main(mi, K1, K2, K3, scene):
     """The cbox main path at 256x256 @ 64 spp, then the 64x64 render through
     K1 against the same render through the plain version."""
     film = scene.film
@@ -243,13 +304,13 @@ def phase_cbox_main(mi, K1, K2, scene, shapes_mod):
     mi.render(scene, spp=1, seed=1)                       # warm-up, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(K1, K2)
+    reset_launches(K1, K2, K3)
     stats = {}
     t0 = time.perf_counter()
     img = mi.render(scene, spp=spp, seed=0, stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = K1.tri_intersect.launches
+    launches = K1.smem_intersect.launches
     k2_launches = K2.bvh_sweep_intersect.launches + K2.bvh_sweep_occluded.launches
     peak = torch.cuda.max_memory_allocated()
     means = img.mean(dim=(0, 1)).tolist()
@@ -272,11 +333,8 @@ def phase_cbox_main(mi, K1, K2, scene, shapes_mod):
     d64["sensor"]["film"]["width"] = d64["sensor"]["film"]["height"] = 64
     scene64 = mi.load_dict(d64)
     img_k = mi.render(scene64, spp=4, seed=0)
-    shapes_mod.tri_intersect = K1.tri_intersect_reference   # this phase only
-    try:
+    with plain_versions(K1, K2, K3):
         img_p = mi.render(scene64, spp=4, seed=0)
-    finally:
-        shapes_mod.tri_intersect = K1.tri_intersect
     compare_images("cbox", img_k, img_p)
     return launches
 
@@ -291,6 +349,343 @@ def compare_images(name, img_k, img_p):
     log(f"== {name} kernel vs plain render, 64x64: {eq:.5%} of pixels equal at rtol 1e-5")
     if eq < 0.999:
         raise AssertionError(f"{name} 64x64 render: kernel and plain images differ beyond 0.1% of pixels")
+
+
+# ---------------------------------------------------------------------------
+# K3
+# ---------------------------------------------------------------------------
+
+def conditioning(table, prim, d):
+    """k = max(1, 1 / (|cos| sin)) of each lane's hit triangle (1 on a
+    miss): cos between the ray and the normal, sin between the edges."""
+    rows = table[torch.clamp(prim, min=0).to(torch.int64)].double()
+    e1, e2 = rows[:, 3:6], rows[:, 6:9]
+    n = torch.linalg.cross(e1, e2)
+    area2 = n.norm(dim=1).clamp(min=1e-30)
+    cos = (d.double() * n).sum(1).abs() / area2
+    sin = area2 / (e1.norm(dim=1) * e2.norm(dim=1)).clamp(min=1e-30)
+    k = torch.clamp(1.0 / (cos * sin).clamp(min=1e-30), min=1.0)
+    return torch.where(prim >= 0, k, 1.0)
+
+
+def compare_hits(name, got, ref, table, d, prim_rate, tol, scaled):
+    """Closest hits `got` against `ref` on the same rays: prim may differ
+    only at grazing ties (both hit at the same t within 1e-5, or a
+    differing hit lies within 1e-4 k of a triangle edge), on at most
+    prim_rate of the lanes; t, u, v on equal prims within tol, times
+    k max(|x|, 1) when `scaled`. Returns (prim differences, max abs error,
+    worst error over its bound)."""
+    n = d.shape[0]
+    diff = got[1] != ref[1]
+    idx = diff.nonzero()[:, 0]
+    if idx.numel():
+        tg, tr = got[0][idx], ref[0][idx]
+        both = (got[1][idx] >= 0) & (ref[1][idx] >= 0)
+        same_t = both & ((tg - tr).abs() <= 1e-5 * torch.clamp(tr.abs(), min=1.0))
+
+        def near_edge(res):
+            u, v = res[2][idx], res[3][idx]
+            k = conditioning(table, res[1][idx], d[idx])
+            return (res[1][idx] >= 0) & (torch.minimum(torch.minimum(u, v), 1 - u - v) <= 1e-4 * k)
+
+        ties = same_t | near_edge(got) | near_edge(ref)
+        if not bool(ties.all()):
+            bad = idx[~ties][:5].tolist()
+            raise AssertionError(f"K3 {name}: prim differs away from a grazing tie at lanes {bad}")
+    if idx.numel() > prim_rate * n:
+        raise AssertionError(f"K3 {name}: prim differs on {idx.numel()} of {n} lanes "
+                             f"(> {prim_rate:g} of them)")
+    m = ~diff & (ref[1] >= 0)
+    k = conditioning(table, ref[1], d)[m]
+    err = worst = 0.0
+    for a, b in ((got[0], ref[0]), (got[2], ref[2]), (got[3], ref[3])):
+        e = (a[m] - b[m]).abs()
+        if not e.numel():
+            continue
+        err = max(err, float(e.max()))
+        scale = (k * torch.clamp(b[m].abs(), min=1.0)) if scaled else 1.0
+        worst = max(worst, float((e / scale).max()) / tol)
+    log(f"K3 {name}: {n} rays, {int((ref[1] >= 0).sum())} hits; prim differs on "
+        f"{idx.numel()} lanes (grazing ties); t/u/v max abs err {err:.3g}, worst "
+        f"{worst:.3f} of the bound ({tol:g}{' x k max(|x|,1)' if scaled else ' absolute'})")
+    if worst > 1.0:
+        raise AssertionError(f"K3 {name}: t/u/v beyond the bound ({worst:.3f} of it)")
+    return idx.numel(), err, worst
+
+
+def k3_check(name, K1, K3, table, o, d, maxt, scaled_vs_k1):
+    """K3 on one batch against its plain version and against K1."""
+    cols = K3.build_mxu_cols(table[:, 0:3], table[:, 3:6], table[:, 6:9])
+    got = K3.mxu_intersect(cols, o, d, maxt)
+    ref = K3.mxu_intersect_reference(cols, o, d, maxt)
+    k1 = K1.smem_intersect(table, o, d, maxt)
+    torch.cuda.synchronize()
+    if not bool((got[1][~(maxt > 0)] == -1).all()):
+        raise AssertionError(f"K3 {name}: a disabled lane hit")
+    _, err, _ = compare_hits(f"{name} vs plain", got, ref, table, d, K3_PRIM_RATE, K3_RTOL, True)
+    compare_hits(f"{name} vs K1", got, k1, table, d, K3_K1_PRIM_RATE, K3_K1_ATOL, scaled_vs_k1)
+    return cols, err
+
+
+def k3_bound_ms(cols, maxt, n_real):
+    """Least time for one K3 call on these inputs: o, d, maxt read and t,
+    prim, u, v written for an active lane (44 B), maxt and the outputs for
+    a disabled one (20 B), the column table once; against the 3xTF32
+    products on the tensor cores and the epilogue on the CUDA cores for
+    every active lane and real triangle (the two units run side by side,
+    so the larger of their times)."""
+    n = maxt.shape[0]
+    n_active = int((maxt > 0).sum())
+    nbytes = cols.numel() * 4 + n_active * 44 + (n - n_active) * 20
+    pairs = n_active * n_real
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_tc = pairs * K3_TF32_FLOPS_PER_PAIR / PEAK_TF32_FLOPS * 1e3
+    t_fp = pairs * K3_FP32_FLOPS_PER_PAIR / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_tc, t_fp), ("operations" if max(t_tc, t_fp) >= t_bytes else "bytes"), (
+        t_bytes, t_tc, t_fp)
+
+
+def phase_k3(K1, K3, scene, batch):
+    """K3 against its plain version and K1 on the cbox's bounce-0 2N batch
+    (the main path's table for the mma route: the 36 real rows), on it
+    with 10% more of the lanes disabled, and on a 512-triangle soup with
+    duplicated rows (ties); K3, K1, the plain version and the contraction
+    alone in torch.matmul timed on the cbox batch."""
+    geom = scene.geometry.refresh()
+    table = K1.build_tri_table(geom)[:geom.n_real_tris].contiguous()
+    o, d, maxt = batch
+    cols, err_a = k3_check("cbox bounce-0 batch", K1, K3, table, o, d, maxt, False)
+    gen = torch.Generator(device=o.device).manual_seed(5)
+    maxt10 = torch.where(torch.rand(maxt.shape, generator=gen, device=o.device) < 0.1,
+                         -float("inf"), maxt)
+    _, err_b = k3_check("cbox batch, 10% more disabled", K1, K3, table, o, d, maxt10, False)
+    s_table, s_o, s_d, s_maxt = random_soup(512, 1 << 20, 7, o.device)
+    _, err_c = k3_check("512-triangle soup", K1, K3, s_table, s_o, s_d, s_maxt, True)
+
+    k3_ms = time_cuda(lambda: K3.mxu_intersect(cols, o, d, maxt), reps=50)
+    k1_ms = time_cuda(lambda: K1.smem_intersect(table, o, d, maxt), reps=50)
+    plain_ms = time_cuda(lambda: K3.mxu_intersect_reference(cols, o, d, maxt), reps=3, warmup=1)
+    torch.backends.cuda.matmul.allow_tf32 = False      # the fp32 product, stated and set
+    feat = K3.mxu_features(o, d, maxt)
+    lib_ms = time_cuda(lambda: torch.matmul(feat, cols), reps=10)
+    del feat
+    torch.cuda.empty_cache()
+    n_real = int((torch.linalg.cross(table[:, 3:6], table[:, 6:9]).abs().sum(-1) > 0).sum())
+    bound_ms, bound_by, (t_bytes, t_tc, t_fp) = k3_bound_ms(cols, maxt, n_real)
+    log(f"K3 timing, cbox bounce-0 batch ({o.shape[0]} rays, {int((maxt > 0).sum())} active, "
+        f"{n_real} triangles, Tp {cols.shape[1] // 4}): kernel {k3_ms:.4f} ms, K1 on the same "
+        f"{table.shape[0]}-row table {k1_ms:.4f} ms, plain {plain_ms:.2f} ms, torch.matmul "
+        f"contraction only (fp32, TF32 off) {lib_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+        f"bytes {t_bytes:.4f}, TF32 products {t_tc:.4f}, fp32 epilogue {t_fp:.4f}), kernel at "
+        f"{bound_ms / k3_ms:.2%} of it")
+    return {
+        "name": "mxu_intersect",
+        "route": "cuda",
+        "source": "mitsuba_tpu_torch/csrc/intersect_mxu.cu",
+        "replaces": "mitsuba_tpu/ops/intersect_mxu.py:82",
+        "max_abs_err": max(err_a, err_b, err_c),
+        "ms": k3_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": lib_ms,
+        "library_call": "torch.matmul(feat, cols) in fp32, TF32 off: the contraction only",
+        "k1_same_table_ms": k1_ms,
+    }
+
+
+# ---------------------------------------------------------------------------
+# PRB: the gradient step
+# ---------------------------------------------------------------------------
+
+def prb_dict(mi, res, spp, max_depth):
+    d = mi.cornell_box()
+    d["sensor"]["film"]["width"] = d["sensor"]["film"]["height"] = res
+    d["sensor"]["sampler"]["sample_count"] = spp
+    d["integrator"] = {"type": "prb", "max_depth": max_depth}
+    return d
+
+
+def grad_step(mi, scene, seed, spp, stats=None):
+    """(image, gradient of KEY) of loss = image mean, as bench.py's headline."""
+    params = mi.traverse(scene)
+    v = params[KEY].clone().requires_grad_()
+    img = mi.render(params.update({KEY: v}), spp=spp, seed=seed, stats=stats)
+    img.mean().backward()
+    return img.detach(), v.grad
+
+
+@contextlib.contextmanager
+def timed_launches(module, name, events):
+    """Inside, CUDA events around each call of module.<name>. The kernel's
+    wrapper counts its launches on the module's name, so the count moves to
+    the stand-in and back."""
+    fn = getattr(module, name)
+
+    def wrapper(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    wrapper.launches = fn.launches
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        fn.launches = wrapper.launches
+        setattr(module, name, fn)
+
+
+def run_prb(mi, K1, K2, K3, intersector):
+    """The PRB gradient step at 256x256 @ 64 spp through `intersector`:
+    one warm-up iteration, PRB_ITERS timed ones (seed = iteration), then
+    one with CUDA events around each closest-hit launch."""
+    scene = mi.load_dict(prb_dict(mi, PRB_RES, PRB_SPP, 8), intersector=intersector)
+    grad_step(mi, scene, 0, PRB_SPP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(K1, K2, K3)
+    walls, rays, grads = [], [], []
+    for it in range(PRB_ITERS):
+        stats = {}
+        t0 = time.perf_counter()
+        img, g = grad_step(mi, scene, it, PRB_SPP, stats)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        rays.append((stats["n_rays"], stats["n_rays_grad"]))
+        grads.append(g)
+        if tuple(img.shape) != (PRB_RES, PRB_RES, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"prb {intersector}: image of shape {tuple(img.shape)} not finite")
+        if not bool(torch.isfinite(g).all()) or not bool((g != 0).all()):
+            raise AssertionError(f"prb {intersector}: gradient {g.tolist()}")
+    launches = dict(K1=K1.smem_intersect.launches, K3=K3.mxu_intersect.launches,
+                    K2=K2.bvh_sweep_intersect.launches + K2.bvh_sweep_occluded.launches)
+    peak = torch.cuda.max_memory_allocated()
+    for it, (wall, (n_fwd, n_grad)) in enumerate(zip(walls, rays)):
+        log(f"== main path: cbox prb {PRB_RES}x{PRB_RES} @ {PRB_SPP} spp, intersector "
+            f"{intersector!r}, iteration {it}: {wall:.3f} s wall, rays forward {n_fwd} + "
+            f"backward {n_grad} (primal at seed_grad and replay) = {n_fwd + n_grad}, "
+            f"{(n_fwd + n_grad) / wall / 1e6:.2f} Mrays/s fwd+bwd counted; bench.py's 3x forward "
+            f"approximation {3 * n_fwd / wall / 1e6:.2f} Mrays/s; gradient {grads[it].tolist()}")
+    log(f"  {PRB_ITERS} iterations: launches {launches}, {launches['K1'] / PRB_ITERS:.0f} K1 "
+        f"and {launches['K3'] / PRB_ITERS:.0f} K3 per iteration; peak memory {peak / 2**30:.2f} GiB")
+    used, unused = ("K1", "K3") if intersector == "smem" else ("K3", "K1")
+    if launches[used] == 0 or launches[unused] != 0 or launches["K2"] != 0:
+        raise AssertionError(f"prb {intersector}: launches {launches}")
+    owner, kernel = (K1, "smem_intersect") if intersector == "smem" else (K3, "mxu_intersect")
+    events = []
+    with timed_launches(owner, kernel, events):
+        t0 = time.perf_counter()
+        grad_step(mi, scene, 0, PRB_SPP)
+        torch.cuda.synchronize()
+        wall_t = time.perf_counter() - t0
+    k_ms = sum(s.elapsed_time(e) for s, e in events)
+    log(f"  one more iteration with events around each {kernel} launch: {wall_t * 1e3:.1f} ms wall, "
+        f"{len(events)} launches, {k_ms:.2f} ms in the kernel ({k_ms / (wall_t * 1e3):.2%} of it)")
+    return grads[0], launches, walls, rays, peak, k_ms / (wall_t * 1e3)
+
+
+def phase_prb_main(mi, K1, K2, K3):
+    """The slice's main path through K1 and through K3; the K3 route's
+    gradient held against the K1 route's at the same seed."""
+    g_smem, l_smem, walls, rays, peak, share_k1 = run_prb(mi, K1, K2, K3, "smem")
+    g_mma, l_mma, walls_m, _, _, share_k3 = run_prb(mi, K1, K2, K3, "mma")
+    rel = ((g_mma - g_smem).abs() / g_smem.abs()).tolist()
+    log(f"== prb gradient, K3 route vs K1 route (seed 0): {g_mma.tolist()} vs {g_smem.tolist()}, "
+        f"relative difference {rel}")
+    if max(rel) > MMA_GRAD_RTOL:
+        raise AssertionError(f"prb: K3 route's gradient differs from K1 route's by {rel}")
+    return l_smem, l_mma, dict(walls=walls, rays=rays, peak=peak, share_k1=share_k1,
+                               walls_mma=walls_m, share_k3=share_k3)
+
+
+def phase_prb64(mi, K1, K2, K3):
+    """The 64x64 @ 16 spp gradient against the JAX package's, and the
+    kernel route's gradient against the plain route's, bitwise."""
+    scene = mi.load_dict(prb_dict(mi, 64, 16, 8))
+    img_k, g_k = grad_step(mi, scene, 0, 16)
+    with plain_versions(K1, K2, K3):
+        img_p, g_p = grad_step(mi, scene, 0, 16)
+    rel = [abs(a - b) / abs(b) for a, b in zip(g_k.tolist(), JAX_PRB64_GRAD)]
+    log(f"== prb 64x64 @ 16 spp gradient {g_k.tolist()}, within {max(rel):.4%} of the JAX "
+        f"package's {JAX_PRB64_GRAD}; kernel vs plain route: gradient bitwise "
+        f"{torch.equal(g_k, g_p)}, image bitwise {torch.equal(img_k, img_p)}")
+    if max(rel) > PRB64_GRAD_RTOL:
+        raise AssertionError(f"prb 64x64: gradient {g_k.tolist()} vs JAX {JAX_PRB64_GRAD}: {rel}")
+    if not (torch.equal(g_k, g_p) and torch.equal(img_k, img_p)):
+        raise AssertionError(f"prb 64x64: kernel route {g_k.tolist()} vs plain {g_p.tolist()}")
+
+
+def phase_adam(mi):
+    """Ten Adam steps on the 16x16 cbox (prb, max_depth 3) from albedo 0.3
+    toward a 256-spp target rendered with the scene's own albedo. Every
+    step renders 32 spp with the same seed: the sampling does not depend on
+    the albedo (no Russian roulette below depth 5), so the loss is a smooth
+    function of it and its fall is not hidden by the noise of new samples."""
+    scene = mi.load_dict(prb_dict(mi, 16, 16, 3))
+    params = mi.traverse(scene)
+    target = mi.render(scene, spp=256, seed=1000).detach()
+    opt = mi.ad.Adam(lr=0.05)
+    opt[KEY] = torch.full((3,), 0.3, device=target.device)
+    losses = []
+    for it in range(10):
+        v = opt[KEY].clone().requires_grad_()
+        img = mi.render(params.update({KEY: v}), spp=32, seed=0)
+        loss = ((img - target) ** 2).mean()
+        loss.backward()
+        opt.step({KEY: v.grad})
+        losses.append(loss.item())
+        log(f"  adam step {it}: loss {losses[-1]:.6f}, albedo {opt[KEY].tolist()}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"adam: the loss did not fall: {losses}")
+    log(f"== adam, 10 steps: loss {losses[0]:.6f} -> {losses[-1]:.6f}")
+
+
+# ---------------------------------------------------------------------------
+# K4
+# ---------------------------------------------------------------------------
+
+def phase_k4(K4):
+    """K4 swept over its configurations, each sink held exactly against
+    the plain version; GB/s per configuration and the best."""
+    x = K4.probe_array("cuda")
+    K4.copy_probe.launches = 0
+    results = []
+    for rows, ring, n_copies in K4.configs():
+        gbps, sink = K4.measure(x, rows, ring, n_copies)
+        results.append((gbps, rows, ring, n_copies))
+        log(f"K4 rows={rows} ({rows * 512 // 1024} KB/copy) ring={ring}: {n_copies} copies, "
+            f"{gbps:.1f} GB/s, sink {sink} = plain")
+    launches = K4.copy_probe.launches
+    gbps, rows, ring, n_copies = max(results)
+    nbytes = n_copies * rows * K4.ROW_FLOATS * 4
+    ms = nbytes / (gbps * 1e9) * 1e3
+    # the bound reads each input byte once: the rows that some window covers
+    off = K4.window_offsets(x.shape[0], rows, n_copies, x.device)
+    edges = torch.zeros(x.shape[0] + 1, dtype=torch.int64, device=x.device)
+    edges.index_add_(0, off, torch.ones_like(off)).index_add_(0, off + rows, -torch.ones_like(off))
+    distinct = int((edges.cumsum(0)[:-1] > 0).sum()) * K4.ROW_FLOATS * 4 + 8
+    plain_ms = time_cuda(lambda: K4.copy_probe_reference(x, rows, n_copies), reps=5)
+    y = torch.empty_like(x)
+    copy_ms = time_cuda(lambda: y.copy_(x), reps=10)
+    log(f"== K4 best: {gbps:.1f} GB/s (rows={rows}, ring={ring}), {gbps / (PEAK_BYTES_PER_S / 1e9):.1%} "
+        f"of the published {PEAK_BYTES_PER_S / 1e9:.0f} GB/s: windows re-read rows that L2 "
+        f"still holds; {ms:.4f} ms for {nbytes} B of windows ({nbytes / PEAK_BYTES_PER_S * 1e3:.4f} "
+        f"ms at the published rate), {distinct} distinct B read (bound "
+        f"{distinct / PEAK_BYTES_PER_S * 1e3:.4f} ms); for scale, torch copy_ of the "
+        f"128 MiB array (read and write) {2 * x.numel() * 4 / copy_ms / 1e6:.1f} GB/s")
+    return {
+        "name": "copy_probe", "route": "cuda", "source": "mitsuba_tpu_torch/csrc/dma_probe.cu",
+        "replaces": "scripts/bench_dma.py:19", "launches": launches, "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": distinct / PEAK_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None, "best_gbps": gbps,
+        "window_bytes_ms_at_published_rate": nbytes / PEAK_BYTES_PER_S * 1e3,
+        "torch_copy_gbps": 2 * x.numel() * 4 / copy_ms / 1e6,
+        "configs": [dict(rows=r, ring=g, gbps=b) for b, r, g, _ in results],
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -427,7 +822,7 @@ def render_mesh(mi, scene, spp, stats=None):
     return img
 
 
-def phase_mesh_main(mi, K1, K2, scene, tmp):
+def phase_mesh_main(mi, K1, K2, K3, scene, tmp):
     """The mesh main path at 256x256 @ 16 spp through mi.render; one more
     pass with CUDA events around each K2 launch; the 64x64 @ 16 spp render
     against the JAX package's means; the 64x64 @ 4 spp render through K2
@@ -440,13 +835,13 @@ def phase_mesh_main(mi, K1, K2, scene, tmp):
     # the pass timed with events below pay no first-use costs; not counted
     render_mesh(mi, scene, MESH_SPP)
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(K1, K2)
+    reset_launches(K1, K2, K3)
     stats = {}
     t0 = time.perf_counter()
     img = render_mesh(mi, scene, MESH_SPP, stats)
     wall = time.perf_counter() - t0
     n_closest, n_any = K2.bvh_sweep_intersect.launches, K2.bvh_sweep_occluded.launches
-    k1_launches = K1.tri_intersect.launches
+    k1_launches = K1.smem_intersect.launches
     peak = torch.cuda.max_memory_allocated()
     means = img.mean(dim=(0, 1)).tolist()
     log(f"== main path: mesh {film.width}x{film.height} @ {MESH_SPP} spp: {wall:.3f} s wall, "
@@ -506,13 +901,8 @@ def phase_mesh_main(mi, K1, K2, scene, tmp):
         raise AssertionError(f"mesh 64x64: means {means64} vs JAX {JAX_MESH64_MEANS}: {rel64}")
 
     img_k = render_mesh(mi, scene64, 4)
-    shapes_mod.bvh_sweep_intersect = lambda *a: K2.bvh_sweep_reference(*a)   # this phase only
-    shapes_mod.bvh_sweep_occluded = lambda *a: K2.bvh_sweep_reference(*a, anyhit=True)[1] >= 0
-    try:
+    with plain_versions(K1, K2, K3):
         img_p = render_mesh(mi, scene64, 4)
-    finally:
-        shapes_mod.bvh_sweep_intersect = K2.bvh_sweep_intersect
-        shapes_mod.bvh_sweep_occluded = K2.bvh_sweep_occluded
     compare_images("mesh", img_k, img_p)
     return n_closest, n_any
 
@@ -526,25 +916,44 @@ def main():
     from mitsuba_tpu_torch import native
     from mitsuba_tpu_torch.ops import bvh_sweep as K2
     from mitsuba_tpu_torch.ops import cuda_build
+    from mitsuba_tpu_torch.ops import dma_probe as K4
     from mitsuba_tpu_torch.ops import intersect as K1
-    from mitsuba_tpu_torch.render import shapes as shapes_mod
+    from mitsuba_tpu_torch.ops import intersect_mxu as K3
     from mitsuba_tpu_torch.render_api import make_wavefront
 
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     log(f"== device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; {smi}")
 
-    build_all(cuda_build, native, K1, K2)
-    scene, k1_entry = phase_k1(mi, K1, make_wavefront)
-    k1_entry["launches"] = phase_cbox_main(mi, K1, K2, scene, shapes_mod)
-    del scene
+    build_all(cuda_build, native, K1, K2, K3)
+    scene, batch, k1_entry = phase_k1(mi, K1, make_wavefront)
+    cbox_launches = phase_cbox_main(mi, K1, K2, K3, scene)
+    k3_entry = phase_k3(K1, K3, scene, batch)
+    del scene, batch
+    torch.cuda.empty_cache()
+
+    l_smem, l_mma, prb = phase_prb_main(mi, K1, K2, K3)
+    phase_prb64(mi, K1, K2, K3)
+    phase_adam(mi)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         scene, err, closest, bounce1, anyhit = phase_k2(mi, K1, K2, native, tmp)
-        n_closest, n_any = phase_mesh_main(mi, K1, K2, scene, tmp)
+        n_closest, n_any = phase_mesh_main(mi, K1, K2, K3, scene, tmp)
+        del scene
+    torch.cuda.empty_cache()
+    k4_entry = phase_k4(K4)
 
+    per_path = f"{PRB_ITERS} iterations"
+    k1_entry["launches"] = cbox_launches
+    k1_entry["launches_by_path"] = {"cbox path 256x256 @ 64 spp": cbox_launches,
+                                    f"cbox prb, K1 route, {per_path}": l_smem["K1"],
+                                    f"cbox prb, K3 route, {per_path}": l_mma["K1"],
+                                    "mesh path": 0}
+    k3_entry["launches"] = l_mma["K3"]
+    k3_entry["launches_by_path"] = {f"cbox prb, K3 route, {per_path}": l_mma["K3"],
+                                    f"cbox prb, K1 route, {per_path}": l_smem["K3"]}
     k2 = {"route": "cuda", "source": "mitsuba_tpu_torch/csrc/bvh_sweep.cu",
           "replaces": "mitsuba_tpu/ops/bvh_sweep.py:108", "max_abs_err": err,
           "library_ms": None, "bitwise_vs_plain": err == 0.0}
@@ -555,7 +964,9 @@ def main():
              bounce1_ms=bounce1[0], bounce1_bound_ms=bounce1[2], **k2),
         dict(name="bvh_sweep_anyhit", launches=n_any, ms=anyhit[0], plain_ms=anyhit[1],
              bound_ms=anyhit[2], bound_by=anyhit[3], batch="mesh bounce-0 shadow rays", **k2),
-    ]}
+        k3_entry,
+        k4_entry,
+    ], "prb": {k: v for k, v in prb.items()}}
     log(f"== chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(report))

@@ -11,12 +11,20 @@ Entry points run on the card unless the caller names another device:
     mi.set_variant("llvm_ad_rgb")
     scene = mi.load_dict(mi.cornell_box())          # on "cuda"
     img = mi.render(scene, spp=64)                  # [H, W, 3] on scene.device
+
+Gradients: write a parameter that requires grad and call backward, through
+the path integrator's tape or the PRB integrators' replay:
+
+    params = mi.traverse(scene)
+    v = params["white.reflectance.value"].clone().requires_grad_()
+    mi.render(params.update({"white.reflectance.value": v}), spp=64).mean().backward()
 """
 from .variant import set_variant, variant, variants, current_variant, Variant
 from .core.rng import RNG
 from .core.transform import Transform, build_transform
 from .render.scene_loader import load_dict, cornell_box
 from .render.params import traverse, SceneParameters
-from .render_api import render
+from .render_api import render, render_forward
+from . import ad
 
 __version__ = "0.1.0"

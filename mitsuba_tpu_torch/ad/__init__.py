@@ -1,0 +1,5 @@
+"""Differentiable-rendering layer (counterpart of mitsuba_tpu/ad): the PRB
+integrator, its render pass as an autograd node, and the optimizers."""
+from .optimizers import Adam, Optimizer, SGD
+from .prb import PRBIntegrator
+from .render_ad import derive_seed_grad, prb_pass, prb_pass_lanes

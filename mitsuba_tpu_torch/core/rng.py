@@ -10,7 +10,8 @@ on the CPU), so the 32-bit words live in int64 tensors and are reduced with
 CPU and the card.
 
 Only the independent sampler is ported: the low-discrepancy and
-orthogonal-array modes raise ``NotImplementedError``.
+orthogonal-array modes raise ``NotImplementedError``. ``sample_tea_32`` is
+the TEA hash that derives the gradient pass's seed from the primal seed.
 """
 from __future__ import annotations
 
@@ -90,3 +91,23 @@ class RNG:
             uniform_from_bits(b1),
             RNG(self.seed, self.lane, self.dim + 2),
         )
+
+
+def sample_tea_32(v0, v1, rounds=4):
+    """TEA hash of two uint32 words (the JAX package's sample_tea_32), on
+    Python ints or int64 tensors holding uint32 words. Returns the pair in
+    the same kind as its inputs: Python ints when both are ints."""
+    tensors = torch.is_tensor(v0) or torch.is_tensor(v1)
+    if tensors:
+        like = v0 if torch.is_tensor(v0) else v1
+        v0, v1 = _u32(v0, like), _u32(v1, like)
+    else:
+        v0, v1 = int(v0) & MASK32, int(v1) & MASK32
+    s = 0
+    for _ in range(rounds):
+        s = (s + 0x9E3779B9) & MASK32
+        v0 = (v0 + ((((v1 << 4) + 0xA341316C) & MASK32) ^ ((v1 + s) & MASK32)
+                    ^ ((v1 >> 5) + 0xC8013EA4) & MASK32)) & MASK32
+        v1 = (v1 + ((((v0 << 4) + 0xAD90777D) & MASK32) ^ ((v0 + s) & MASK32)
+                    ^ ((v0 >> 5) + 0x7E95761E) & MASK32)) & MASK32
+    return v0, v1

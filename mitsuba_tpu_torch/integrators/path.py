@@ -12,6 +12,11 @@ intersect launch, one fused launch of 2N rays per bounce, and the last
 bounce's shadow rays in one final flush launch. Deferred NEE is off on BVH
 geometry, as in the JAX package: there each bounce's shadow rays take
 their own any-hit launch, which is cheaper than riding a closest-hit batch.
+
+With ``use_nee=False`` the tracer is the pure BSDF-sampling estimator (no
+next-event estimation, no MIS: emitter hits count at full weight), the
+semantics of ``prb_basic``; the random numbers are drawn in the same order
+either way.
 """
 from __future__ import annotations
 
@@ -37,6 +42,8 @@ class PathIntegrator:
     # trace bounce k's shadow rays in bounce k+1's fused 2N-ray launch
     # (not on BVH geometry)
     defer_nee: bool = True
+    # next-event estimation with MIS; False gives prb_basic's estimator
+    use_nee: bool = True
 
     def sample(self, scene, rng, ray, active):
         """Radiance [N, 3] along each ray and {"n_rays": rays cast}: one
@@ -45,7 +52,8 @@ class PathIntegrator:
         nc = scene.n_channels
         dev = ray.o.device
         max_depth = self.max_depth if self.max_depth > 0 else 1024
-        defer = self.defer_nee and not scene.geometry.has_bvh
+        nee = self.use_nee
+        defer = nee and self.defer_nee and not scene.geometry.has_bvh
 
         L = torch.zeros(n, nc, dtype=torch.float32, device=dev)
         beta = torch.ones(n, nc, dtype=torch.float32, device=dev)
@@ -72,16 +80,11 @@ class PathIntegrator:
             # ---- emitter hits and escaped rays, MIS against the BSDF pdf ----
             escaped = active & ~si.is_valid
             env_val = scene.eval_environment(ray_d)
-            env_pdf = torch.where(prev_delta, 0.0, scene.pdf_emitter_direction_escaped(ray_d))
-            w_env = mis_weight(prev_pdf, env_pdf)
-            if not hide:
-                L = L + torch.where(escaped[..., None], beta * w_env[..., None] * env_val, 0.0)
-
             hit_em = active & si.is_valid
             em_val = scene.eval_emitter_hit(si)
-            em_pdf = torch.where(prev_delta, 0.0, scene.pdf_emitter_direction_hit(prev_p, si))
-            w_em = mis_weight(prev_pdf, em_pdf)
+            w_env, w_em = emitter_mis_weights(scene, nee, si, ray_d, prev_pdf, prev_delta, prev_p)
             if not hide:
+                L = L + torch.where(escaped[..., None], beta * w_env[..., None] * env_val, 0.0)
                 L = L + torch.where(hit_em[..., None], beta * w_em[..., None] * em_val, 0.0)
 
             active_next = active & si.is_valid & (depth + 1 < max_depth)
@@ -93,21 +96,22 @@ class PathIntegrator:
             u_rr, _, rng = rng.next_2d()
 
             # ---- NEE ----
-            ds, em_weight = scene.sample_emitter_direction(
-                si.p, u0, torch.stack([u2a_x, u2a_y], dim=-1), active_next,
-                test_visibility=not defer, ref_n=si.n,
-            )
-            bsdf_val, bsdf_pdf = scene.bsdf_eval_pdf(si, si.to_local(ds.d), active_next)
-            w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf))
-            contrib = torch.where(
-                active_next[..., None], beta * bsdf_val * em_weight * w_nee[..., None], 0.0
-            )
+            if nee:
+                ds, em_weight = scene.sample_emitter_direction(
+                    si.p, u0, torch.stack([u2a_x, u2a_y], dim=-1), active_next,
+                    test_visibility=not defer, ref_n=si.n,
+                )
+                bsdf_val, bsdf_pdf = scene.bsdf_eval_pdf(si, si.to_local(ds.d), active_next)
+                w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf))
+                contrib = torch.where(
+                    active_next[..., None], beta * bsdf_val * em_weight * w_nee[..., None], 0.0
+                )
             if defer:
                 # the shadow ray rides the next bounce's fused launch
                 pend = spawn_ray(si.p, si.n, ds.d, maxt=ds.dist * (1.0 - 1e-3))
                 pend_active = active_next & (ds.pdf > 0) & torch.any(contrib != 0.0, dim=-1)
                 pend_contrib = contrib
-            else:
+            elif nee:
                 L = L + contrib
 
             # ---- BSDF sampling ----
@@ -128,7 +132,7 @@ class PathIntegrator:
                 )
                 alive = alive & (u_rr < q)
 
-            n_rays = n_rays + active.sum() + active_next.sum()
+            n_rays = n_rays + active.sum() + (active_next.sum() if nee else 0)
             ray_o, ray_d = new_ray.o, new_ray.d
             active = alive
             prev_pdf, prev_delta, prev_p = bs.pdf, bs.delta, si.p
@@ -138,3 +142,14 @@ class PathIntegrator:
             occluded = scene.ray_test(pend, pend_active)
             L = L + torch.where((pend_active & ~occluded)[..., None], pend_contrib, 0.0)
         return L, {"n_rays": n_rays}
+
+
+def emitter_mis_weights(scene, nee, si, ray_d, prev_pdf, prev_delta, prev_p):
+    """(w_env, w_em): the MIS weights of an escaped ray and of an emitter
+    hit against the previous bounce's BSDF pdf; 1 without NEE."""
+    if not nee:
+        one = torch.ones_like(prev_pdf)
+        return one, one
+    env_pdf = torch.where(prev_delta, 0.0, scene.pdf_emitter_direction_escaped(ray_d))
+    em_pdf = torch.where(prev_delta, 0.0, scene.pdf_emitter_direction_hit(prev_p, si))
+    return mis_weight(prev_pdf, env_pdf), mis_weight(prev_pdf, em_pdf)

@@ -28,6 +28,13 @@ the walk wins. A triangle hit needs |det| > 1e-12, barycentrics inside and
 a miss). The any-hit mode ends a lane's walk at its first hit, so only
 prim >= 0 is meaningful there.
 
+``bvh_sweep_intersect`` is differentiable (the JAX package's custom VJP as
+a ``torch.autograd.Function``): its backward is ``ops/intersect.py:
+mt_vjp`` in plain PyTorch, with cotangents for o and d and for the table
+rows of the hit triangles in leaf order, which reach tri_v0, tri_e1 and
+tri_e2 through the table's concatenation; none for the nodes or maxt.
+``bvh_sweep_occluded`` has no gradient, as in the JAX package.
+
 Left out, because the result does not depend on them: the TPU kernel's ray
 sort (``ray_sort_key``/``maybe_sort_order``), its 128-lane triangle
 padding, the block-shared node window, row masks and DMA ring.
@@ -40,7 +47,7 @@ import functools
 import torch
 
 from . import cuda_build
-from .intersect import moller_trumbore
+from .intersect import hit_vjp, moller_trumbore
 
 # leaf width of the BVH build: 64, the JAX package's, so that both packages
 # build the same nodes and leaf order
@@ -224,14 +231,34 @@ def bvh_sweep(nodes, table, o, d, maxt, anyhit=False):
     return t, prim, u, v
 
 
+class BVHSweepIntersect(torch.autograd.Function):
+    """Closest hit over the BVH with the analytic VJP of the planar hit (the
+    JAX package's bvh_sweep_intersect custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, nodes, table, o, d, maxt):
+        t, prim, u, v = bvh_sweep(nodes, table, o, d, maxt, anyhit=False)
+        ctx.save_for_backward(table, prim, t, u, v, d)
+        ctx.mark_non_differentiable(prim)
+        return t, prim, u, v
+
+    @staticmethod
+    def backward(ctx, g_t, _g_prim, g_u, g_v):
+        table, prim, t, u, v, d = ctx.saved_tensors
+        ct_table, ct_o, ct_d = hit_vjp(table, prim, t, u, v, d, g_t, g_u, g_v)
+        return None, ct_table, ct_o, ct_d, None
+
+
 def bvh_sweep_intersect(nodes, table, o, d, maxt):
-    """Closest hit of each ray: (t, prim, u, v)."""
-    return bvh_sweep(nodes, table, o, d, maxt, anyhit=False)
+    """Differentiable closest hit of each ray: (t, prim, u, v)."""
+    return BVHSweepIntersect.apply(nodes, table, o, d, maxt)
 
 
 def bvh_sweep_occluded(nodes, table, o, d, maxt):
-    """Whether each ray hits anything before its maxt: bool [N]."""
-    return bvh_sweep(nodes, table, o, d, maxt, anyhit=True)[1] >= 0
+    """Whether each ray hits anything before its maxt: bool [N], without a
+    gradient."""
+    return bvh_sweep(nodes, table.detach(), o.detach(), d.detach(), maxt.detach(),
+                     anyhit=True)[1] >= 0
 
 
 bvh_sweep_intersect.launches = 0

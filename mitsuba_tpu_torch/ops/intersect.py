@@ -1,11 +1,19 @@
-"""Closest-hit query over a triangle table: kernel K1 and its plain version
-(counterpart of mitsuba_tpu/ops/intersect.py).
+"""Closest-hit query over a triangle table: kernel K1, its plain version and
+the gradient of the hit (counterpart of mitsuba_tpu/ops/intersect.py).
 
-``tri_intersect`` launches the hand-written CUDA kernel
+``smem_intersect`` launches the hand-written CUDA kernel
 ``csrc/tri_intersect.cu`` (which replaces the TPU kernel
 ``mitsuba_tpu/ops/intersect.py:_kernel``) for tensors on the card, and runs
 ``tri_intersect_reference`` for tensors on the CPU. A tensor on the card
 never falls back to the plain version.
+
+``tri_intersect`` is the differentiable entry (the JAX package's custom VJP
+as a ``torch.autograd.Function``). Its forward is K1 (``intersector=
+"smem"``) or K3 (``"mma"``, ``ops/intersect_mxu.py``: the same contract,
+the determinants from the tensor cores); its backward, the same for both,
+is the analytic VJP of the planar hit (``mt_vjp``) in plain PyTorch, as the
+JAX package's is plain XLA: cotangents for the rays' o and d, and for the
+table rows of the hit triangles, added with ``index_add_``; none for maxt.
 
 Contract (the TPU kernel's): table [T, 9] float32 rows (v0 | e1 | e2) with
 T <= MAX_SMEM_TRIS; rays o, d [N, 3] and maxt [N] float32. A hit needs
@@ -13,8 +21,6 @@ T <= MAX_SMEM_TRIS; rays o, d [N, 3] and maxt [N] float32. A hit needs
 best_t starting at maxt; on a tie the first triangle index wins; maxt <= 0
 or -inf disables a lane. Returns t [N] (inf on a miss), prim [N] int32
 (-1 on a miss), u [N], v [N] (0 on a miss).
-
-The gradient of the hit (the JAX package's custom VJP) is not ported yet.
 """
 from __future__ import annotations
 
@@ -23,9 +29,10 @@ import functools
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, intersect_mxu
 
 MAX_SMEM_TRIS = 4096
+INTERSECTORS = ("smem", "mma")
 
 
 def build_tri_table(geometry):
@@ -139,10 +146,10 @@ def _launcher():
     return fn
 
 
-def tri_intersect(table, o, d, maxt):
+def smem_intersect(table, o, d, maxt):
     """Closest hit of each ray over the triangle table (see the module
     docstring for the contract). On the card this launches K1 and counts
-    the launch in ``tri_intersect.launches``; on the CPU it runs the plain
+    the launch in ``smem_intersect.launches``; on the CPU it runs the plain
     version."""
     _check(table, o, d, maxt)
     if table.device.type == "cpu":
@@ -164,10 +171,79 @@ def tri_intersect(table, o, d, maxt):
             maxt.data_ptr(), n, t.data_ptr(), prim.data_ptr(), u.data_ptr(),
             v.data_ptr(), stream,
         )
-    tri_intersect.launches += 1
+    smem_intersect.launches += 1
     if rc != 0:
         raise RuntimeError(f"tri_intersect: kernel launch failed with CUDA error {rc}")
     return t, prim, u, v
 
 
-tri_intersect.launches = 0
+smem_intersect.launches = 0
+
+
+def mt_vjp(e1, e2, d, g_t, g_u, g_v, valid):
+    """The Moller-Trumbore VJP shared by K1, K2 and K3's wrappers (the JAX
+    package's mt_vjp). The hit solves M x = o - v0 with M = [-d | e1 | e2]
+    and x = (t, u, v); for a cotangent g on x, y = M^-T g gives
+    grad_o = y, grad_v0 = -y, grad_d = t y, grad_e1 = -u y, grad_e2 = -v y,
+    with y = (g_t (e1 x e2) + g_u (d x e2) + g_v (e1 x d)) / det and
+    det = -(d . e1 x e2). Lanes that are not valid, or whose det is below
+    1e-12, get y = 0."""
+    nrm = torch.linalg.cross(e1, e2)
+    det = -(d * nrm).sum(-1)
+    ok = valid & (torch.abs(det) > 1e-12)
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
+    y = (g_t[:, None] * nrm + g_u[:, None] * torch.linalg.cross(d, e2)
+         + g_v[:, None] * torch.linalg.cross(e1, d)) * inv_det[:, None]
+    return torch.where(ok[:, None], y, 0.0)
+
+
+def hit_vjp(table, prim, t, u, v, d, g_t, g_u, g_v):
+    """Cotangents (table, o, d) of a closest hit (t, prim, u, v) for the
+    output cotangents g_t, g_u, g_v (None for an output with none): the
+    table rows of the hit triangles get (-y | -u y | -v y), added with
+    index_add_. A miss gets nothing: its t may be inf, so t y is masked."""
+    zero = torch.zeros_like(t)
+    g_t, g_u, g_v = (zero if g is None else g for g in (g_t, g_u, g_v))
+    valid = prim >= 0
+    p = torch.clamp(prim, min=0).to(torch.int64)
+    rows = table[p]
+    y = mt_vjp(rows[:, 3:6], rows[:, 6:9], d, g_t, g_u, g_v, valid)
+    ct_rows = torch.cat([-y, -u[:, None] * y, -v[:, None] * y], dim=-1)
+    ct_table = torch.zeros_like(table).index_add_(0, p, torch.where(valid[:, None], ct_rows, 0.0))
+    return ct_table, y, torch.where(valid, t, 0.0)[:, None] * y
+
+
+def _closest_hit(intersector, table, o, d, maxt):
+    """The forward of either route, looked up at call time."""
+    if intersector == "smem":
+        return smem_intersect(table, o, d, maxt)
+    cols = intersect_mxu.build_mxu_cols(table[:, 0:3], table[:, 3:6], table[:, 6:9])
+    return intersect_mxu.mxu_intersect(cols, o, d, maxt)
+
+
+class TriIntersect(torch.autograd.Function):
+    """Closest hit with the analytic VJP of the planar hit (the JAX
+    package's tri_intersect custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, table, o, d, maxt, intersector):
+        t, prim, u, v = _closest_hit(intersector, table, o, d, maxt)
+        ctx.save_for_backward(table, prim, t, u, v, d)
+        ctx.mark_non_differentiable(prim)
+        return t, prim, u, v
+
+    @staticmethod
+    def backward(ctx, g_t, _g_prim, g_u, g_v):
+        table, prim, t, u, v, d = ctx.saved_tensors
+        ct_table, ct_o, ct_d = hit_vjp(table, prim, t, u, v, d, g_t, g_u, g_v)
+        return ct_table, ct_o, ct_d, None, None
+
+
+def tri_intersect(table, o, d, maxt, intersector="smem"):
+    """Differentiable closest hit (t, prim, u, v) of each ray over the
+    triangle table, through K1 (``intersector="smem"``) or K3 (``"mma"``);
+    see the module docstring."""
+    if intersector not in INTERSECTORS:
+        raise ValueError(f"intersector must be one of {INTERSECTORS}, got {intersector!r}")
+    _check(table, o, d, maxt)
+    return TriIntersect.apply(table, o, d, maxt, intersector)

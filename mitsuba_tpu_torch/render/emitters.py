@@ -24,10 +24,11 @@ from .records import DirectionSample
 
 
 def area_cdf(geometry, shape_index):
-    """(triangle ids, unnormalized area cdf) of one shape's triangles."""
+    """(triangle ids, unnormalized area cdf) of one shape's triangles. The
+    cdf is a detached sampling table: no gradient flows through it."""
     tri_shape = geometry.tri_shape.cpu().numpy()
-    e1 = geometry.tri_e1.cpu().numpy()
-    e2 = geometry.tri_e2.cpu().numpy()
+    e1 = geometry.tri_e1.detach().cpu().numpy()
+    e2 = geometry.tri_e2.detach().cpu().numpy()
     tri_idx = np.nonzero(tri_shape == shape_index)[0].astype(np.int32)
     areas = 0.5 * np.linalg.norm(np.cross(e1[tri_idx], e2[tri_idx]), axis=-1)
     return tri_idx, np.cumsum(areas).astype(np.float32)

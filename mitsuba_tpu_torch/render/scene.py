@@ -147,6 +147,16 @@ class Scene:
             out = torch.where((em_idx == i)[..., None], em.eval(si), out)
         return out
 
+    def eval_emitter_sample(self, ds):
+        """Radiance value [N, 3] of the emitter recorded in each direction
+        sample, without its geometric factors (1/dist^2, pdf): the PRB
+        replay evaluates it attached and carries the rest of the NEE weight
+        as a detached ratio."""
+        out = torch.zeros(ds.d.shape[0], self.n_channels, dtype=torch.float32, device=ds.d.device)
+        for i, em in enumerate(self.emitters):
+            out = torch.where((ds.emitter_index == i)[..., None], em.radiance.eval(ds.uv), out)
+        return out
+
     def eval_environment(self, d):
         """Radiance of escaped rays: no environment emitter is ported, so 0."""
         return torch.zeros(d.shape[:-1] + (self.n_channels,), dtype=torch.float32, device=d.device)

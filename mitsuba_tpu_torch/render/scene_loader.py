@@ -1,7 +1,8 @@
 """Scene-dict loader for the Cornell-box and mesh vocabulary (counterpart
 of mitsuba_tpu/render/scene_loader.py).
 
-Accepted plugin types: ``scene``; the ``path`` integrator; the
+Accepted plugin types: ``scene``; the ``path``, ``prb`` and ``prb_basic``
+integrators; the
 ``perspective`` sensor with an ``independent`` sampler and an ``hdrfilm``
 with a ``gaussian``, ``box`` or ``tent`` filter; ``diffuse`` BSDFs with
 ``rgb`` or scalar reflectance; ``rectangle``, ``cube``, ``obj``, ``ply``
@@ -151,9 +152,19 @@ def parse_sensor(spec, device):
     return cam, film, spp
 
 
-def load_dict(d, device=None):
+INTEGRATOR_TYPES = ("path", "prb", "prb_basic")
+
+
+def load_dict(d, device=None, intersector="smem"):
     """Build a Scene from a reference-style nested dict, on `device` (the
-    card unless the caller names another)."""
+    card unless the caller names another).
+
+    `intersector` picks the closest-hit kernel of a triangle-table scene:
+    "smem" (K1, the default, as in the JAX package) or "mma" (K3, every
+    determinant from one matrix product on the tensor cores). This is the
+    JAX package's MI_TPU_MXU_INTERSECT switch made an explicit argument,
+    not a new feature; "mma" on a scene above MAX_MXU_TRIS (512) triangles,
+    or one that takes the BVH path, raises ValueError."""
     from ..integrators import make_integrator
 
     device = resolve_device(device)
@@ -201,7 +212,7 @@ def load_dict(d, device=None):
         t = spec.get("type")
         if t == "diffuse":
             continue
-        if t in ("integrator", "path"):
+        if name == "integrator" or t in INTEGRATOR_TYPES:
             integrator_spec = spec
         elif t == "perspective":
             sensor, film, spp = parse_sensor(spec, device)
@@ -230,7 +241,7 @@ def load_dict(d, device=None):
     if sensor is None:
         raise _not_ported("a scene without a perspective sensor")
 
-    geometry = SH.build_geometry(tri_meshes, device)
+    geometry = SH.build_geometry(tri_meshes, device, intersector)
     for mesh, (v_start, v_count) in zip(tri_meshes, geometry.mesh_vertex_slices):
         sname = shape_records[mesh["shape_index"]]["name"]
         param_paths.append(

@@ -5,7 +5,10 @@ All shapes of a scene are compiled into one struct-of-arrays triangle table
 (a rectangle is 2 triangles, a cube 12, a mesh its faces), padded with
 degenerate rows to a multiple of TRI_CHUNK. A scene of at most
 MAX_SMEM_TRIS triangles is queried through kernel K1
-(``ops/intersect.py``), which sweeps the whole table. A larger one gets a
+(``ops/intersect.py``), which sweeps the whole table, or, when it was
+loaded with ``intersector="mma"`` and has at most MAX_MXU_TRIS triangles,
+through kernel K3 (``ops/intersect_mxu.py``), which takes every
+determinant from one matrix product on the tensor cores. A larger one gets a
 wide-leaf BVH (built on the host, ``native.build_bvh_wide``), its
 triangle arrays permuted into leaf order, and is queried through kernel K2
 (``ops/bvh_sweep.py``): closest hit, and any hit for shadow rays. Spheres,
@@ -22,7 +25,8 @@ import torch
 from .. import native
 from ..core.frame import coordinate_system, cross, dot, normalize
 from ..ops.bvh_sweep import MAX_WIDE_LEAF, bvh_sweep_intersect, bvh_sweep_occluded
-from ..ops.intersect import MAX_SMEM_TRIS, build_tri_table, tri_intersect
+from ..ops.intersect import INTERSECTORS, MAX_SMEM_TRIS, build_tri_table, tri_intersect
+from ..ops.intersect_mxu import MAX_MXU_TRIS
 from .records import PreliminaryIntersection, Ray, SurfaceInteraction
 
 TRI_CHUNK = 64
@@ -53,6 +57,10 @@ class Geometry:
     # (start, count) per mesh into `vertices`, in build order; traverse()
     # exposes each as `<shape>.vertex_positions`
     mesh_vertex_slices: tuple = ()
+    # closest-hit kernel of a triangle table: "smem" (K1) or "mma" (K3)
+    intersector: str = "smem"
+    # triangles before the padding rows (K3 pads to its own n-tile)
+    n_real_tris: int = 0
 
     @property
     def has_bvh(self):
@@ -86,10 +94,14 @@ class Geometry:
         return torch.where(missing, ng[:, None, :], vn)
 
 
-def build_geometry(tri_meshes, device):
+def build_geometry(tri_meshes, device, intersector="smem"):
     """Host-side geometry compile. tri_meshes: list of dicts {vertices
     [V,3], faces [F,3], shape_index, normals (optional) [V,3], uvs
-    (optional) [V,2]}."""
+    (optional) [V,2]}. `intersector` picks the closest-hit kernel of a
+    triangle table: "smem" (K1) or "mma" (K3, at most MAX_MXU_TRIS
+    triangles and no BVH; a ValueError otherwise)."""
+    if intersector not in INTERSECTORS:
+        raise ValueError(f"intersector must be one of {INTERSECTORS}, got {intersector!r}")
     v0s, e1s, e2s, ngs, uvs, sids = [], [], [], [], [], []
     verts_all, vnorms_all, faces_all, vslices = [], [], [], []
     v_off = 0
@@ -154,6 +166,11 @@ def build_geometry(tri_meshes, device):
             T_pad, 0,
         ).astype(np.int64),
     }
+    if intersector == "mma" and T > MAX_MXU_TRIS:
+        raise ValueError(
+            f"intersector='mma' takes at most {MAX_MXU_TRIS} triangles; this scene has {T}"
+            + (" and takes the BVH path" if T > MAX_SMEM_TRIS else "")
+        )
     bvh_nodes = None
     if T > MAX_SMEM_TRIS:
         # large scenes: the native binned-SAH BVH, and every per-triangle
@@ -176,13 +193,16 @@ def build_geometry(tri_meshes, device):
         has_vertex_normals=any_vn,
         bvh_nodes=None if bvh_nodes is None else dev(bvh_nodes),
         mesh_vertex_slices=tuple(vslices),
+        intersector=intersector,
+        n_real_tris=T,
     )
     return dataclasses.replace(geom, tri_vn=geom._shading_normals(geom.tri_ng))
 
 
 def ray_intersect_preliminary(geom: Geometry, ray: Ray, active=None):
-    """Closest-hit query through kernel K1, or K2 on a BVH; inactive lanes
-    never hit. t is inf on a miss."""
+    """Closest-hit query through kernel K1 (or K3, as the geometry asks), or
+    K2 on a BVH; inactive lanes never hit. t is inf on a miss. Both queries
+    are differentiable in the rays and the triangle table."""
     if active is None:
         active = torch.ones(ray.o.shape[0], dtype=torch.bool, device=ray.o.device)
     maxt = torch.where(active, ray.maxt, -float("inf")).contiguous()
@@ -191,13 +211,16 @@ def ray_intersect_preliminary(geom: Geometry, ray: Ray, active=None):
         t, prim, u, v = bvh_sweep_intersect(geom.bvh_nodes, table, o, d, maxt)
         t = torch.where(prim >= 0, t, float("inf"))
     else:
-        t, prim, u, v = tri_intersect(table, o, d, maxt)
+        if geom.intersector == "mma":
+            table = table[:geom.n_real_tris]
+        t, prim, u, v = tri_intersect(table, o, d, maxt, geom.intersector)
     return PreliminaryIntersection(t=t, prim_index=prim, prim_uv=torch.stack([u, v], dim=-1))
 
 
 def ray_test(geom: Geometry, ray: Ray, active=None):
     """Shadow query: any hit through K2 on a BVH (the walk ends at the
-    first hit); on a triangle table it is a closest-hit query."""
+    first hit); on a triangle table it is a closest-hit query through the
+    geometry's intersector."""
     if not geom.has_bvh:
         return ray_intersect_preliminary(geom, ray, active).is_valid
     if active is None:

@@ -1,5 +1,5 @@
-"""Render entry point (counterpart of mitsuba_tpu/render_api.py, the forward
-path with the independent sampler).
+"""Render entry points (counterpart of mitsuba_tpu/render_api.py, with the
+independent sampler).
 
 One pass renders width * height * spp_pass lanes, pixel-major. spp is split
 into passes of spp_per_pass samples to bound device memory. Lane RNG
@@ -9,6 +9,12 @@ however spp is split.
 
 Everything runs on ``scene.device``: the card unless the scene was loaded
 with another device.
+
+Gradients: with the ``path`` integrator, ``render`` is differentiable by
+ordinary autograd through the bounce loop (tape mode: every bounce's
+tensors stay alive until the backward pass). With ``prb`` or
+``prb_basic``, each pass is one autograd node whose backward replays the
+paths (ad/render_ad.py), in O(wavefront + parameters) memory.
 """
 from __future__ import annotations
 
@@ -16,8 +22,10 @@ import dataclasses
 
 import torch
 
+from .ad.render_ad import derive_seed_grad, prb_pass
 from .core.rng import MASK32, RNG
 from .render.film import accumulate, sample_filter_offset
+from .render.params import traverse
 
 
 def make_wavefront(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx=0):
@@ -75,27 +83,82 @@ def render_lanes(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_i
     return L, {**aux, **inv_stats}
 
 
-def render(scene, params=None, sensor=0, seed=0, spp=None, spp_per_pass=None, stats=None):
+# reconstruction filters whose film weights depend on the sample's offset:
+# spp_grad's refold of the film adjoint is not exact for them
+WEIGHTED_FILTERS = ("mitchell", "catmullrom", "lanczos")
+
+
+def render(scene, params=None, sensor=0, seed=0, spp=None, spp_per_pass=None,
+           seed_grad=None, spp_grad=None, stats=None):
     """Render to an image tensor [H, W, 3] on scene.device (mirrors
     mi.render). `params` may be a SceneParameters whose scene is rendered.
-    When `stats` is a dict, it receives the totals over all passes of
-    n_rays (closest-hit plus shadow rays cast), n_invalid and n_negative."""
+
+    With a PRB integrator, `seed_grad` seeds the backward pass (by default
+    the TEA hash of `seed`; a ValueError if it equals `seed`) and
+    `spp_grad` gives the backward pass its own sample count (single-pass
+    renders only). When `stats` is a dict, it receives the totals over all
+    passes of n_rays (closest-hit plus shadow rays cast) and, for the path
+    integrator, n_invalid and n_negative; a PRB render's backward pass adds
+    the rays it casts (its own primal and the replay) to n_rays_grad."""
     if params is not None and hasattr(params, "scene"):
         scene = params.scene
     film = scene.film
     spp = spp or scene.spp
     spp_per_pass = min(spp_per_pass or spp, spp)
     n_passes = (spp + spp_per_pass - 1) // spp_per_pass
+    seed_grad = derive_seed_grad(seed, seed_grad)
+    use_prb = getattr(scene.integrator, "is_prb", False)
+    if spp_grad is not None and spp_grad != spp:
+        if not use_prb:
+            raise ValueError("spp_grad needs a PRB integrator (the tape backward "
+                             "reuses the forward lanes)")
+        if n_passes != 1:
+            raise ValueError("spp_grad requires a single pass (spp_per_pass >= spp)")
+        if film.rfilter in WEIGHTED_FILTERS:
+            raise ValueError("spp_grad is exact only for filter-importance-sampled "
+                             f"films (box/tent/gaussian), not {film.rfilter!r}")
+    if use_prb:
+        # the triangle tables derived from the vertex buffer, so that a
+        # vertex parameter's gradient flows into them
+        scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
     acc = None
     totals = {}
     for p in range(n_passes):
         this_spp = min(spp_per_pass, spp - p * spp_per_pass)
-        L, aux = render_lanes(
-            scene, seed, 0, film.n_pixels * this_spp, p * spp_per_pass, this_spp, spp, sensor
-        )
+        if use_prb:
+            L, aux = prb_pass(scene, seed, seed_grad, p * spp_per_pass, this_spp, spp,
+                              sensor, spp_grad, stats)
+        else:
+            L, aux = render_lanes(
+                scene, seed, 0, film.n_pixels * this_spp, p * spp_per_pass, this_spp, spp, sensor
+            )
         acc = accumulate(film, L, this_spp, acc)
         for key in ("n_rays", "n_invalid", "n_negative"):
-            totals[key] = totals.get(key, 0) + aux[key]
+            if key in aux:
+                totals[key] = totals.get(key, 0) + aux[key]
     if stats is not None:
         stats.update({k: int(v) for k, v in totals.items()})
     return acc / spp
+
+
+def render_forward(scene, key, tangent=None, sensor=0, seed=0, spp=None):
+    """Forward-mode derivative of the image along a parameter direction:
+    d image / d params[key] . tangent (ones when not given). The path
+    integrator is differentiated by tape (two reverse passes: the
+    derivative of the VJP with respect to its cotangent); a PRB integrator
+    implements the reverse replay only and raises, as in the JAX
+    package."""
+    if getattr(scene.integrator, "is_prb", False):
+        raise NotImplementedError(
+            "render_forward requires a tape-differentiable integrator (path); "
+            "PRB integrators implement the reverse replay only"
+        )
+    params = traverse(scene)
+    value = params[key].detach().clone().requires_grad_()
+    img = render(params.update({key: value}), sensor=sensor, seed=seed, spp=spp)
+    tangent = torch.ones_like(value) if tangent is None else torch.as_tensor(
+        tangent, dtype=torch.float32, device=value.device).expand(value.shape)
+    cot = torch.zeros_like(img, requires_grad=True)
+    (vjp,) = torch.autograd.grad(img, value, grad_outputs=cot, create_graph=True)
+    (jvp,) = torch.autograd.grad(vjp, cot, grad_outputs=tangent)
+    return jvp

@@ -15,10 +15,22 @@ starts several triangle sizes away: the cancellation in o - v0 costs a few
 ulp more.) The kernel
 itself is held bitwise against the plain version on the card, in
 tests/test_torch_cuda.py.
+
+The gradient of the hit (``bvh_sweep_intersect``'s backward) is held
+against ``jax.vjp`` of render/bvh.py:bvh_intersect_ad, the XLA traversal
+whose custom VJP is the Pallas kernel's (both are ops/intersect.py:mt_vjp
+and a scatter into the leaf-order triangle arrays): o and d at rtol 1e-5
+on the well-conditioned hits, each table row within 1e-5 of the sum of
+|y| k over its lanes (y = mt_vjp's vector, of which the row's terms are
+-y, -u y, -v y with u, v in [0, 1]; k = 1 / (|cos| sin) the hit's
+conditioning: the random soup has grazing hits and slivers, whose u and v
+the two packages round apart by ~1e-6 k, a large part of a small u). The tape gradient of the mesh's vertices
+through a k=30 mesh scene is held against jax.grad of the same loss.
 """
 import struct
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -26,7 +38,8 @@ import torch
 import mitsuba_tpu as mj
 from mitsuba_tpu import native as JN
 from mitsuba_tpu.render import shapes as JSH
-from mitsuba_tpu.render.bvh import bvh_intersect
+from mitsuba_tpu.render.bvh import bvh_intersect, bvh_intersect_ad
+from mitsuba_tpu.render.params import _tree_get, _tree_set
 from mitsuba_tpu.render.records import Ray as JRay
 from mitsuba_tpu.render_api import render_lanes as j_render_lanes
 
@@ -38,13 +51,32 @@ from mitsuba_tpu_torch.render.records import Ray as TRay
 from mitsuba_tpu_torch.render.scene_loader import mesh_scene, spherified_cube
 from mitsuba_tpu_torch.render_api import render_lanes as t_render_lanes
 
-from test_torch_intersect import _assert_hits_within_scaled_bound
+from mitsuba_tpu_torch.ops import intersect as K1
+
+from test_torch_intersect import (
+    _assert_hits_within_scaled_bound, _conditioning, _well_conditioned,
+)
 
 
 @pytest.fixture(autouse=True)
 def _rgb():
     mj.set_variant("rgb")
     yield
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread. PyTorch's CPU kernels hand contiguous float
+    math (sqrt, log, sin, cos, exp) to MKL's vector library in chunks, one
+    per thread; when two threads make a process's first such call at once,
+    MKL's lazy kernel dispatch races, and one chunk has come back from its
+    low-accuracy kernel (a 4096-lane sqrt off by up to 2.98e-4 relative on
+    lanes 2048-4095). One thread also keeps the suite's worker processes
+    from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _soup_tris(n_tris, seed):
@@ -285,3 +317,68 @@ def test_mesh_scene_radiance_matches_jax(tmp_path):
     assert np.isfinite(Lt).all() and Lt.mean() > 0
     assert int(aux_t["n_rays"]) == int(float(aux_j["n_rays"]))
     np.testing.assert_allclose(Lt, Lj, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the gradient of the hit
+# ---------------------------------------------------------------------------
+
+def test_bvh_sweep_vjp_matches_jax():
+    tris = _soup_tris(3000, 1)
+    nodes, order = TN.build_bvh_wide(tris, max_leaf=K2.MAX_WIDE_LEAF)
+    table = tris[order]
+    o, d, maxt = _rays(1024, 2)
+    maxt[2::4] = np.inf           # no finite maxt: a miss's t is inf, as in a render
+    r = np.random.default_rng(9)
+    g_t, g_u, g_v = (r.normal(size=o.shape[0]).astype(np.float32) for _ in range(3))
+    nj = [jnp.asarray(x) for x in (nodes[:, 0:3], nodes[:, 3:6], nodes[:, 6].view(np.int32),
+                                   nodes[:, 7].view(np.int32))]
+    (jt, jp, ju, jv), pull = jax.vjp(
+        lambda v0, e1, e2, oo, dd: bvh_intersect_ad(*nj, v0, e1, e2, oo, dd, jnp.asarray(maxt)),
+        *(jnp.asarray(x) for x in (table[:, 0:3], table[:, 3:6], table[:, 6:9], o, d)))
+    jc = [np.asarray(x) for x in pull((jnp.asarray(g_t), np.zeros(o.shape[0], jax.dtypes.float0),
+                                       jnp.asarray(g_u), jnp.asarray(g_v)))]
+    tb, to, td = (torch.from_numpy(x).requires_grad_() for x in (table, o, d))
+    t, p, u, v = K2.bvh_sweep_intersect(torch.from_numpy(nodes), tb, to, td, torch.from_numpy(maxt))
+    np.testing.assert_array_equal(p.numpy(), np.asarray(jp))
+    cts = torch.autograd.grad((t, u, v), (tb, to, td), [torch.from_numpy(g) for g in (g_t, g_u, g_v)])
+    hit = p.numpy() >= 0
+    well = _well_conditioned(table, p.numpy(), d)
+    assert well.sum() > 200 and (~hit).sum() > 200
+    for got, want in zip(cts[1:], jc[3:]):
+        np.testing.assert_allclose(got.numpy()[well], want[well], rtol=1e-5, atol=1e-6)
+        assert not got.numpy()[~hit].any()
+    pl = torch.from_numpy(np.maximum(p.numpy(), 0)).to(torch.int64)
+    rows = tb.detach()[pl]
+    y = K1.mt_vjp(rows[:, 3:6], rows[:, 6:9], td.detach(),
+                  *(torch.from_numpy(g) for g in (g_t, g_u, g_v)), p >= 0)
+    cos, sin = _conditioning(table, p.numpy(), d)
+    k = torch.from_numpy(np.maximum(1.0, 1.0 / np.maximum(cos * sin, 1e-30)).astype(np.float32))
+    scale = torch.zeros_like(tb).index_add_(0, pl, (k[:, None] * y.abs()).repeat(1, 3)).numpy()
+    want_table = np.concatenate(jc[:3], axis=1)
+    assert np.abs(want_table).max() > 0
+    assert np.all(np.abs(cts[0].numpy() - want_table) <= 1e-5 * scale + 1e-7)
+
+
+def test_tape_mesh_vertex_gradient_matches_jax(tmp_path):
+    """d sum(image) / d mesh.vertex_positions through the path integrator
+    and K2's plain walk, against jax.grad of the JAX render."""
+    d = mesh_scene(tmp_path / "sphere.obj", k=30, res=16)
+    d["integrator"]["max_depth"] = 3
+    js = mj.load_dict(d)
+    key = "mesh.vertex_positions"
+    path = dict(js.param_paths)[key]
+    want = np.asarray(jax.grad(
+        lambda v: jnp.sum(mj.render(_tree_set(js, path, v), spp=2, seed=1)))(_tree_get(js, path)))
+    ts = mt.load_dict(d, device="cpu")
+    assert ts.geometry.has_bvh
+    params = mt.traverse(ts)
+    v = params[key].clone().requires_grad_()
+    mt.render(params.update({key: v}), spp=2, seed=1).sum().backward()
+    got = v.grad.numpy()
+    assert np.isfinite(got).all()
+    finite = np.isfinite(want).all(-1)
+    assert (~finite).any()                       # the reference's NaN, witnessed
+    assert (np.abs(got[finite]).sum(-1) > 0).sum() >= 10
+    np.testing.assert_allclose(got[finite], want[finite], rtol=1e-4,
+                               atol=1e-4 * np.abs(want[finite]).max())

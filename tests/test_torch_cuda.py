@@ -11,7 +11,9 @@ import torch
 import mitsuba_tpu_torch as mt
 from mitsuba_tpu_torch import native
 from mitsuba_tpu_torch.ops import bvh_sweep as K2
+from mitsuba_tpu_torch.ops import dma_probe as K4
 from mitsuba_tpu_torch.ops import intersect as K1
+from mitsuba_tpu_torch.ops import intersect_mxu as K3
 from mitsuba_tpu_torch.render.scene_loader import mesh_scene
 from mitsuba_tpu_torch.render_api import make_wavefront
 
@@ -64,9 +66,9 @@ def test_k1_kernel_bitwise_vs_plain(cuda, case):
         args = _cbox_batch(cuda)
     else:
         args = [x.to(cuda) for x in _soup(int(case[4:]), 1 << 16, 11)]
-    before = K1.tri_intersect.launches
-    got = K1.tri_intersect(*args)
-    assert K1.tri_intersect.launches == before + 1
+    before = K1.smem_intersect.launches
+    got = K1.smem_intersect(*args)
+    assert K1.smem_intersect.launches == before + 1
     ref = K1.tri_intersect_reference(*args)
     torch.cuda.synchronize()
     assert (ref[1] >= 0).any()
@@ -78,9 +80,9 @@ def test_k1_kernel_bitwise_vs_plain(cuda, case):
 def test_cbox_render_runs_through_k1(cuda):
     scene = mt.load_dict(_cbox())
     assert scene.device.type == "cuda"
-    before = K1.tri_intersect.launches
+    before = K1.smem_intersect.launches
     img = mt.render(scene, spp=4, seed=0)
-    assert K1.tri_intersect.launches - before == 9
+    assert K1.smem_intersect.launches - before == 9
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
     cpu = mt.render(mt.load_dict(_cbox(), device="cpu"), spp=4, seed=0)
     # the card's and the CPU's sin, cos and log may round differently, which
@@ -129,10 +131,10 @@ def test_mesh_render_runs_through_k2(cuda, tmp_path):
     d = mesh_scene(tmp_path / "sphere.obj", k=30, res=32)
     scene = mt.load_dict(d)
     assert scene.geometry.has_bvh and scene.geometry.bvh_nodes.device.type == "cuda"
-    k1, closest, anyhit = (K1.tri_intersect.launches, K2.bvh_sweep_intersect.launches,
+    k1, closest, anyhit = (K1.smem_intersect.launches, K2.bvh_sweep_intersect.launches,
                            K2.bvh_sweep_occluded.launches)
     img = mt.render(scene, spp=4, seed=0)
-    assert K1.tri_intersect.launches == k1
+    assert K1.smem_intersect.launches == k1
     assert K2.bvh_sweep_intersect.launches - closest == 8
     assert K2.bvh_sweep_occluded.launches - anyhit == 8
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
@@ -140,3 +142,140 @@ def test_mesh_render_runs_through_k2(cuda, tmp_path):
     # as for the cbox: the card's transcendentals may send a rare path elsewhere
     close = torch.isclose(img.cpu(), cpu, rtol=1e-4, atol=1e-5).all(-1)
     assert close.float().mean().item() >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# K3: the closest hit with every determinant from the tensor cores
+# ---------------------------------------------------------------------------
+
+def _conditioning(table, prim, d):
+    """k = max(1, 1 / (|cos| sin)) of each lane's hit triangle."""
+    rows = table[torch.clamp(prim, min=0).to(torch.int64)].double()
+    e1, e2 = rows[:, 3:6], rows[:, 6:9]
+    n = torch.linalg.cross(e1, e2)
+    area2 = n.norm(dim=1).clamp(min=1e-30)
+    sin = area2 / (e1.norm(dim=1) * e2.norm(dim=1)).clamp(min=1e-30)
+    return torch.clamp(1.0 / ((d.double() * n).sum(1).abs() / area2 * sin).clamp(min=1e-30), min=1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["cbox", "soup512"])
+def test_k3_kernel_vs_plain_and_k1(cuda, case):
+    """K3 (3xTF32 contraction) against its plain version: prim equal but on
+    at most 1 lane in 1e5, t/u/v within 1e-5 max(|x|, 1) scaled by the
+    hit's conditioning; against K1: at most 2 prim differences per 2000
+    rays and 1e-4 (scaled likewise on the soup, which has slivers)."""
+    if case == "cbox":
+        table, o, d, maxt = _cbox_batch(cuda)
+        table = table[:36].contiguous()
+    else:
+        table, o, d, maxt = [x.to(cuda) for x in _soup(512, 1 << 16, 13)]
+    cols = K3.build_mxu_cols(table[:, 0:3], table[:, 3:6], table[:, 6:9])
+    before = K3.mxu_intersect.launches
+    got = K3.mxu_intersect(cols, o, d, maxt)
+    assert K3.mxu_intersect.launches == before + 1
+    ref = K3.mxu_intersect_reference(cols, o, d, maxt)
+    k1 = K1.smem_intersect(table, o, d, maxt)
+    torch.cuda.synchronize()
+    assert (got[1][~(maxt > 0)] == -1).all() and (ref[1] >= 0).any()
+    n = o.shape[0]
+    for other, rate, tol in ((ref, 1e-5, 1e-5), (k1, 2 / 2000, 1e-4)):
+        assert int((got[1] != other[1]).sum()) <= max(rate * n, 1)
+        m = (got[1] == other[1]) & (other[1] >= 0)
+        k = _conditioning(table, other[1], d)[m]
+        scaled = case == "soup512" or other is ref
+        for a, b in ((got[0], other[0]), (got[2], other[2]), (got[3], other[3])):
+            scale = k * torch.clamp(b[m].abs().double(), min=1.0) if scaled else 1.0
+            assert float(((a[m] - b[m]).abs() / scale).max()) <= tol
+
+
+@pytest.mark.gpu
+def test_k3_refusals(cuda, tmp_path):
+    o, d, maxt = torch.zeros(8, 3, device=cuda), torch.zeros(8, 3, device=cuda), torch.ones(8, device=cuda)
+    z = torch.zeros(513, 3, device=cuda)
+    with pytest.raises(ValueError, match="512"):
+        K3.mxu_intersect(K3.build_mxu_cols(z, z, z), o, d, maxt)
+    with pytest.raises(ValueError, match="BVH"):
+        mt.load_dict(mesh_scene(tmp_path / "s.obj", k=30, res=8), intersector="mma")
+
+
+@pytest.mark.gpu
+def test_prb_render_runs_through_k1_and_k3(cuda):
+    """One PRB gradient step at max_depth 8 through each intersector: 34
+    launches of its kernel (9 forward, 9 for the backward's primal, 8 + 8
+    in the replay), none of the other's; the two gradients agree."""
+    d = _cbox()
+    d["integrator"] = {"type": "prb", "max_depth": 8}
+    grads = {}
+    for inter, kernel in (("smem", K1.smem_intersect), ("mma", K3.mxu_intersect)):
+        other = K3.mxu_intersect if inter == "smem" else K1.smem_intersect
+        scene = mt.load_dict(d, intersector=inter)
+        params = mt.traverse(scene)
+        v = params["white.reflectance.value"].clone().requires_grad_()
+        before, other_before = kernel.launches, other.launches
+        mt.render(params.update({"white.reflectance.value": v}), spp=4, seed=0).mean().backward()
+        assert kernel.launches - before == 34 and other.launches == other_before
+        grads[inter] = v.grad
+    torch.testing.assert_close(grads["mma"], grads["smem"], rtol=1e-3, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the autograd wrappers' backward on the card
+# ---------------------------------------------------------------------------
+
+def _backward(fn, args, device, seed=3):
+    """(outputs, cotangents of table, o, d) of fn on `args` moved to
+    `device`, for fixed random output cotangents."""
+    table, o, d, maxt = (x.to(device) for x in args[-4:])
+    rest = [x.to(device) for x in args[:-4]]
+    table, o, d = (x.clone().requires_grad_() for x in (table, o, d))
+    t, p, u, v = fn(*rest, table, o, d, maxt)
+    g = torch.from_numpy(np.random.default_rng(seed).normal(size=(3, o.shape[0])).astype(np.float32))
+    cts = torch.autograd.grad((t, u, v), (table, o, d), [x.to(device) for x in g])
+    return [x.detach().cpu() for x in (t, p, u, v)], [x.cpu() for x in cts]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["smem", "mma", "bvh"])
+def test_autograd_backward_on_the_card_equals_the_cpu(cuda, route):
+    """The backward on CUDA tensors equals the CPU's: o and d per lane at
+    rtol 1e-5, the table rows (added with index_add_, atomics on the card,
+    in another order) at 1e-5 of their largest magnitude. K3's forward on
+    the card (3xTF32) differs from its plain version within its bound, so
+    its lanes are compared where the hit is well conditioned (k <= 10), at
+    rtol 1e-4."""
+    if route == "bvh":
+        args = [x.cpu() for x in _k2_soup("cpu")]
+        fn = K2.bvh_sweep_intersect
+    else:
+        args = _soup(256 if route == "mma" else 1024, 1 << 14, 21)
+        fn = lambda table, o, d, maxt: K1.tri_intersect(table, o, d, maxt, route)
+    out_c, ct_c = _backward(fn, args, cuda)
+    out_h, ct_h = _backward(fn, args, "cpu")
+    if route != "mma":
+        assert all(torch.equal(a, b) for a, b in zip(out_c, out_h))
+    same = out_c[1] == out_h[1]
+    assert same.float().mean() > 0.999 and (out_h[1] >= 0).any()
+    rtol = 1e-5
+    if route == "mma":
+        table, d = args[0], args[2]
+        same &= _conditioning(table, out_h[1], d) <= 10
+        rtol = 1e-4
+    for a, b in zip(ct_c[1:], ct_h[1:]):
+        torch.testing.assert_close(a[same], b[same], rtol=rtol, atol=1e-6)
+    if route != "mma":
+        torch.testing.assert_close(ct_c[0], ct_h[0], rtol=0, atol=1e-5 * float(ct_h[0].abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# K4: the device-memory copy probe
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_k4_sink_equals_plain(cuda):
+    x = K4.probe_array(cuda, seed=2, total_rows=1 << 16)
+    for rows, ring, n_copies in ((8, 2, 5000), (64, 3, 3000), (128, 2, 777)):
+        before = K4.copy_probe.launches
+        got = K4.copy_probe(x, rows, ring, n_copies)
+        assert K4.copy_probe.launches == before + 1
+        assert int(got) == int(K4.copy_probe_reference(x, rows, n_copies))

@@ -16,6 +16,15 @@ fused one on more lanes than it equals the unfused one, and both lie
 within the scaled bound of a float64 evaluation. The cbox has no
 ill-conditioned hits. The CUDA kernel itself is held bitwise against the
 plain version on the card, in tests/test_torch_cuda.py.
+
+The gradient of the hit (``tri_intersect``'s backward, ``mt_vjp`` and the
+scatter into the table) is held against ``jax.vjp`` of the JAX package's
+``tri_intersect`` (its custom VJP, the kernel in interpret mode) at rtol
+1e-5: both evaluate the same closed form, XLA with FMAs. A table row sums
+the cotangents of many lanes, so it is held at 1e-5 of the sum of their
+magnitudes. On a miss the JAX VJP gives NaN for d (t = inf times y = 0);
+the port gives 0. The tape gradient of a vertex parameter through the path
+integrator is held against jax.grad of the same loss at rtol 1e-4.
 """
 import numpy as np
 import jax
@@ -27,6 +36,7 @@ import mitsuba_tpu as mj
 from mitsuba_tpu.ops.intersect import build_tri_table as j_build_table
 from mitsuba_tpu.ops.intersect import tri_intersect as j_tri_intersect
 from mitsuba_tpu.render import shapes as JSH
+from mitsuba_tpu.render.params import _tree_get, _tree_set
 from mitsuba_tpu.render.records import Ray as JRay
 from mitsuba_tpu.render_api import make_wavefront as j_make_wavefront
 
@@ -44,6 +54,21 @@ INTERPRET_ROWS = 256
 def _rgb():
     mj.set_variant("rgb")
     yield
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread. PyTorch's CPU kernels hand contiguous float
+    math (sqrt, log, sin, cos, exp) to MKL's vector library in chunks, one
+    per thread; when two threads make a process's first such call at once,
+    MKL's lazy kernel dispatch races, and one chunk has come back from its
+    low-accuracy kernel (a 4096-lane sqrt off by up to 2.98e-4 relative on
+    lanes 2048-4095). One thread also keeps the suite's worker processes
+    from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cbox_dict(w=16):
@@ -286,3 +311,62 @@ def test_build_tri_table_matches_jax():
     np.testing.assert_array_equal(
         K1.build_tri_table(tscene.geometry).numpy(), np.asarray(j_build_table(jscene.geometry))
     )
+
+
+# ---------------------------------------------------------------------------
+# the gradient of the hit
+# ---------------------------------------------------------------------------
+
+@jax.jit
+def _j_vjp(table, o, d, maxt, g_t, g_u, g_v):
+    n_tri = jnp.asarray([table.shape[0]], jnp.int32)
+    out, pull = jax.vjp(lambda tb, oo, dd: j_tri_intersect(tb, n_tri, oo, dd, maxt), table, o, d)
+    return out, pull((g_t, np.zeros(g_t.shape, jax.dtypes.float0), g_u, g_v))
+
+
+def test_tri_intersect_vjp_matches_jax():
+    geom, o, d, maxt = _cbox_rays(2048)
+    table = np.asarray(j_build_table(geom))
+    table = np.concatenate([table, np.zeros((INTERPRET_ROWS - table.shape[0], 9), np.float32)])
+    r = np.random.default_rng(8)
+    g_t, g_u, g_v = (r.normal(size=o.shape[0]).astype(np.float32) for _ in range(3))
+    (jt, jp, ju, jv), (jc_table, jc_o, jc_d) = (
+        [np.asarray(x) for x in part] for part in _j_vjp(*map(jnp.asarray, (table, o, d, maxt, g_t, g_u, g_v)))
+    )
+    tb, to, td = (x.requires_grad_() for x in _torch(table, o, d))
+    t, p, u, v = K1.tri_intersect(tb, to, td, torch.from_numpy(maxt))
+    np.testing.assert_array_equal(p.numpy(), jp)
+    cts = torch.autograd.grad((t, u, v), (tb, to, td), _torch(g_t, g_u, g_v))
+    hit = jp >= 0
+    assert hit.sum() > 200 and (~hit).sum() > 200
+    for got, want in zip(cts[1:], (jc_o, jc_d)):
+        np.testing.assert_allclose(got.numpy()[hit], want[hit], rtol=1e-5, atol=1e-6)
+        assert not got.numpy()[~hit].any()
+    assert not jc_o[~hit].any() and np.isnan(jc_d[~hit]).all()
+    # each row: within 1e-5 of the summed magnitudes of its lanes' terms
+    pl = torch.from_numpy(np.maximum(jp, 0)).to(torch.int64)
+    rows = torch.from_numpy(table)[pl]
+    y = K1.mt_vjp(rows[:, 3:6], rows[:, 6:9], td.detach(), *_torch(g_t, g_u, g_v), p >= 0)
+    terms = torch.cat([y, u.detach()[:, None] * y, v.detach()[:, None] * y], dim=-1).abs()
+    scale = torch.zeros_like(tb).index_add_(0, pl, terms).numpy()
+    assert np.all(np.abs(cts[0].numpy() - jc_table) <= 1e-5 * scale + 1e-7)
+    assert np.abs(jc_table).max() > 0
+
+
+def test_tape_vertex_gradient_matches_jax():
+    """d sum(image) / d floor.vertex_positions through the path integrator
+    and K1's plain version, against jax.grad of the JAX render."""
+    d = _cbox_dict(8)
+    d["integrator"] = {"type": "path", "max_depth": 2}
+    js = mj.load_dict(d)
+    key = "floor.vertex_positions"
+    path = dict(js.param_paths)[key]
+    want = np.asarray(jax.grad(
+        lambda v: jnp.sum(mj.render(_tree_set(js, path, v), spp=2, seed=1)))(_tree_get(js, path)))
+    p = mj.traverse(js)
+    ts = mt.traverse(mt.load_dict(d, device="cpu")).update({k: np.asarray(p[k]) for k in p.keys()})
+    params = mt.traverse(ts)
+    v = params[key].clone().requires_grad_()
+    mt.render(params.update({key: v}), spp=2, seed=1).sum().backward()
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(v.grad.numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())

@@ -46,6 +46,21 @@ def _rgb():
     yield
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread. PyTorch's CPU kernels hand contiguous float
+    math (sqrt, log, sin, cos, exp) to MKL's vector library in chunks, one
+    per thread; when two threads make a process's first such call at once,
+    MKL's lazy kernel dispatch races, and one chunk has come back from its
+    low-accuracy kernel (a 4096-lane sqrt off by up to 2.98e-4 relative on
+    lanes 2048-4095). One thread also keeps the suite's worker processes
+    from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cbox(max_depth=8, defer_nee=True):
     d = mj.cornell_box()
     d["sensor"]["film"]["width"] = W
@@ -242,6 +257,15 @@ def test_port_imports_and_renders_without_jax(tmp_path):
         assert scene.geometry.has_bvh
         img = mt.render(scene, spp=1, seed=0)
         assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
+        # the PRB gradient step and the optimizers (mitsuba_tpu_torch.ad)
+        import mitsuba_tpu_torch.ad as ad
+        d["integrator"] = {"type": "prb", "max_depth": 2}
+        params = mt.traverse(mt.load_dict(d, device="cpu"))
+        v = params["white.reflectance.value"].clone().requires_grad_()
+        mt.render(params.update({"white.reflectance.value": v}), spp=2, seed=0).mean().backward()
+        opt = ad.Adam(lr=0.1)
+        opt["white.reflectance.value"] = v.detach()
+        assert bool(opt.step({"white.reflectance.value": v.grad})["white.reflectance.value"].isfinite().all())
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         print("OK")
     """)

@@ -1,4 +1,5 @@
-"""The port's counter-based RNG against mitsuba_tpu.core.rng: bitwise.
+"""The port's counter-based RNG and TEA hash against mitsuba_tpu.core.rng:
+bitwise.
 
 The port keeps uint32 words in int64 tensors (PyTorch has no uint32
 arithmetic on the CPU); these tests hold every word and every float it
@@ -71,3 +72,17 @@ def test_unported_rng_modes_raise():
         trng.RNG(0, lane, pixel=lane, sidx=lane, lds=True)
     with pytest.raises(NotImplementedError):
         trng.RNG(0, lane, pixel=lane, sidx=lane, oa=3)
+
+
+@pytest.mark.parametrize("rounds", [4, 8])
+def test_sample_tea_32_bitwise(rounds):
+    """The TEA hash that derives the gradient pass's seed, on int64 tensors
+    of uint32 words and on Python ints."""
+    v0, v1 = _words(4096, 21), _words(4096, 22)
+    ja, jb = jrng.sample_tea_32(jnp.asarray(v0), jnp.asarray(v1), rounds)
+    ta, tb = trng.sample_tea_32(_t(v0), _t(v1), rounds)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja).astype(np.int64))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb).astype(np.int64))
+    for a, b in ((0, 1), (2**32 - 1, 1), (12345, 2**32 - 1)):
+        want = jrng.sample_tea_32(jnp.uint32(a), jnp.uint32(b), rounds)
+        assert trng.sample_tea_32(a, b, rounds) == tuple(int(x) for x in want)
