@@ -23,7 +23,9 @@ Any failure raises and exits non-zero.
 Prints, before the last line, the card's name and power limit and one JSON
 line {"kernels": [...]} with each kernel's launches on its main path, its
 error against the plain version, its time, the plain version's time and
-its lower bound on this card. The last line is
+its lower bound on this card; for K1 and K3 also the launches of one PRB
+step, their summed time (CUDA events around each launch) and their summed
+bounds, each computed from that launch's own inputs. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -79,8 +81,13 @@ PEAK_BYTES_PER_S = 3.35e12
 # fp32 arithmetic per (ray, triangle) of the Moller-Trumbore test, counted
 # from the kernel: 2 cross products (18), 4 dot products (20), the 3
 # subtractions of tvec, the 3 scalings by 1/det, the reciprocal and u + v.
-# The 6 compares are not counted.
+# The 6 compares are not counted. K1 stops a pair early where the rest
+# could not change the result: after det (pvec and det, 14) when
+# |det| <= 1e-12, after u (24) when u < 0 or u > 1; its bound counts what
+# each pair of the run's inputs needs.
 K1_FLOPS_PER_PAIR = 46
+K1_FLOPS_DET = 14
+K1_FLOPS_U = 24
 
 # K3 per (active ray, real triangle): the contraction over the 10
 # geometric feature slots for the 4 quantities (det, u', v', t'), 2 flops a
@@ -181,8 +188,8 @@ def build_all(cuda_build, native, K1, K2, K3):
 # ---------------------------------------------------------------------------
 
 def compare_k1(name, K1, table, o, d, maxt):
-    """K1 against its plain version on the same inputs: prim bitwise, and
-    t, u, v bitwise or within 2 ulp. Returns (worst ulp, max abs error)."""
+    """K1 against its plain version on the same inputs: prim, t, u, v
+    bitwise. Returns (worst ulp (0), max abs error (0.0))."""
     got = K1.smem_intersect(table, o, d, maxt)
     ref = K1.tri_intersect_reference(table, o, d, maxt)
     torch.cuda.synchronize()
@@ -195,25 +202,60 @@ def compare_k1(name, K1, table, o, d, maxt):
               for g, r in zip((got[0], got[2], got[3]), (ref[0], ref[2], ref[3])))
     log(f"K1 {name}: {o.shape[0]} rays x {table.shape[0]} triangles, "
         f"{int(hit.sum())} hits; prim bitwise; t/u/v worst {worst} ulp, max abs err {err}")
-    if worst > 2:
-        raise AssertionError(f"K1 {name}: t/u/v differ from the plain version by {worst} ulp (> 2)")
+    if worst != 0 or not all(torch.equal(g.view(torch.int32), r.view(torch.int32))
+                             for g, r in zip((got[0], got[2], got[3]), (ref[0], ref[2], ref[3]))):
+        raise AssertionError(f"K1 {name}: t/u/v differ from the plain version ({worst} ulp)")
     return worst, err
 
 
-def k1_bound_ms(table, maxt):
-    """Least time for one K1 call on these inputs: each byte the function
+def k1_work(table, o, d, maxt, chunk=1 << 20):
+    """What one K1 call does on these inputs, counted on the card without
+    a synchronisation, so that it can run between the launches of a step:
+    the lanes and the table's elements, and as 0-d tensors the active lanes
+    (maxt > 0), the real (non-degenerate) rows and the fp32 operations of
+    each active lane against each real row: 14 where |det| <= 1e-12, 24
+    where u < 0 or u > 1 (or NaN), 46 for the rest (pvec, det and u in the
+    kernel's order)."""
+    real = torch.linalg.cross(table[:, 3:6], table[:, 6:9]).abs().sum(-1) > 0
+    v0, e1, e2 = table[:, 0:3], table[:, 3:6], table[:, 6:9]
+    flops = torch.zeros((), dtype=torch.int64, device=table.device)
+    for r0 in range(0, o.shape[0], chunk):
+        ro, rd = o[r0:r0 + chunk, :, None], d[r0:r0 + chunk, :, None]
+        pairs = (maxt[r0:r0 + chunk] > 0)[:, None] & real
+        pvx = rd[:, 1] * e2[:, 2] - rd[:, 2] * e2[:, 1]
+        pvy = rd[:, 2] * e2[:, 0] - rd[:, 0] * e2[:, 2]
+        pvz = rd[:, 0] * e2[:, 1] - rd[:, 1] * e2[:, 0]
+        det = e1[:, 0] * pvx + e1[:, 1] * pvy + e1[:, 2] * pvz
+        ok = det.abs() > 1e-12
+        u = ((ro[:, 0] - v0[:, 0]) * pvx + (ro[:, 1] - v0[:, 1]) * pvy
+             + (ro[:, 2] - v0[:, 2]) * pvz) * torch.where(ok, 1.0 / det, 0.0)
+        n_det = (pairs & ~ok).sum()
+        n_full = (pairs & ok & (u >= 0) & (u <= 1)).sum()
+        flops += (K1_FLOPS_DET * n_det + K1_FLOPS_PER_PAIR * n_full
+                  + K1_FLOPS_U * (pairs.sum() - n_det - n_full))
+    return dict(n=maxt.shape[0], table_numel=table.numel(), n_active=(maxt > 0).sum(),
+                n_real=real.sum(), flops=flops)
+
+
+def k1_bound_ms(work):
+    """Least time for one K1 call from its k1_work: each byte the function
     needs read once and each output byte written once, against the fp32
-    operations that the active lanes need on the real (non-degenerate)
-    triangles. Every lane needs its maxt and writes t, prim, u, v; only an
-    active lane (maxt > 0) needs its o and d."""
-    n = maxt.shape[0]
-    n_active = int((maxt > 0).sum())
-    nbytes = table.numel() * 4 + n * (1 + 4) * 4 + n_active * 6 * 4
-    e1, e2 = table[:, 3:6], table[:, 6:9]
-    n_real = int((torch.linalg.cross(e1, e2).abs().sum(-1) > 0).sum())
-    flops = n_active * n_real * K1_FLOPS_PER_PAIR
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), n_active, n_real
+    operations that the active lanes need on the real triangles with K1's
+    early stops. Every lane needs its maxt and writes t, prim, u, v; only
+    an active lane needs its o and d. Returns a dict: "ms" at the published
+    fp32 peak, "by" what sets it, "unfused_ms" at the unfused rate that
+    -fmad=false allows, and the same two with all 46 operations on every
+    pair ("all_pairs_ms", "all_pairs_unfused_ms"), which credits no early
+    stop."""
+    n, n_active, n_real, flops = (int(work[k]) for k in ("n", "n_active", "n_real", "flops"))
+    nbytes = work["table_numel"] * 4 + n * (1 + 4) * 4 + n_active * 6 * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    all_ops = n_active * n_real * K1_FLOPS_PER_PAIR / PEAK_FP32_FLOPS * 1e3
+    return dict(ms=max(t_bytes, t_ops), by="operations" if t_ops >= t_bytes else "bytes",
+                unfused_ms=max(t_bytes, 2 * t_ops), all_pairs_ms=max(t_bytes, all_ops),
+                all_pairs_unfused_ms=max(t_bytes, 2 * all_ops), n_active=n_active,
+                n_real=n_real, flops=flops)
 
 
 def random_soup(n_tris, n_rays, seed, device):
@@ -234,43 +276,85 @@ def random_soup(n_tris, n_rays, seed, device):
     return [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in (table, o, d, maxt)]
 
 
+def disable_share(maxt, share, seed):
+    """maxt with a random `share` of the lanes (made from `seed`) disabled."""
+    gen = torch.Generator(device=maxt.device).manual_seed(seed)
+    off = torch.rand(maxt.shape, generator=gen, device=maxt.device) < share
+    return torch.where(off, -float("inf"), maxt)
+
+
 def phase_k1(mi, K1, make_wavefront):
-    """K1 against its plain version, timed, on the cbox's bounce-0 batch
-    and a random soup."""
+    """K1 against its plain version on the cbox's bounce-0 batch (with the
+    main path's table, the 36 real rows; and the padded 64-row table, whose
+    result must not differ by a bit), on it with every lane active and with
+    a random 50% and 90% of its lanes disabled, and on a 4096-triangle
+    soup; K1 timed on the 36-row and the 64-row table, all active and 50%
+    scattered."""
     scene = mi.load_dict(mi.cornell_box())
     spp = 64
     n = scene.film.n_pixels * spp
-    table = K1.build_tri_table(scene.geometry.refresh())
+    geom = scene.geometry.refresh()
+    table64 = K1.build_tri_table(geom)
+    table = table64[:geom.n_real_tris]
     _, ray, _ = make_wavefront(scene, 0, 0, n, 0, spp, spp)
     # bounce 0's fused launch: the camera rays, then the N pending shadow
     # slots, all disabled on the first bounce
     o = torch.cat([ray.o, ray.o]).contiguous()
     d = torch.cat([ray.d, ray.d]).contiguous()
     maxt = torch.cat([ray.maxt, torch.full_like(ray.maxt, -float("inf"))]).contiguous()
-    worst_a, err_a = compare_k1("cbox bounce-0 batch", K1, table, o, d, maxt)
-    worst_b, err_b = compare_k1("random soup", K1, *random_soup(4096, 1 << 20, 7, o.device))
-    k1_ms = time_cuda(lambda: K1.smem_intersect(table, o, d, maxt), reps=50)
-    plain_ms = time_cuda(lambda: K1.tri_intersect_reference(table, o, d, maxt), reps=3, warmup=1)
     maxt_all = torch.full_like(maxt, float("inf"))
+    maxt50 = disable_share(maxt_all, 0.5, 3)
+    maxt90 = disable_share(maxt_all, 0.9, 4)
+    results = [compare_k1(name, K1, table, o, d, m) for name, m in (
+        ("cbox bounce-0 batch", maxt), ("cbox batch, every lane active", maxt_all),
+        ("cbox batch, 50% of lanes disabled at random", maxt50),
+        ("cbox batch, 90% of lanes disabled at random", maxt90))]
+    results.append(compare_k1("random soup", K1, *random_soup(4096, 1 << 20, 7, o.device)))
+    trimmed, padded = K1.smem_intersect(table, o, d, maxt), K1.smem_intersect(table64, o, d, maxt)
+    if not all(torch.equal(a, b) for a, b in zip(trimmed, padded)):
+        raise AssertionError("K1: the 36-row table's result differs from the 64-row table's")
+    log(f"K1 cbox bounce-0 batch: {table.shape[0]}-row and {table64.shape[0]}-row tables "
+        "give the same prim, t, u, v bit for bit")
+
+    k1_ms = time_cuda(lambda: K1.smem_intersect(table, o, d, maxt), reps=50)
+    k1_64_ms = time_cuda(lambda: K1.smem_intersect(table64, o, d, maxt), reps=50)
+    plain_ms = time_cuda(lambda: K1.tri_intersect_reference(table, o, d, maxt), reps=3, warmup=1)
     k1_all_ms = time_cuda(lambda: K1.smem_intersect(table, o, d, maxt_all), reps=50)
-    bound_ms, bound_by, n_active, n_real = k1_bound_ms(table, maxt)
-    bound_all_ms, _, _, _ = k1_bound_ms(table, maxt_all)
-    log(f"K1 timing, cbox bounce-0 batch ({o.shape[0]} rays, {n_active} active, "
-        f"{table.shape[0]} rows, {n_real} real): kernel {k1_ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}); all lanes active: kernel {k1_all_ms:.4f} ms, "
-        f"bound {bound_all_ms:.4f} ms")
+    k1_50_ms = time_cuda(lambda: K1.smem_intersect(table, o, d, maxt50), reps=50)
+    b0, b_all, b50 = (k1_bound_ms(k1_work(table, o, d, m)) for m in (maxt, maxt_all, maxt50))
+
+    def bounds(b):
+        return (f"bound {b['ms']:.4f} ms ({b['by']}; {b['unfused_ms']:.4f} ms at the unfused "
+                f"fp32 rate; all 46 operations on every pair: {b['all_pairs_ms']:.4f} / "
+                f"{b['all_pairs_unfused_ms']:.4f} ms)")
+
+    log(f"K1 timing, cbox bounce-0 batch ({o.shape[0]} rays, {b0['n_active']} active, "
+        f"{table.shape[0]} rows, {b0['n_real']} real, {b0['flops']} flop): kernel {k1_ms:.4f} "
+        f"ms ({table64.shape[0]}-row table: {k1_64_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+        f"{bounds(b0)}, kernel at {b0['unfused_ms'] / k1_ms:.2%} of the unfused bound; every "
+        f"lane active: kernel {k1_all_ms:.4f} ms, {bounds(b_all)}; 50% of lanes disabled at "
+        f"random: kernel {k1_50_ms:.4f} ms, {bounds(b50)}")
+    worst = max(w for w, _ in results)
     return scene, (o, d, maxt), {
         "name": "tri_intersect",
         "route": "cuda",
         "source": "mitsuba_tpu_torch/csrc/tri_intersect.cu",
         "replaces": "mitsuba_tpu/ops/intersect.py:33",
-        "max_abs_err": max(err_a, err_b),
+        "max_abs_err": max(e for _, e in results),
         "ms": k1_ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "bound_ms": b0["ms"],
+        "bound_by": b0["by"],
         "library_ms": None,
-        "bitwise_vs_plain": max(worst_a, worst_b) == 0,
+        "bound_unfused_ms": b0["unfused_ms"],
+        "bound_all_pairs_ms": b0["all_pairs_ms"],
+        "bound_all_pairs_unfused_ms": b0["all_pairs_unfused_ms"],
+        "bitwise_vs_plain": worst == 0,
+        "ms_64_row_table": k1_64_ms,
+        "all_active_ms": k1_all_ms,
+        "all_active_bound_ms": b_all["ms"],
+        "scattered50_ms": k1_50_ms,
+        "scattered50_bound_ms": b50["ms"],
     }
 
 
@@ -427,63 +511,82 @@ def k3_check(name, K1, K3, table, o, d, maxt, scaled_vs_k1):
     return cols, err
 
 
-def k3_bound_ms(cols, maxt, n_real):
-    """Least time for one K3 call on these inputs: o, d, maxt read and t,
+def k3_work(cols, o, d, maxt):
+    """What one K3 call does on these inputs, counted on the card without
+    a synchronisation: the lanes and the column table's elements, and as
+    0-d tensors the active lanes and the real triangles (non-zero det
+    columns)."""
+    tp = cols.shape[1] // 4
+    return dict(n=maxt.shape[0], cols_numel=cols.numel(), n_active=(maxt > 0).sum(),
+                n_real=(cols[:, :tp] != 0).any(0).sum())
+
+
+def k3_bound_ms(work):
+    """Least time for one K3 call from its k3_work: o, d, maxt read and t,
     prim, u, v written for an active lane (44 B), maxt and the outputs for
     a disabled one (20 B), the column table once; against the 3xTF32
     products on the tensor cores and the epilogue on the CUDA cores for
     every active lane and real triangle (the two units run side by side,
-    so the larger of their times)."""
-    n = maxt.shape[0]
-    n_active = int((maxt > 0).sum())
-    nbytes = cols.numel() * 4 + n_active * 44 + (n - n_active) * 20
+    so the larger of their times). Returns (ms, what sets it, (bytes ms,
+    TF32 ms, fp32 ms), real triangles)."""
+    n, n_active, n_real = (int(work[k]) for k in ("n", "n_active", "n_real"))
+    nbytes = work["cols_numel"] * 4 + n_active * 44 + (n - n_active) * 20
     pairs = n_active * n_real
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_tc = pairs * K3_TF32_FLOPS_PER_PAIR / PEAK_TF32_FLOPS * 1e3
     t_fp = pairs * K3_FP32_FLOPS_PER_PAIR / PEAK_FP32_FLOPS * 1e3
-    return max(t_bytes, t_tc, t_fp), ("operations" if max(t_tc, t_fp) >= t_bytes else "bytes"), (
-        t_bytes, t_tc, t_fp)
+    return (max(t_bytes, t_tc, t_fp), "operations" if max(t_tc, t_fp) >= t_bytes else "bytes",
+            (t_bytes, t_tc, t_fp), n_real)
 
 
 def phase_k3(K1, K3, scene, batch):
     """K3 against its plain version and K1 on the cbox's bounce-0 2N batch
-    (the main path's table for the mma route: the 36 real rows), on it
-    with 10% more of the lanes disabled, and on a 512-triangle soup with
-    duplicated rows (ties); K3, K1, the plain version and the contraction
-    alone in torch.matmul timed on the cbox batch."""
+    (the main path's table: the 36 real rows), on it with 10% more of the
+    lanes disabled, on it with every lane active and a random 50% and 90%
+    disabled, and on a 512-triangle soup with duplicated rows (ties); K3,
+    K1, the plain version and the contraction alone in torch.matmul timed
+    on the cbox batch, K3 also all active and 50% scattered."""
     geom = scene.geometry.refresh()
-    table = K1.build_tri_table(geom)[:geom.n_real_tris].contiguous()
+    table = K1.build_tri_table(geom)[:geom.n_real_tris]
     o, d, maxt = batch
     cols, err_a = k3_check("cbox bounce-0 batch", K1, K3, table, o, d, maxt, False)
-    gen = torch.Generator(device=o.device).manual_seed(5)
-    maxt10 = torch.where(torch.rand(maxt.shape, generator=gen, device=o.device) < 0.1,
-                         -float("inf"), maxt)
-    _, err_b = k3_check("cbox batch, 10% more disabled", K1, K3, table, o, d, maxt10, False)
+    maxt10 = disable_share(maxt, 0.1, 5)
+    maxt_all = torch.full_like(maxt, float("inf"))
+    maxt50 = disable_share(maxt_all, 0.5, 3)
+    errs = [err_a] + [k3_check(name, K1, K3, table, o, d, m, False)[1] for name, m in (
+        ("cbox batch, 10% more disabled", maxt10),
+        ("cbox batch, 50% of lanes disabled at random", maxt50),
+        ("cbox batch, 90% of lanes disabled at random", disable_share(maxt_all, 0.9, 4)))]
     s_table, s_o, s_d, s_maxt = random_soup(512, 1 << 20, 7, o.device)
-    _, err_c = k3_check("512-triangle soup", K1, K3, s_table, s_o, s_d, s_maxt, True)
+    errs.append(k3_check("512-triangle soup", K1, K3, s_table, s_o, s_d, s_maxt, True)[1])
 
     k3_ms = time_cuda(lambda: K3.mxu_intersect(cols, o, d, maxt), reps=50)
     k1_ms = time_cuda(lambda: K1.smem_intersect(table, o, d, maxt), reps=50)
+    k3_all_ms = time_cuda(lambda: K3.mxu_intersect(cols, o, d, maxt_all), reps=50)
+    k3_50_ms = time_cuda(lambda: K3.mxu_intersect(cols, o, d, maxt50), reps=50)
     plain_ms = time_cuda(lambda: K3.mxu_intersect_reference(cols, o, d, maxt), reps=3, warmup=1)
     torch.backends.cuda.matmul.allow_tf32 = False      # the fp32 product, stated and set
     feat = K3.mxu_features(o, d, maxt)
     lib_ms = time_cuda(lambda: torch.matmul(feat, cols), reps=10)
     del feat
     torch.cuda.empty_cache()
-    n_real = int((torch.linalg.cross(table[:, 3:6], table[:, 6:9]).abs().sum(-1) > 0).sum())
-    bound_ms, bound_by, (t_bytes, t_tc, t_fp) = k3_bound_ms(cols, maxt, n_real)
+    bound_ms, bound_by, (t_bytes, t_tc, t_fp), n_real = k3_bound_ms(k3_work(cols, o, d, maxt))
+    bound_all_ms = k3_bound_ms(k3_work(cols, o, d, maxt_all))[0]
+    bound_50_ms = k3_bound_ms(k3_work(cols, o, d, maxt50))[0]
     log(f"K3 timing, cbox bounce-0 batch ({o.shape[0]} rays, {int((maxt > 0).sum())} active, "
         f"{n_real} triangles, Tp {cols.shape[1] // 4}): kernel {k3_ms:.4f} ms, K1 on the same "
         f"{table.shape[0]}-row table {k1_ms:.4f} ms, plain {plain_ms:.2f} ms, torch.matmul "
         f"contraction only (fp32, TF32 off) {lib_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
         f"bytes {t_bytes:.4f}, TF32 products {t_tc:.4f}, fp32 epilogue {t_fp:.4f}), kernel at "
-        f"{bound_ms / k3_ms:.2%} of it")
+        f"{bound_ms / k3_ms:.2%} of it; every lane active: kernel {k3_all_ms:.4f} ms, bound "
+        f"{bound_all_ms:.4f} ms; 50% of lanes disabled at random: kernel {k3_50_ms:.4f} ms, "
+        f"bound {bound_50_ms:.4f} ms")
     return {
         "name": "mxu_intersect",
         "route": "cuda",
         "source": "mitsuba_tpu_torch/csrc/intersect_mxu.cu",
         "replaces": "mitsuba_tpu/ops/intersect_mxu.py:82",
-        "max_abs_err": max(err_a, err_b, err_c),
+        "max_abs_err": max(errs),
         "ms": k3_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -491,6 +594,10 @@ def phase_k3(K1, K3, scene, batch):
         "library_ms": lib_ms,
         "library_call": "torch.matmul(feat, cols) in fp32, TF32 off: the contraction only",
         "k1_same_table_ms": k1_ms,
+        "all_active_ms": k3_all_ms,
+        "all_active_bound_ms": bound_all_ms,
+        "scattered50_ms": k3_50_ms,
+        "scattered50_bound_ms": bound_50_ms,
     }
 
 
@@ -516,8 +623,10 @@ def grad_step(mi, scene, seed, spp, stats=None):
 
 
 @contextlib.contextmanager
-def timed_launches(module, name, events):
-    """Inside, CUDA events around each call of module.<name>. The kernel's
+def timed_launches(module, name, work, launches):
+    """Inside, CUDA events around each call of module.<name>, kept with
+    `work` of the call's inputs (k1_work or k3_work, enqueued after the
+    call), from which its bound is computed after the run. The kernel's
     wrapper counts its launches on the module's name, so the count moves to
     the stand-in and back."""
     fn = getattr(module, name)
@@ -527,7 +636,7 @@ def timed_launches(module, name, events):
         start.record()
         out = fn(*args)
         end.record()
-        events.append((start, end))
+        launches.append((start, end, work(*args)))
         return out
 
     wrapper.launches = fn.launches
@@ -542,7 +651,8 @@ def timed_launches(module, name, events):
 def run_prb(mi, K1, K2, K3, intersector):
     """The PRB gradient step at 256x256 @ 64 spp through `intersector`:
     one warm-up iteration, PRB_ITERS timed ones (seed = iteration), then
-    one with CUDA events around each closest-hit launch."""
+    one with CUDA events around each closest-hit launch, whose summed time
+    is held against the summed bounds of the same launches."""
     scene = mi.load_dict(prb_dict(mi, PRB_RES, PRB_SPP, 8), intersector=intersector)
     grad_step(mi, scene, 0, PRB_SPP)
     torch.cuda.synchronize()
@@ -575,31 +685,52 @@ def run_prb(mi, K1, K2, K3, intersector):
     used, unused = ("K1", "K3") if intersector == "smem" else ("K3", "K1")
     if launches[used] == 0 or launches[unused] != 0 or launches["K2"] != 0:
         raise AssertionError(f"prb {intersector}: launches {launches}")
-    owner, kernel = (K1, "smem_intersect") if intersector == "smem" else (K3, "mxu_intersect")
-    events = []
-    with timed_launches(owner, kernel, events):
+    if intersector == "smem":
+        owner, kernel, work = K1, "smem_intersect", k1_work
+
+        def bounds(w):
+            b = k1_bound_ms(w)
+            return b["ms"], b["unfused_ms"]
+    else:
+        owner, kernel, work = K3, "mxu_intersect", k3_work
+
+        def bounds(w):
+            return (k3_bound_ms(w)[0],) * 2
+    timed = []
+    with timed_launches(owner, kernel, work, timed):
         t0 = time.perf_counter()
         grad_step(mi, scene, 0, PRB_SPP)
         torch.cuda.synchronize()
         wall_t = time.perf_counter() - t0
-    k_ms = sum(s.elapsed_time(e) for s, e in events)
-    log(f"  one more iteration with events around each {kernel} launch: {wall_t * 1e3:.1f} ms wall, "
-        f"{len(events)} launches, {k_ms:.2f} ms in the kernel ({k_ms / (wall_t * 1e3):.2%} of it)")
-    return grads[0], launches, walls, rays, peak, k_ms / (wall_t * 1e3)
+    per = [(start.elapsed_time(end), *bounds(w)) for start, end, w in timed]
+    k_ms, b_ms, u_ms = (sum(x[c] for x in per) for c in range(3))
+    # the share is of a timed iteration's wall: the counts slow this one
+    share = k_ms / (sorted(walls)[len(walls) // 2] * 1e3)
+    log(f"  one more iteration with events around each {kernel} launch (and the count of its "
+        f"work after it): {wall_t * 1e3:.1f} ms wall, {len(per)} launches, {k_ms:.2f} ms in the "
+        f"kernel ({share:.2%} of a timed iteration's median wall); summed bound {b_ms:.4f} ms"
+        + (f" ({u_ms:.4f} ms at the unfused fp32 rate)" if intersector == "smem" else "")
+        + f", gap {k_ms - b_ms:.4f} ms; per launch (ms, bound): "
+        + ", ".join(f"({m:.4f}, {b:.4f})" for m, b, _ in per))
+    step = dict(launches_per_step=len(per), step_ms=k_ms, step_bound_ms=b_ms)
+    if intersector == "smem":
+        step["step_bound_unfused_ms"] = u_ms
+    return grads[0], launches, walls, rays, peak, share, step
 
 
 def phase_prb_main(mi, K1, K2, K3):
     """The slice's main path through K1 and through K3; the K3 route's
     gradient held against the K1 route's at the same seed."""
-    g_smem, l_smem, walls, rays, peak, share_k1 = run_prb(mi, K1, K2, K3, "smem")
-    g_mma, l_mma, walls_m, _, _, share_k3 = run_prb(mi, K1, K2, K3, "mma")
+    g_smem, l_smem, walls, rays, peak, share_k1, step_k1 = run_prb(mi, K1, K2, K3, "smem")
+    g_mma, l_mma, walls_m, _, _, share_k3, step_k3 = run_prb(mi, K1, K2, K3, "mma")
     rel = ((g_mma - g_smem).abs() / g_smem.abs()).tolist()
     log(f"== prb gradient, K3 route vs K1 route (seed 0): {g_mma.tolist()} vs {g_smem.tolist()}, "
         f"relative difference {rel}")
     if max(rel) > MMA_GRAD_RTOL:
         raise AssertionError(f"prb: K3 route's gradient differs from K1 route's by {rel}")
-    return l_smem, l_mma, dict(walls=walls, rays=rays, peak=peak, share_k1=share_k1,
-                               walls_mma=walls_m, share_k3=share_k3)
+    return l_smem, l_mma, step_k1, step_k3, dict(
+        walls=walls, rays=rays, peak=peak, share_k1=share_k1, walls_mma=walls_m,
+        share_k3=share_k3)
 
 
 def phase_prb64(mi, K1, K2, K3):
@@ -932,7 +1063,7 @@ def main():
     del scene, batch
     torch.cuda.empty_cache()
 
-    l_smem, l_mma, prb = phase_prb_main(mi, K1, K2, K3)
+    l_smem, l_mma, step_k1, step_k3, prb = phase_prb_main(mi, K1, K2, K3)
     phase_prb64(mi, K1, K2, K3)
     phase_adam(mi)
     torch.cuda.empty_cache()
@@ -951,6 +1082,8 @@ def main():
                                     f"cbox prb, K1 route, {per_path}": l_smem["K1"],
                                     f"cbox prb, K3 route, {per_path}": l_mma["K1"],
                                     "mesh path": 0}
+    k1_entry.update(step_k1)
+    k3_entry.update(step_k3)
     k3_entry["launches"] = l_mma["K3"]
     k3_entry["launches_by_path"] = {f"cbox prb, K3 route, {per_path}": l_mma["K3"],
                                     f"cbox prb, K1 route, {per_path}": l_smem["K3"]}

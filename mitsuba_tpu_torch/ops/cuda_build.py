@@ -1,14 +1,15 @@
 """Build the package's native code and load it with ctypes.
 
 Each CUDA source under ``mitsuba_tpu_torch/csrc/`` exports plain
-``extern "C"`` launchers and includes no PyTorch header, so one nvcc call
-builds it in seconds. The host C++ under ``csrc/host/`` (the mesh loaders
-and the BVH builder) is built the same way with the host compiler, so it
-builds where there is no nvcc too. Each shared library goes to
+``extern "C"`` launchers and includes no PyTorch header (only the
+directory's own ``*.cuh``), so one nvcc call builds it in seconds. The
+host C++ under ``csrc/host/`` (the mesh loaders and the BVH builder) is
+built the same way with the host compiler, so it builds where there is no
+nvcc too. Each shared library goes to
 ``build/mitsuba_tpu_torch/`` at the root of the checkout (listed in
-.gitignore), under a name keyed by a hash of the sources and the flags: an
-edited source is rebuilt at its first use, an unchanged one is loaded as it
-is.
+.gitignore), under a name keyed by a hash of the sources, the headers and
+the flags: an edited source or header is rebuilt at its first use, an
+unchanged one is loaded as it is.
 
 Nothing here runs at import time; the first use of a library builds it.
 """
@@ -54,12 +55,12 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _compile(name, compiler, flags, sources) -> Build:
+def _compile(name, compiler, flags, sources, headers=()) -> Build:
     """Compile `sources` with `compiler` and `flags` into one shared
-    library, or reuse the one an earlier call built from the same sources
-    and flags."""
+    library, or reuse the one an earlier call built from the same sources,
+    headers and flags."""
     digest = hashlib.sha256(" ".join(flags).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     log_path = out.with_suffix(".log")
@@ -85,10 +86,13 @@ def _compile(name, compiler, flags, sources) -> Build:
     return Build(out, seconds, log)
 
 
-def build(name: str, flags: tuple = ()) -> Build:
-    """Compile csrc/<name>.cu with nvcc into a shared library, or reuse the
-    one an earlier call built from the same source and flags."""
-    return _compile(name, _nvcc(), BASE_FLAGS + tuple(flags), [CSRC / f"{name}.cu"])
+def build(name: str, flags: tuple = (), source: Path | None = None) -> Build:
+    """Compile csrc/<name>.cu (or `source`, which may include csrc's
+    headers) with nvcc into a shared library, or reuse the one an earlier
+    call built from the same source, headers and flags."""
+    source = CSRC / f"{name}.cu" if source is None else Path(source)
+    flags = BASE_FLAGS + ("-I", str(CSRC)) + tuple(flags)
+    return _compile(name, _nvcc(), flags, [source], sorted(CSRC.glob("*.cuh")))
 
 
 @functools.cache

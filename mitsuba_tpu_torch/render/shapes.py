@@ -5,9 +5,10 @@ All shapes of a scene are compiled into one struct-of-arrays triangle table
 (a rectangle is 2 triangles, a cube 12, a mesh its faces), padded with
 degenerate rows to a multiple of TRI_CHUNK. A scene of at most
 MAX_SMEM_TRIS triangles is queried through kernel K1
-(``ops/intersect.py``), which sweeps the whole table, or, when it was
-loaded with ``intersector="mma"`` and has at most MAX_MXU_TRIS triangles,
-through kernel K3 (``ops/intersect_mxu.py``), which takes every
+(``ops/intersect.py``), which sweeps the table's real rows (the padding
+rows sit at the end and never hit, so the prim indices do not move), or,
+when it was loaded with ``intersector="mma"`` and has at most MAX_MXU_TRIS
+triangles, through kernel K3 (``ops/intersect_mxu.py``), which takes every
 determinant from one matrix product on the tensor cores. A larger one gets a
 wide-leaf BVH (built on the host, ``native.build_bvh_wide``), its
 triangle arrays permuted into leaf order, and is queried through kernel K2
@@ -59,8 +60,9 @@ class Geometry:
     mesh_vertex_slices: tuple = ()
     # closest-hit kernel of a triangle table: "smem" (K1) or "mma" (K3)
     intersector: str = "smem"
-    # triangles before the padding rows (K3 pads to its own n-tile)
-    n_real_tris: int = 0
+    # triangles before the padding rows, which K1 and K3 do not sweep (K3
+    # pads to its own n-tile); None sweeps every row
+    n_real_tris: int | None = None
 
     @property
     def has_bvh(self):
@@ -211,9 +213,9 @@ def ray_intersect_preliminary(geom: Geometry, ray: Ray, active=None):
         t, prim, u, v = bvh_sweep_intersect(geom.bvh_nodes, table, o, d, maxt)
         t = torch.where(prim >= 0, t, float("inf"))
     else:
-        if geom.intersector == "mma":
-            table = table[:geom.n_real_tris]
-        t, prim, u, v = tri_intersect(table, o, d, maxt, geom.intersector)
+        # the real rows only: a slice, so the cotangent of the hit still
+        # reaches the whole table (zero on the padding rows)
+        t, prim, u, v = tri_intersect(table[:geom.n_real_tris], o, d, maxt, geom.intersector)
     return PreliminaryIntersection(t=t, prim_index=prim, prim_uv=torch.stack([u, v], dim=-1))
 
 

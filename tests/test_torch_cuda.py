@@ -49,21 +49,37 @@ def _soup(n_tris, n_rays, seed):
     return [torch.from_numpy(x) for x in (table, o, d, maxt)]
 
 
-def _cbox_batch(device):
-    scene = mt.load_dict(_cbox(), device=device)
+def _cbox_batch(device, share=None):
+    """The cbox's camera rays at 32x32 @ 4 spp with the whole padded
+    table, a third of the lanes disabled and a third with a finite maxt;
+    or, with `share`, at 64x64 @ 4 spp with the route's table (the 36 real
+    rows) and a random `share` of the lanes disabled (made with numpy from
+    a seed), scattered over the batch as on the later bounces."""
+    scene = mt.load_dict(_cbox(32 if share is None else 64), device=device)
     _, ray, _ = make_wavefront(scene, 3, 0, scene.film.n_pixels * 4, 0, 4, 4)
+    geom = scene.geometry.refresh()
+    table = K1.build_tri_table(geom)
     maxt = ray.maxt.clone()
-    maxt[1::3] = -float("inf")
-    maxt[2::3] = 1.5
-    table = K1.build_tri_table(scene.geometry.refresh())
+    if share is None:
+        maxt[1::3] = -float("inf")
+        maxt[2::3] = 1.5
+    else:
+        off = np.random.default_rng(int(100 * share)).random(maxt.shape[0]) < share
+        maxt[torch.from_numpy(off).to(maxt.device)] = -float("inf")
+        table = table[:geom.n_real_tris]
     return [table, ray.o.contiguous(), ray.d.contiguous(), maxt]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["cbox", "soup64", "soup200", "soup4096"])
+@pytest.mark.parametrize("case", ["cbox", "cbox50", "cbox90", "soup64", "soup200", "soup4096"])
 def test_k1_kernel_bitwise_vs_plain(cuda, case):
+    """K1 against its plain version, prim, t, u, v bit for bit; "cbox50"
+    and "cbox90" disable a random 50% and 90% of the lanes, which the
+    kernel gathers into dense queues before it sweeps."""
     if case == "cbox":
         args = _cbox_batch(cuda)
+    elif case.startswith("cbox"):
+        args = _cbox_batch(cuda, int(case[4:]) / 100)
     else:
         args = [x.to(cuda) for x in _soup(int(case[4:]), 1 << 16, 11)]
     before = K1.smem_intersect.launches
@@ -74,6 +90,20 @@ def test_k1_kernel_bitwise_vs_plain(cuda, case):
     assert (ref[1] >= 0).any()
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_k1_real_rows_equal_the_padded_table(cuda):
+    """The route's table (the 36 real rows) and the padded 64-row table
+    give the same prim, t, u, v, bit for bit."""
+    padded, o, d, maxt = _cbox_batch(cuda)
+    trimmed = padded[:36]
+    assert padded.shape[0] == 64 and not padded[36:, 3:].any()       # e1 = e2 = 0
+    got, want = K1.smem_intersect(trimmed, o, d, maxt), K1.smem_intersect(padded, o, d, maxt)
+    torch.cuda.synchronize()
+    assert (want[1] >= 0).any()
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -159,17 +189,21 @@ def _conditioning(table, prim, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["cbox", "soup512"])
+@pytest.mark.parametrize("case", ["cbox", "cbox50", "cbox90", "soup8", "soup512"])
 def test_k3_kernel_vs_plain_and_k1(cuda, case):
     """K3 (3xTF32 contraction) against its plain version: prim equal but on
     at most 1 lane in 1e5, t/u/v within 1e-5 max(|x|, 1) scaled by the
     hit's conditioning; against K1: at most 2 prim differences per 2000
-    rays and 1e-4 (scaled likewise on the soup, which has slivers)."""
+    rays and 1e-4 (scaled likewise on the soups, which have slivers). The
+    cbox (Tp 40) also with a random 50% and 90% of its lanes disabled; the
+    soups at Tp 8 and 512, the edges of the column tiling."""
     if case == "cbox":
         table, o, d, maxt = _cbox_batch(cuda)
         table = table[:36].contiguous()
+    elif case.startswith("cbox"):
+        table, o, d, maxt = _cbox_batch(cuda, int(case[4:]) / 100)
     else:
-        table, o, d, maxt = [x.to(cuda) for x in _soup(512, 1 << 16, 13)]
+        table, o, d, maxt = [x.to(cuda) for x in _soup(int(case[4:]), 1 << 16, 13)]
     cols = K3.build_mxu_cols(table[:, 0:3], table[:, 3:6], table[:, 6:9])
     before = K3.mxu_intersect.launches
     got = K3.mxu_intersect(cols, o, d, maxt)
@@ -183,7 +217,7 @@ def test_k3_kernel_vs_plain_and_k1(cuda, case):
         assert int((got[1] != other[1]).sum()) <= max(rate * n, 1)
         m = (got[1] == other[1]) & (other[1] >= 0)
         k = _conditioning(table, other[1], d)[m]
-        scaled = case == "soup512" or other is ref
+        scaled = case.startswith("soup") or other is ref
         for a, b in ((got[0], other[0]), (got[2], other[2]), (got[3], other[3])):
             scale = k * torch.clamp(b[m].abs().double(), min=1.0) if scaled else 1.0
             assert float(((a[m] - b[m]).abs() / scale).max()) <= tol

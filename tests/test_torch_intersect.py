@@ -26,6 +26,8 @@ magnitudes. On a miss the JAX VJP gives NaN for d (t = inf times y = 0);
 the port gives 0. The tape gradient of a vertex parameter through the path
 integrator is held against jax.grad of the same loss at rtol 1e-4.
 """
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -283,6 +285,83 @@ def test_first_index_wins_ties():
     assert p.tolist() == [3, -1]
     assert t[0].item() == 1.0 and t[1].item() == float("inf")
     assert u[1].item() == 0.0 and v[1].item() == 0.0
+
+
+@pytest.mark.parametrize("name", ["port-cbox", "cbox", "soup64", "soup200"])
+def test_trimming_the_padding_rows_changes_nothing(name):
+    """The routes sweep only the table's real rows (render/shapes.py): the
+    plain K1 over them gives the same prim, t, u, v, bit for bit, as over
+    the table with its degenerate padding rows. "port-cbox" is the port's
+    own cbox geometry and its n_real_tris; the others are _cases()'s
+    tables padded to INTERPRET_ROWS."""
+    geom, o, d, maxt = dict(_cases())["cbox" if name == "port-cbox" else name]()
+    if name == "port-cbox":
+        tgeom = mt.load_dict(_cbox_dict(), device="cpu").geometry
+        table, n_real = K1.build_tri_table(tgeom), tgeom.n_real_tris
+        assert (n_real, table.shape[0]) == (36, 64)
+    else:
+        table = np.asarray(j_build_table(geom))
+        n_real = int(np.nonzero(np.abs(table).sum(1))[0].max()) + 1
+        table = torch.from_numpy(np.concatenate(
+            [table[:n_real], np.zeros((INTERPRET_ROWS - n_real, 9), np.float32)]))
+    assert not table[n_real:, 3:].any()         # degenerate: e1 = e2 = 0
+    rays = _torch(o, d, maxt)
+    full = K1.tri_intersect_reference(table, *rays)
+    trimmed = K1.tri_intersect_reference(table[:n_real], *rays)
+    assert (full[1] >= 0).any()
+    for a, b in zip(trimmed, full):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_trimmed_route_gradients_equal_the_padded_routes(monkeypatch):
+    """A 16x16 cbox gradient step through the trimmed route (the table's
+    real rows) and through the whole padded table (n_real_tris None): the
+    PRB step's gradient of white.reflectance.value is the same bit for bit
+    (its replay intersects the detached scene, so no cotangent reaches the
+    table there), and in the path integrator's tape gradient of
+    floor.vertex_positions, where the hit's VJP runs, every cotangent that
+    reaches the padded table through the slice is zero on the padding rows
+    and equal to the padded route's on the real rows."""
+    from mitsuba_tpu_torch.render import shapes as TSH
+
+    cts = []
+    build = TSH.build_tri_table
+
+    def recording(geom):
+        table = build(geom)
+        if table.requires_grad:
+            table.register_hook(lambda g: cts.append(g.clone()))
+        return table
+
+    monkeypatch.setattr(TSH, "build_tri_table", recording)
+
+    def step(trim, integrator, key):
+        d = _cbox_dict(16)
+        d["integrator"] = {"type": integrator, "max_depth": 3}
+        scene = mt.load_dict(d, device="cpu")
+        n_real = scene.geometry.n_real_tris
+        if not trim:
+            scene = dataclasses.replace(
+                scene, geometry=dataclasses.replace(scene.geometry, n_real_tris=None))
+        params = mt.traverse(scene)
+        v = params[key].clone().requires_grad_()
+        cts.clear()
+        mt.render(params.update({key: v}), spp=2, seed=1).mean().backward()
+        return v.grad, list(cts), n_real
+
+    g_trim, ct_trim, _ = step(True, "prb", "white.reflectance.value")
+    g_full, ct_full, _ = step(False, "prb", "white.reflectance.value")
+    assert torch.equal(g_trim, g_full) and (g_trim != 0).all()
+    assert not ct_trim and not ct_full
+    g_trim, ct_trim, n_real = step(True, "path", "floor.vertex_positions")
+    g_full, ct_full, _ = step(False, "path", "floor.vertex_positions")
+    assert torch.equal(g_trim, g_full) and g_trim.abs().max() > 0
+    assert len(ct_trim) == len(ct_full) > 0
+    for a, b in zip(ct_trim, ct_full):
+        assert a.shape == b.shape == (64, 9)
+        assert not a[n_real:].any() and not b[n_real:].any()
+        assert torch.equal(a[:n_real], b[:n_real])
+    assert any(a.abs().max() > 0 for a in ct_trim)
 
 
 def test_wrapper_rejects_bad_inputs():
