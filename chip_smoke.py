@@ -24,8 +24,9 @@ Prints, before the last line, the card's name and power limit and one JSON
 line {"kernels": [...]} with each kernel's launches on its main path, its
 error against the plain version, its time, the plain version's time and
 its lower bound on this card; for K1 and K3 also the launches of one PRB
-step, their summed time (CUDA events around each launch) and their summed
-bounds, each computed from that launch's own inputs. The last line is
+step, for K2 those of one mesh pass, their summed time (CUDA events around
+each launch) and their summed bounds, each computed from that launch's
+own inputs. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -372,8 +373,8 @@ def plain_versions(K1, K2, K3):
     saved = K1.smem_intersect, K3.mxu_intersect, K2.bvh_sweep
     K1.smem_intersect = K1.tri_intersect_reference
     K3.mxu_intersect = K3.mxu_intersect_reference
-    K2.bvh_sweep = lambda nodes, table, o, d, maxt, anyhit=False: K2.bvh_sweep_reference(
-        nodes, table, o, d, maxt, anyhit)
+    K2.bvh_sweep = lambda nodes, table, o, d, maxt, anyhit=False, rows=None: (
+        K2.bvh_sweep_reference(nodes, table, o, d, maxt, anyhit))
     try:
         yield
     finally:
@@ -838,11 +839,12 @@ def run_k2_plain(K2, nodes, table, o, d, maxt, anyhit):
     return ref, stats, start.elapsed_time(end)
 
 
-def compare_k2(name, K2, nodes, table, o, d, maxt, anyhit):
-    """K2 against its plain walk on the same rays: prim, t, u, v bitwise.
-    Returns (max abs error (0.0), the plain walk's counts and ms)."""
+def compare_k2(name, K2, nodes, table, o, d, maxt, anyhit, rows=None):
+    """K2 (on `rows`, the geometry's copy of the table, when given) against
+    its plain walk on the same rays: prim, t, u, v bitwise. Returns (max
+    abs error (0.0), the plain walk's counts and ms)."""
     mode = "any-hit" if anyhit else "closest-hit"
-    got = K2.bvh_sweep(nodes, table, o, d, maxt, anyhit=anyhit)
+    got = K2.bvh_sweep(nodes, table, o, d, maxt, anyhit=anyhit, rows=rows)
     ref, stats, plain_ms = run_k2_plain(K2, nodes, table, o, d, maxt, anyhit)
     if not torch.equal(got[1], ref[1]):
         bad = (got[1] != ref[1]).nonzero()[:5, 0].tolist()
@@ -863,30 +865,43 @@ def k2_bound_ms(K2, nodes, table, maxt, stats):
     """Least time for one K2 call on these inputs: 28 B read per active
     lane (o, d, maxt) and 4 B per disabled one, 16 B written per lane, the
     node and triangle tables read once; against a slab test per node visit
-    and a Moller-Trumbore test per triangle test, as the plain walk counted
-    them on the same rays. Also the operations term at the unfused rate."""
+    and, per triangle test, the operations that K2's early stops leave (14
+    for a test that stops after det, 24 after u, 46 for the rest), as the
+    plain walk counted them on the same rays. Returns a dict: "ms" at the
+    published fp32 peak, "by" what sets it, "unfused_ms" at the unfused
+    rate, and "all46_ms" with all 46 operations on every test."""
     n = maxt.shape[0]
     n_active = int((maxt > 0).sum())
     nbytes = n_active * 28 + (n - n_active) * 4 + n * 16 + nodes.numel() * 4 + table.numel() * 4
-    flops = stats["node_visits"] * K2.SLAB_FLOPS + stats["tri_tests"] * K2.TRI_FLOPS
+    tests, det, u = stats["tri_tests"], stats["tri_det_stops"], stats["tri_u_stops"]
+    slab = stats["node_visits"] * K2.SLAB_FLOPS
+    # K2's triangle test is K1's, with K1's early stops
+    flops = slab + det * K1_FLOPS_DET + u * K1_FLOPS_U + (tests - det - u) * K2.TRI_FLOPS
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes"), nbytes, flops,
-            max(t_bytes, flops / PEAK_FP32_UNFUSED * 1e3))
+    all46 = (slab + tests * K2.TRI_FLOPS) / PEAK_FP32_FLOPS * 1e3
+    return dict(ms=max(t_bytes, t_ops), by="operations" if t_ops >= t_bytes else "bytes",
+                nbytes=nbytes, flops=flops, unfused_ms=max(t_bytes, 2 * t_ops),
+                all46_ms=max(t_bytes, all46))
 
 
-def check_and_time_k2(name, K2, nodes, table, o, d, maxt, anyhit):
+def check_and_time_k2(name, K2, nodes, table, rows, o, d, maxt, anyhit):
     """K2 held bitwise against the plain walk on a whole batch of the main
-    path, K2 timed on it, the plain walk's time (its one run, which is also
-    the comparison's and the counts'), and the bound from those counts."""
-    err, stats, plain_ms = compare_k2(name, K2, nodes, table, o, d, maxt, anyhit)
-    k2_ms = time_cuda(lambda: K2.bvh_sweep(nodes, table, o, d, maxt, anyhit=anyhit), reps=10)
-    bound_ms, bound_by, nbytes, flops, unfused_ms = k2_bound_ms(K2, nodes, table, maxt, stats)
+    path, timed on it as the route calls it (bvh_sweep on the geometry's
+    rows: its checks, the counter and the launch) and alone, the plain
+    walk's time (its one run, which is also the comparison's and the
+    counts'), and the bound from those counts."""
+    err, stats, plain_ms = compare_k2(name, K2, nodes, table, o, d, maxt, anyhit, rows)
+    k2_ms = time_cuda(lambda: K2.bvh_sweep(nodes, table, o, d, maxt, anyhit=anyhit, rows=rows),
+                      reps=10)
+    kernel_ms = time_cuda(lambda: K2.launch_kernel(nodes, rows, o, d, maxt, anyhit), reps=10)
+    b = k2_bound_ms(K2, nodes, table, maxt, stats)
     log(f"K2 timing, {name} ({'any-hit' if anyhit else 'closest-hit'}, {o.shape[0]} rays, "
-        f"{int((maxt > 0).sum())} active): kernel {k2_ms:.4f} ms, plain {plain_ms:.1f} ms; "
-        f"{nbytes} B, {flops} flop; bound {bound_ms:.4f} ms ({bound_by}), kernel at "
-        f"{bound_ms / k2_ms:.2%} of it; at the unfused fp32 rate {unfused_ms:.4f} ms, "
-        f"{unfused_ms / k2_ms:.2%}")
-    return err, (k2_ms, plain_ms, bound_ms, bound_by)
+        f"{int((maxt > 0).sum())} active): route {k2_ms:.4f} ms, kernel alone {kernel_ms:.4f} "
+        f"ms, plain {plain_ms:.1f} ms; {b['nbytes']} B, {b['flops']} flop; bound "
+        f"{b['ms']:.4f} ms ({b['by']}), route at {b['ms'] / k2_ms:.2%} of it; at the unfused "
+        f"fp32 rate {b['unfused_ms']:.4f} ms; all 46 operations a test {b['all46_ms']:.4f} ms")
+    return err, dict(ms=k2_ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b["ms"],
+                     bound_by=b["by"], bound_all46_ms=b["all46_ms"])
 
 
 def mesh_batches(scene, make_wavefront, shapes_mod, warp, spawn_ray):
@@ -912,11 +927,22 @@ def mesh_batches(scene, make_wavefront, shapes_mod, warp, spawn_ray):
             (c(bounce.o), c(bounce.d), c(b_maxt)))
 
 
+def special_maxt(maxt):
+    """maxt with every fifth lane 0, -1.5, -inf and NaN in turn (disabled
+    lanes, whose t must come back as their maxt bit for bit), the fifth as
+    it was."""
+    m = maxt.clone()
+    m[0::5], m[1::5], m[2::5], m[3::5] = 0.0, -1.5, -float("inf"), float("nan")
+    return m
+
+
 def phase_k2(mi, K1, K2, native, tmp):
     """K2 against its plain walk on a random soup, and against it and timed
     on the mesh scene's whole batches: the bounce-0 camera rays and one
     incoherent bounce-1 batch (closest hit), and the bounce-0 shadow rays
-    (any hit)."""
+    (any hit); held against it in both modes on the bounce-1 batch with 90%
+    of its lanes disabled at random and on the camera batch with special
+    maxt lanes (0, negative, -inf, NaN)."""
     from mitsuba_tpu_torch.core import warp
     from mitsuba_tpu_torch.render import shapes as shapes_mod
     from mitsuba_tpu_torch.render.records import spawn_ray
@@ -940,10 +966,20 @@ def phase_k2(mi, K1, K2, native, tmp):
     s_table = s_table[torch.from_numpy(order.astype(np.int64)).to(nodes.device)].contiguous()
     errs = [compare_k2("random soup", K2, s_nodes, s_table, s_o, s_d, s_maxt, anyhit)[0]
             for anyhit in (False, True)]
+    scattered = (bounce[0], bounce[1], disable_share(bounce[2], 0.9, 5))
+    special = (cam[0], cam[1], special_maxt(cam[2]))
+    rows = geom.bvh_rows
+    for name, batch in (("mesh bounce-1 batch, 90% of lanes disabled", scattered),
+                        ("mesh camera batch, special maxt lanes", special)):
+        errs += [compare_k2(name, K2, nodes, table, *batch, anyhit, rows)[0]
+                 for anyhit in (False, True)]
 
-    e0, closest = check_and_time_k2("mesh bounce-0 camera batch", K2, nodes, table, *cam, anyhit=False)
-    e1, bounce1 = check_and_time_k2("mesh bounce-1 batch", K2, nodes, table, *bounce, anyhit=False)
-    e2, anyhit = check_and_time_k2("mesh bounce-0 shadow batch", K2, nodes, table, *shadow, anyhit=True)
+    e0, closest = check_and_time_k2("mesh bounce-0 camera batch", K2, nodes, table, rows, *cam,
+                                    anyhit=False)
+    e1, bounce1 = check_and_time_k2("mesh bounce-1 batch", K2, nodes, table, rows, *bounce,
+                                    anyhit=False)
+    e2, anyhit = check_and_time_k2("mesh bounce-0 shadow batch", K2, nodes, table, rows, *shadow,
+                                   anyhit=True)
     return scene, max(errs + [e0, e1, e2]), closest, bounce1, anyhit
 
 
@@ -992,16 +1028,18 @@ def phase_mesh_main(mi, K1, K2, K3, scene, tmp):
     if max(rel) > MEAN_RTOL:
         raise AssertionError(f"mesh main path: means {means} vs JAX {JAX_MESH64_MEANS}: {rel}")
 
-    # where the pass spends its time: CUDA events around each K2 launch
+    # where the pass spends its time: CUDA events around each K2 launch, and
+    # its inputs, from which the plain walk counts its bound after the pass
     events = {"closest": [], "anyhit": []}
 
     def timed(fn, key):
-        def wrapper(*args):
+        def wrapper(nodes, table, o, d, maxt, rows):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            out = fn(*args)
+            out = fn(nodes, table, o, d, maxt, rows)
             end.record()
-            events[key].append((start, end))
+            events[key].append((start, end, (nodes, table.detach(), o.detach().clone(),
+                                              d.detach().clone(), maxt.clone())))
             return out
         return wrapper
 
@@ -1014,12 +1052,27 @@ def phase_mesh_main(mi, K1, K2, K3, scene, tmp):
     finally:
         shapes_mod.bvh_sweep_intersect = K2.bvh_sweep_intersect
         shapes_mod.bvh_sweep_occluded = K2.bvh_sweep_occluded
-    k2_ms = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in events.items()}
-    per = {k: [round(s.elapsed_time(e), 4) for s, e in v] for k, v in events.items()}
+    k2_ms = {k: sum(s.elapsed_time(e) for s, e, _ in v) for k, v in events.items()}
+    per = {k: [round(s.elapsed_time(e), 4) for s, e, _ in v] for k, v in events.items()}
     log(f"== mesh pass with K2 timed: {wall_t * 1e3:.1f} ms wall; K2 closest-hit "
         f"{k2_ms['closest']:.2f} ms ({per['closest']}), any-hit {k2_ms['anyhit']:.2f} ms "
         f"({per['anyhit']}); K2 {(k2_ms['closest'] + k2_ms['anyhit']) / (wall_t * 1e3):.2%} "
         f"of the pass's wall time")
+    bound = {}
+    for key, v in events.items():
+        b = []
+        for _, _, args in v:
+            stats = {}
+            K2.bvh_sweep_reference(*args, anyhit=key == "anyhit", stats=stats)
+            b.append(k2_bound_ms(K2, args[0], args[1], args[4], stats)["ms"])
+        bound[key] = sum(b)
+        log(f"  {key} launches' active shares "
+            f"{[round(float((a[4] > 0).float().mean()), 4) for _, _, a in v]}, bounds "
+            f"{[round(x, 4) for x in b]}: summed {bound[key]:.4f} ms against {k2_ms[key]:.2f} ms")
+    del events
+    pass_entry = {k: dict(pass_launches=len(per[k]), pass_ms=k2_ms[k], pass_bound_ms=bound[k],
+                          pass_all_ms=sum(k2_ms.values()), pass_all_bound_ms=sum(bound.values()))
+                  for k in k2_ms}
 
     d64 = mesh_scene(tmp / "sphere64.obj", k=MESH_K, res=64)
     scene64 = mi.load_dict(d64)
@@ -1035,7 +1088,7 @@ def phase_mesh_main(mi, K1, K2, K3, scene, tmp):
     with plain_versions(K1, K2, K3):
         img_p = render_mesh(mi, scene64, 4)
     compare_images("mesh", img_k, img_p)
-    return n_closest, n_any
+    return n_closest, n_any, pass_entry
 
 
 def main():
@@ -1071,7 +1124,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         scene, err, closest, bounce1, anyhit = phase_k2(mi, K1, K2, native, tmp)
-        n_closest, n_any = phase_mesh_main(mi, K1, K2, K3, scene, tmp)
+        n_closest, n_any, k2_pass = phase_mesh_main(mi, K1, K2, K3, scene, tmp)
         del scene
     torch.cuda.empty_cache()
     k4_entry = phase_k4(K4)
@@ -1092,11 +1145,12 @@ def main():
           "library_ms": None, "bitwise_vs_plain": err == 0.0}
     report = {"kernels": [
         k1_entry,
-        dict(name="bvh_sweep_closest", launches=n_closest, ms=closest[0], plain_ms=closest[1],
-             bound_ms=closest[2], bound_by=closest[3], batch="mesh bounce-0 camera rays",
-             bounce1_ms=bounce1[0], bounce1_bound_ms=bounce1[2], **k2),
-        dict(name="bvh_sweep_anyhit", launches=n_any, ms=anyhit[0], plain_ms=anyhit[1],
-             bound_ms=anyhit[2], bound_by=anyhit[3], batch="mesh bounce-0 shadow rays", **k2),
+        dict(name="bvh_sweep_closest", launches=n_closest, **closest,
+             batch="mesh bounce-0 camera rays", bounce1_ms=bounce1["ms"],
+             bounce1_kernel_ms=bounce1["kernel_ms"], bounce1_bound_ms=bounce1["bound_ms"],
+             **k2_pass["closest"], **k2),
+        dict(name="bvh_sweep_anyhit", launches=n_any, **anyhit,
+             batch="mesh bounce-0 shadow rays", **k2_pass["anyhit"], **k2),
         k3_entry,
         k4_entry,
     ], "prb": {k: v for k, v in prb.items()}}

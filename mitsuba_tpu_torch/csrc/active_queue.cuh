@@ -1,14 +1,24 @@
-// Active-lane compaction shared by the closest-hit kernels K1 and K3.
+// Active-lane compaction shared by the closest-hit kernels K1, K2 and K3.
 //
 // A disabled lane (maxt <= 0, -inf or NaN) never hits, and on a bounce
 // after the first, in the PRB replay and in its shadow tests the active
-// lanes lie scattered over the batch. A warp sweeps the whole table as
-// soon as one of its lanes is active, so a kernel that gives each warp 32
-// neighbouring lanes pays for the disabled ones too. Instead a block takes
-// a chunk of kThreads * kPerThread lanes, writes the miss (t = inf,
-// prim = -1, u = v = 0) to each disabled one, and gathers the active ones
-// into a queue in shared memory, in lane order, so that its warps then
-// sweep dense groups of active rays.
+// lanes lie scattered over the batch. A warp sweeps the whole table (K1,
+// K3) or walks as long as the longest walk among its lanes (K2) as soon as
+// one of its lanes is active, so a kernel that gives each warp 32
+// neighbouring lanes pays for the disabled ones too. Two queues in shared
+// memory avoid that:
+//
+// - Queue/gather (K1, K3): a block takes a chunk of kThreads * kPerThread
+//   lanes, writes the miss (t = inf, prim = -1, u = v = 0) to each disabled
+//   one, and gathers the active ones into a queue, in lane order, so that
+//   its warps then sweep dense groups of active rays. Every ray of a sweep
+//   costs the same, so the block's barriers cost little.
+// - WarpQueue/refill (K2): each warp takes 32 lanes of the batch at a time
+//   from a counter in device memory, writes the miss to the disabled ones
+//   (t = their own maxt, K2's contract) and queues the active ones, and
+//   hands them to its lanes as their rays end. A BVH walk's length varies
+//   from ray to ray; without a barrier no warp waits for another, and a
+//   lane whose walk ended takes the next ray at once.
 
 #pragma once
 
@@ -87,6 +97,78 @@ __device__ __forceinline__ int gather(Queue<kThreads, kPerThread>& q,
   }
   __syncthreads();
   return q.count;
+}
+
+// One warp's queue of active lanes, in shared memory. Its count and whether
+// the batch is exhausted live in the warp's registers (WarpCursor), the same
+// in every lane.
+struct WarpQueue {
+  // a fetch of 32 lanes happens only while fewer than 32 are queued
+  static constexpr int kCapacity = 64;
+  int idx[kCapacity];
+  float maxt[kCapacity];
+};
+
+struct WarpCursor {
+  int count = 0;
+  bool exhausted = false;
+};
+
+// Gives each idle lane (a bit of `idle`) the next queued active lane: for
+// each one that gets a ray it returns true and sets `i` (the lane index)
+// and `mt` (its maxt). Until the queue holds a ray for every idle lane, the
+// warp takes the next 32 positions [p, p + 32) of the batch from `counter`
+// (zeroed before the launch, shared by all warps), writes the miss to the
+// disabled lanes (t = the lane's own maxt bit for bit, as K2's contract
+// has it, prim = -1, u = v = 0) and queues the active ones. Every lane of
+// the warp must call it.
+__device__ __forceinline__ bool refill(WarpQueue& q, WarpCursor& c, unsigned idle,
+                                       unsigned* __restrict__ counter,
+                                       const float* __restrict__ maxt, int n,
+                                       float* __restrict__ t_out, int* __restrict__ p_out,
+                                       float* __restrict__ u_out, float* __restrict__ v_out,
+                                       int& i, float& mt) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int need = __popc(idle);
+  while (c.count < need && !c.exhausted) {
+    unsigned base = 0;
+    if (lane == 0) base = atomicAdd(counter, 32u);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (base >= static_cast<unsigned>(n)) {
+      c.exhausted = true;
+      break;
+    }
+    const long long pos = static_cast<long long>(base) + lane;
+    const bool in_range = pos < n;
+    const int j = static_cast<int>(pos);
+    const float m = in_range ? maxt[j] : -1.f;
+    const bool active = m > 0.f;
+    const unsigned mask = __ballot_sync(0xffffffffu, active);
+    if (in_range && !active) {
+      t_out[j] = m;
+      p_out[j] = -1;
+      u_out[j] = 0.f;
+      v_out[j] = 0.f;
+    }
+    if (active) {
+      q.idx[c.count + __popc(mask & below)] = j;
+      q.maxt[c.count + __popc(mask & below)] = m;
+    }
+    c.count += __popc(mask);
+    __syncwarp();
+  }
+  // the idle lanes take the newest rays, the last `take` of the queue
+  const int take = min(need, c.count);
+  const int rank = __popc(idle & below);
+  const bool got = (idle >> lane & 1u) && rank < take;
+  if (got) {
+    i = q.idx[c.count - take + rank];
+    mt = q.maxt[c.count - take + rank];
+  }
+  c.count -= take;
+  __syncwarp();
+  return got;
 }
 
 // Blocks for a persistent grid: as many as fit on the card at once, but no

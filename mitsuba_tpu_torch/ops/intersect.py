@@ -70,10 +70,12 @@ def _check(table, o, d, maxt):
 
 
 def moller_trumbore(o, d, tri):
-    """Moller-Trumbore of rays [R] against triangles, (t, u, v, hit), each
-    [R, C]: tri is [C, 9] (every ray against the same C triangles) or
-    [R, C, 9] (each ray against its own). The same operations in the same
-    order as the kernels K1 and K2."""
+    """Moller-Trumbore of rays [R] against triangles, (t, u, v, hit,
+    det_ok), each [R, C]: tri is [C, 9] (every ray against the same C
+    triangles) or [R, C, 9] (each ray against its own). The same operations
+    in the same order as the kernels K1 and K2. det_ok (|det| > 1e-12) is
+    where u is the kernels' u; the kernels stop a pair after det where it
+    is false, and after u where u < 0, u > 1 or u is NaN."""
     o_x, o_y, o_z = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     d_x, d_y, d_z = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri.unbind(-1)
@@ -95,7 +97,7 @@ def moller_trumbore(o, d, tri):
     v = (d_x * qvx + d_y * qvy + d_z * qvz) * inv_det
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
     hit = det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
-    return t, u, v, hit
+    return t, u, v, hit, det_ok
 
 
 def tri_intersect_reference(table, o, d, maxt, tri_chunk=64, ray_chunk=1 << 20):
@@ -115,7 +117,7 @@ def tri_intersect_reference(table, o, d, maxt, tri_chunk=64, ray_chunk=1 << 20):
         bv = torch.zeros_like(bt)
         for c0 in range(0, T, tri_chunk):
             tri = table[c0:c0 + tri_chunk]
-            t, u, v, hit = moller_trumbore(ro, rd, tri)
+            t, u, v, hit, _ = moller_trumbore(ro, rd, tri)
             t = torch.where(hit, t, float("inf"))
             tmin = t.amin(dim=1)
             col = torch.arange(tri.shape[0], device=t.device)

@@ -25,7 +25,7 @@ import torch
 
 from .. import native
 from ..core.frame import coordinate_system, cross, dot, normalize
-from ..ops.bvh_sweep import MAX_WIDE_LEAF, bvh_sweep_intersect, bvh_sweep_occluded
+from ..ops.bvh_sweep import MAX_WIDE_LEAF, bvh_sweep_intersect, bvh_sweep_occluded, kernel_rows
 from ..ops.intersect import INTERSECTORS, MAX_SMEM_TRIS, build_tri_table, tri_intersect
 from ..ops.intersect_mxu import MAX_MXU_TRIS
 from .records import PreliminaryIntersection, Ray, SurfaceInteraction
@@ -36,9 +36,10 @@ TRI_CHUNK = 64
 @dataclass
 class Geometry:
     """Flattened triangle geometry. ``vertices`` is the source of truth: the
-    per-triangle tables tri_v0/e1/e2/ng/vn are derived from it by refresh().
-    With a BVH, every per-triangle array (tri_face included) is in the
-    BVH's leaf order; refresh() keeps that order and the BVH."""
+    per-triangle tables tri_v0/e1/e2/ng/vn (and bvh_rows) are derived from
+    it by refresh(). With a BVH, every per-triangle array (tri_face
+    included) is in the BVH's leaf order; refresh() keeps that order and the
+    BVH."""
 
     vertices: torch.Tensor    # [V, 3] concatenated per-mesh vertex buffer
     vertex_normals: torch.Tensor  # [V, 3] per-vertex normals (zeros if none)
@@ -63,6 +64,10 @@ class Geometry:
     # triangles before the padding rows, which K1 and K3 do not sweep (K3
     # pads to its own n-tile); None sweeps every row
     n_real_tris: int | None = None
+    # with a BVH: the table (v0 | e1 | e2) as K2 reads it, [T, 12] with
+    # 16-byte rows (ops/bvh_sweep.py:kernel_rows), without a gradient; built
+    # with the tables, so that no launch pads the table again
+    bvh_rows: torch.Tensor | None = None
 
     @property
     def has_bvh(self):
@@ -82,7 +87,13 @@ class Geometry:
         good = n2 > 1e-24
         ng = torch.where(good, ng * torch.rsqrt(torch.where(good, n2, 1.0)), 0.0)
         return dataclasses.replace(self, tri_v0=p0, tri_e1=e1, tri_e2=e2, tri_ng=ng,
-                                   tri_vn=self._shading_normals(ng))
+                                   tri_vn=self._shading_normals(ng),
+                                   bvh_rows=self._bvh_rows(p0, e1, e2))
+
+    def _bvh_rows(self, v0, e1, e2):
+        if not self.has_bvh:
+            return None
+        return kernel_rows(torch.cat([v0, e1, e2], dim=-1).detach().to(torch.float32))
 
     def _shading_normals(self, ng):
         """[T, 3, 3] per-vertex shading normals: the vertex normals gathered
@@ -198,7 +209,8 @@ def build_geometry(tri_meshes, device, intersector="smem"):
         intersector=intersector,
         n_real_tris=T,
     )
-    return dataclasses.replace(geom, tri_vn=geom._shading_normals(geom.tri_ng))
+    return dataclasses.replace(geom, tri_vn=geom._shading_normals(geom.tri_ng),
+                               bvh_rows=geom._bvh_rows(geom.tri_v0, geom.tri_e1, geom.tri_e2))
 
 
 def ray_intersect_preliminary(geom: Geometry, ray: Ray, active=None):
@@ -210,7 +222,7 @@ def ray_intersect_preliminary(geom: Geometry, ray: Ray, active=None):
     maxt = torch.where(active, ray.maxt, -float("inf")).contiguous()
     o, d, table = ray.o.contiguous(), ray.d.contiguous(), build_tri_table(geom)
     if geom.has_bvh:
-        t, prim, u, v = bvh_sweep_intersect(geom.bvh_nodes, table, o, d, maxt)
+        t, prim, u, v = bvh_sweep_intersect(geom.bvh_nodes, table, o, d, maxt, geom.bvh_rows)
         t = torch.where(prim >= 0, t, float("inf"))
     else:
         # the real rows only: a slice, so the cotangent of the hit still
@@ -229,7 +241,8 @@ def ray_test(geom: Geometry, ray: Ray, active=None):
         active = torch.ones(ray.o.shape[0], dtype=torch.bool, device=ray.o.device)
     maxt = torch.where(active, ray.maxt, -float("inf")).contiguous()
     return bvh_sweep_occluded(
-        geom.bvh_nodes, build_tri_table(geom), ray.o.contiguous(), ray.d.contiguous(), maxt
+        geom.bvh_nodes, build_tri_table(geom), ray.o.contiguous(), ray.d.contiguous(), maxt,
+        geom.bvh_rows,
     )
 
 

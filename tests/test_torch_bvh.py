@@ -27,6 +27,7 @@ conditioning: the random soup has grazing hits and slivers, whose u and v
 the two packages round apart by ~1e-6 k, a large part of a small u). The tape gradient of the mesh's vertices
 through a k=30 mesh scene is held against jax.grad of the same loss.
 """
+import dataclasses
 import struct
 
 import numpy as np
@@ -37,6 +38,7 @@ import torch
 
 import mitsuba_tpu as mj
 from mitsuba_tpu import native as JN
+from mitsuba_tpu.ops import bvh_sweep as JB
 from mitsuba_tpu.render import shapes as JSH
 from mitsuba_tpu.render.bvh import bvh_intersect, bvh_intersect_ad
 from mitsuba_tpu.render.params import _tree_get, _tree_set
@@ -49,6 +51,7 @@ from mitsuba_tpu_torch.ops import bvh_sweep as K2
 from mitsuba_tpu_torch.render import shapes as TSH
 from mitsuba_tpu_torch.render.records import Ray as TRay
 from mitsuba_tpu_torch.render.scene_loader import mesh_scene, spherified_cube
+from mitsuba_tpu_torch.render_api import make_wavefront
 from mitsuba_tpu_torch.render_api import render_lanes as t_render_lanes
 
 from mitsuba_tpu_torch.ops import intersect as K1
@@ -236,6 +239,144 @@ def test_bvh_wrapper_rejects_bad_inputs():
     # no device other than the CPU (plain version) and CUDA (kernel)
     with pytest.raises(ValueError):
         K2.bvh_sweep_intersect(*(x.to("meta") for x in (nodes, table, o, d, maxt)))
+
+
+def test_plain_walk_counts_the_early_stops():
+    """One leaf of 64 rows (8 of them degenerate) and rays that start in its
+    box, so that every active ray tests every row: the walk's det and u
+    stops equal a count over all (active ray, row) pairs, and they lie
+    within its tests."""
+    tris = _soup_tris(64, 4)
+    tris[::8, 6:9] = tris[::8, 3:6]            # e2 = e1: det = 0
+    nodes, order = TN.build_bvh_wide(tris, max_leaf=K2.MAX_WIDE_LEAF)
+    assert nodes.shape[0] == 1
+    table = torch.from_numpy(tris[order])
+    o, d, maxt = (torch.from_numpy(x) for x in _rays(512, 6))
+    o = o * 0.4                                # inside the leaf's box
+    stats = {}
+    K2.bvh_sweep_reference(torch.from_numpy(nodes), table, o, d, maxt, stats=stats)
+    active = maxt > 0
+    _, u, _, _, det_ok = K1.moller_trumbore(o[active], d[active], table)
+    u_stop = det_ok & ~((u >= 0) & (u <= 1))
+    assert stats["tri_tests"] == int(active.sum()) * 64
+    assert stats["tri_det_stops"] == int((~det_ok).sum()) > 0
+    assert stats["tri_u_stops"] == int(u_stop.sum()) > 0
+    assert stats["tri_det_stops"] + stats["tri_u_stops"] < stats["tri_tests"]
+    # any hit: the same counts over the rows each walk tested
+    any_stats = {}
+    K2.bvh_sweep_reference(torch.from_numpy(nodes), table, o, d, maxt, anyhit=True,
+                           stats=any_stats)
+    assert 0 < any_stats["tri_tests"] < stats["tri_tests"]
+    assert 0 < any_stats["tri_det_stops"] + any_stats["tri_u_stops"] < any_stats["tri_tests"]
+
+
+def test_geometry_keeps_the_kernel_rows_with_its_tables():
+    """Geometry.bvh_rows, K2's [T, 12] copy of the table, is kernel_rows of
+    the table after the load and after refresh() with moved vertices,
+    carries no gradient, exists only with a BVH, and is refused beside a
+    table it does not fit."""
+    g = mt.load_dict(_normals_scene(), device="cpu").geometry
+    assert torch.equal(g.bvh_rows, K2.kernel_rows(K1.build_tri_table(g)))
+    g2 = dataclasses.replace(g, vertices=(g.vertices * 1.5).requires_grad_()).refresh()
+    table = K1.build_tri_table(g2)
+    assert table.requires_grad and not g2.bvh_rows.requires_grad
+    assert torch.equal(g2.bvh_rows, K2.kernel_rows(table.detach()))
+    assert not torch.equal(g2.bvh_rows, g.bvh_rows)
+    small = mt.load_dict(mt.cornell_box(), device="cpu").geometry
+    assert small.bvh_rows is None and small.refresh().bvh_rows is None
+    o, d, maxt = torch.zeros(8, 3), torch.ones(8, 3), torch.ones(8)
+    with pytest.raises(ValueError):
+        K2.bvh_sweep(g.bvh_nodes, table.detach(), o, d, maxt, rows=g.bvh_rows[:-1])
+    with pytest.raises(TypeError):
+        K2.bvh_sweep_occluded(g.bvh_nodes, table, o, d, maxt, g.bvh_rows.double())
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's coherence order (ray_sort_key, maybe_sort_order)
+# ---------------------------------------------------------------------------
+
+def _sort_inputs():
+    """Root box of the 3000-triangle soup's BVH, and rays: a third of them
+    pointing away from the box (most of those miss it), zero direction
+    components, NaN origins and directions, disabled lanes and finite
+    maxt."""
+    nodes, _ = TN.build_bvh_wide(_soup_tris(3000, 1), max_leaf=K2.MAX_WIDE_LEAF)
+    o, d, maxt = _rays(4096, 5)
+    d[0::3] *= -1.0
+    d[5::7, 1] = 0.0
+    o[11::97] = np.nan
+    d[13::89, 2] = np.nan
+    return np.ascontiguousarray(nodes[0, 0:3]), np.ascontiguousarray(nodes[0, 3:6]), o, d, maxt
+
+
+def test_ray_sort_key_matches_jax_bitwise():
+    lo, hi, o, d, maxt = _sort_inputs()
+    keys = []
+    for args in ((o, d, lo, hi, maxt), (o, d, lo, hi)):
+        want = np.asarray(JB.ray_sort_key(*(jnp.asarray(x) for x in args)))
+        got = K2.ray_sort_key(*(torch.from_numpy(x) for x in args))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        keys.append(got.numpy())
+    # the cull bit: on the disabled lanes and on some of the active ones
+    # (those that miss the box), and only with maxt
+    cull = keys[0] >> 30
+    assert cull[maxt == -np.inf].all()
+    assert 0 < cull[maxt > 0].sum() < (maxt > 0).sum()
+    assert not (keys[1] >> 30).any()
+
+
+@pytest.mark.parametrize("case", ["camera rays in coherence order", "scattered rays"])
+def test_maybe_sort_order_matches_jax(case, tmp_path):
+    """The same permutation as the JAX package's on the k=30 mesh scene's
+    camera rays (16x16 @ 256 spp) put in coherence order, which the
+    statistic finds coherent (the identity), and on rays with random
+    origins in the scene and random directions (both stable argsorts)."""
+    scene = mt.load_dict(mesh_scene(tmp_path / "sphere.obj", k=30, res=16), device="cpu")
+    nodes = scene.geometry.bvh_nodes
+    lo, hi = nodes[0, 0:3], nodes[0, 3:6]
+    if case == "scattered rays":
+        r = np.random.default_rng(7)
+        o = torch.from_numpy(r.uniform(-1, 1, (1 << 16, 3)).astype(np.float32))
+        d = torch.from_numpy(r.normal(size=(1 << 16, 3)).astype(np.float32))
+        maxt = torch.full((1 << 16,), float("inf"))
+    else:
+        n = scene.film.n_pixels * 256
+        _, ray, _ = make_wavefront(scene, 0, 0, n, 0, 256, 256)
+        key = K2.ray_sort_key(ray.o, ray.d, lo, hi, ray.maxt)
+        perm = torch.from_numpy(np.argsort(key.numpy(), kind="stable"))
+        o, d, maxt = ray.o[perm], ray.d[perm], ray.maxt[perm]
+    key = K2.ray_sort_key(o, d, lo, hi, maxt)
+    want = np.asarray(JB.maybe_sort_order(jnp.asarray(key.numpy())))
+    got = K2.maybe_sort_order(key)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    identity = np.arange(key.shape[0])
+    assert (want == identity).all() == (case != "scattered rays")
+
+
+@pytest.mark.parametrize("anyhit", [False, True], ids=["closest", "anyhit"])
+def test_plain_walk_is_invariant_under_the_coherence_order(anyhit):
+    """Each ray's walk depends on that ray alone: the plain walk on the
+    batch in the JAX package's coherence order, scattered back, is bitwise
+    the walk in lane order, with the same work (so the order of a batch
+    is free, and the port, which keeps lane order, loses nothing by it)."""
+    tris = _soup_tris(3000, 1)
+    nodes, order = TN.build_bvh_wide(tris, max_leaf=K2.MAX_WIDE_LEAF)
+    nodes, table = torch.from_numpy(nodes), torch.from_numpy(tris[order])
+    o, d, maxt = (torch.from_numpy(x) for x in _rays(1024, 2))
+    key = K2.ray_sort_key(o, d, nodes[0, 0:3], nodes[0, 3:6], maxt)
+    perm = K2.maybe_sort_order(key).to(torch.int64)
+    assert not torch.equal(perm, torch.arange(1024))
+    s_ref, s_got = {}, {}
+    ref = K2.bvh_sweep_reference(nodes, table, o, d, maxt, anyhit, stats=s_ref)
+    got = K2.bvh_sweep_reference(nodes, table, o[perm], d[perm], maxt[perm], anyhit, stats=s_got)
+    for g, r in zip(got, ref):
+        back = torch.empty_like(g)
+        back[perm] = g
+        assert torch.equal(back.view(torch.int32), r.view(torch.int32))
+    for k in ("node_visits", "tri_tests", "tri_det_stops", "tri_u_stops"):
+        assert s_got[k] == s_ref[k]
 
 
 # ---------------------------------------------------------------------------

@@ -141,9 +141,25 @@ def _k2_mesh(device, tmp_path):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("anyhit", [False, True], ids=["closest", "anyhit"])
-@pytest.mark.parametrize("case", ["soup", "mesh"])
+@pytest.mark.parametrize("case", ["soup", "mesh", "mesh90", "special", "sorted"])
 def test_k2_kernel_bitwise_vs_plain(cuda, case, anyhit, tmp_path):
+    """K2 against its plain walk, prim, t, u, v bit for bit: on a soup, on
+    the mesh's camera rays, on them with a random 90% of the lanes disabled
+    ("mesh90"), with maxt 0, -1.5, -inf and NaN on four lanes in five
+    ("special": a miss returns its maxt bit for bit), and on them gathered
+    in the JAX package's coherence order ("sorted")."""
     args = _k2_soup(cuda) if case == "soup" else _k2_mesh(cuda, tmp_path)
+    if case == "mesh90":
+        off = np.random.default_rng(90).random(args[4].shape[0]) < 0.9
+        args[4] = torch.where(torch.from_numpy(off).to(cuda), -float("inf"), args[4])
+    elif case == "special":
+        for k, x in enumerate((0.0, -1.5, -float("inf"), float("nan"))):
+            args[4][k::5] = x
+    elif case == "sorted":
+        nodes, o, d, maxt = args[0], *args[2:]
+        perm = K2.maybe_sort_order(K2.ray_sort_key(o, d, nodes[0, 0:3], nodes[0, 3:6], maxt))
+        assert not torch.equal(perm.cpu(), torch.arange(perm.shape[0], dtype=torch.int32))
+        args[2:] = [x[perm.long()].contiguous() for x in args[2:]]
     counter = K2.bvh_sweep_occluded if anyhit else K2.bvh_sweep_intersect
     before = counter.launches
     got = K2.bvh_sweep(*args, anyhit=anyhit)
@@ -153,7 +169,7 @@ def test_k2_kernel_bitwise_vs_plain(cuda, case, anyhit, tmp_path):
     torch.cuda.synchronize()
     assert not stats["hit_max_steps"] and (ref[1] >= 0).any()
     for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.gpu
