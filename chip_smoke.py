@@ -14,7 +14,16 @@ user entry points, and checks that each went through its kernels:
   again with intersector="mma": kernel K3 (the closest hit with every
   determinant from the tensor cores); the 64x64 gradient against the JAX
   package's, and ten Adam steps at 16x16;
-- kernel K4, the device-memory copy probe, swept over its configurations.
+- kernel K4, the device-memory copy probe, swept over its configurations;
+- participating media (BASELINE config 3, bench.py's het_vol_fwd_mrays
+  scene): volpath over a 32^3 heterogeneous grid in a null cube under a
+  constant environment, 96x96 @ 16 spp, max_depth 12: kernel K1 on every
+  segment and NEE crossing; its means against the JAX package's, the
+  same dict with path regeneration against it, and the 32x32 render
+  through K1 against the same render through the plain version, bitwise;
+- bench.py's vol32_regen_speedup scene (a homogeneous slab, 128x128 @ 16
+  spp, volpath max_depth 32), rendered as a wavefront and with path
+  regeneration, the two images held together and their times compared.
 
 Any failure raises and exits non-zero.
 
@@ -63,6 +72,17 @@ JAX_MESH64_MEANS = (0.22338911890983582, 0.13317768275737762, 0.0570306070148944
 # with `path` the parameter's path in scene.param_paths (6.8 s).
 JAX_PRB64_GRAD = (0.09090301394462585, 0.04229336231946945, 0.015745891258120537)
 PRB64_GRAD_RTOL = 0.01
+# Per-channel means of the JAX package's image of bench.py's heterogeneous
+# volume (render/scene_loader.py:het_vol_scene: 96x96, spp=16, seed=0,
+# volpath max_depth 12, 16 tracking steps), computed once with mitsuba_tpu
+# on the CPU: mi.render(mi.load_dict(het_vol_scene()), spp=16, seed=0)
+# .mean(axis=(0, 1)) (15.4 s). The port draws the same samples.
+JAX_HETVOL_MEANS = (0.8984217047691345, 0.8984217047691345, 0.8984217047691345)
+HETVOL_MEAN_RTOL = 0.01
+HETVOL_PASSES = 4
+# the regenerative image against the wavefront image (tests/test_regen.py's
+# volpath tolerance: the same samples, summed in another order)
+REGEN_RTOL, REGEN_ATOL = 3e-4, 3e-5
 # the K3 route's gradient against the K1 route's, same seed, per channel
 MMA_GRAD_RTOL = 1e-3
 MEAN_RTOL = 0.03
@@ -1091,6 +1111,177 @@ def phase_mesh_main(mi, K1, K2, K3, scene, tmp):
     return n_closest, n_any, pass_entry
 
 
+# ---------------------------------------------------------------------------
+# participating media: volpath through K1
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def no_plain_closest_hit(K1, name):
+    """Inside, a call of K1's plain version (the closest hit without the
+    kernel) is counted; leaving the block fails if there was one."""
+    plain = K1.tri_intersect_reference
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return plain(*args, **kw)
+
+    K1.tri_intersect_reference = counted
+    try:
+        yield
+    finally:
+        K1.tri_intersect_reference = plain
+    if calls:
+        raise AssertionError(f"{name}: the plain closest hit ran {len(calls)} times")
+
+
+def render_timed(mi, scene, spp, seed, stats=None):
+    """(image, wall seconds) of one render ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = mi.render(scene, spp=spp, seed=seed, stats=stats)
+    torch.cuda.synchronize()
+    return img, time.perf_counter() - t0
+
+
+def phase_hetvol(mi, K1, K2, K3):
+    """The het-vol main path: HETVOL_PASSES warm passes at 96x96 @ 16 spp
+    (Mrays/s and their spread, K1 launches, peak memory), the means against
+    the JAX package's, one more pass with CUDA events around each K1 launch
+    (summed time against summed bounds), and the 32x32 @ 4 spp render
+    through K1 against the same render through the plain version."""
+    from mitsuba_tpu_torch.render.scene_loader import het_vol_scene
+
+    spp = 16
+    scene = mi.load_dict(het_vol_scene(spp=spp))
+    film = scene.film
+    render_timed(mi, scene, 1, 1)                    # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(K1, K2, K3)
+    walls, rays, per_pass = [], [], []
+    for _ in range(HETVOL_PASSES):
+        before = K1.smem_intersect.launches
+        stats = {}
+        with no_plain_closest_hit(K1, "het-vol"):
+            img, wall = render_timed(mi, scene, spp, 0, stats)
+        walls.append(wall)
+        rays.append(stats["n_rays"])
+        per_pass.append(K1.smem_intersect.launches - before)
+        if tuple(img.shape) != (film.height, film.width, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"het-vol: image of shape {tuple(img.shape)} is not finite")
+    launches = dict(K1=K1.smem_intersect.launches, K3=K3.mxu_intersect.launches,
+                    K2=K2.bvh_sweep_intersect.launches + K2.bvh_sweep_occluded.launches)
+    peak = torch.cuda.max_memory_allocated()
+    mrays = [r / w / 1e6 for r, w in zip(rays, walls)]
+    means = img.mean(dim=(0, 1)).tolist()
+    log(f"== main path: het-vol {film.width}x{film.height} @ {spp} spp, volpath max_depth "
+        f"{scene.integrator.max_depth}: {HETVOL_PASSES} warm passes {[round(w, 4) for w in walls]} "
+        f"s wall, {rays[0]} rays a pass, {[round(m, 3) for m in mrays]} Mrays/s (spread "
+        f"{min(mrays):.3f}-{max(mrays):.3f}, {(max(mrays) - min(mrays)) / min(mrays):.1%}); K1 "
+        f"launches per pass {per_pass}; launches {launches}; peak memory {peak / 2**30:.3f} GiB; "
+        f"means {means}")
+    if launches["K1"] == 0 or launches["K2"] or launches["K3"]:
+        raise AssertionError(f"het-vol: launches {launches}")
+    rel = [abs(m - r) / r for m, r in zip(means, JAX_HETVOL_MEANS)]
+    log(f"  channel means within {max(rel):.4%} of the JAX package's {JAX_HETVOL_MEANS}")
+    if max(rel) > HETVOL_MEAN_RTOL:
+        raise AssertionError(f"het-vol: means {means} vs JAX {JAX_HETVOL_MEANS}: {rel}")
+
+    def work_and_inputs(*args):
+        return k1_work(*args), [a.detach().clone() for a in args]
+
+    timed = []
+    with timed_launches(K1, "smem_intersect", work_and_inputs, timed):
+        _, wall_t = render_timed(mi, scene, spp, 0)
+    per = [(start.elapsed_time(end), k1_bound_ms(w)) for start, end, (w, _) in timed]
+    k_ms = sum(m for m, _ in per)
+    b_ms = sum(b["ms"] for _, b in per)
+    active = [int(b["n_active"]) for _, b in per]
+    # in place, an event pair also holds the host's time between the two
+    # records when the card waits for the host; the same launches replayed
+    # back to back give the kernel's own time
+    inputs = [x for _, _, (_, x) in timed]
+    b2b_ms = time_cuda(lambda: [K1.smem_intersect(*x) for x in inputs], reps=10)
+    log(f"  one more pass with events around each K1 launch: {wall_t * 1e3:.1f} ms wall, "
+        f"{len(per)} launches, {k_ms:.3f} ms in K1 in place ({k_ms / (sorted(walls)[len(walls) // 2] * 1e3):.2%} "
+        f"of a warm pass's median wall), {b2b_ms:.4f} ms for the same launches back to back; "
+        f"summed bound {b_ms:.4f} ms; active lanes per launch {active}; ms per launch in place "
+        f"{[round(m, 4) for m, _ in per]}")
+    del inputs, timed
+
+    # the same dict with path regeneration: the same samples in another
+    # schedule, so the same image up to the order of each pixel's sums
+    scene_r = mi.load_dict(het_vol_scene(spp=spp, regenerate=True))
+    before = K1.smem_intersect.launches
+    stats_r = {}
+    with no_plain_closest_hit(K1, "het-vol regenerate"):
+        img_r, wall_r = render_timed(mi, scene_r, spp, 0, stats_r)
+    k1_regen = K1.smem_intersect.launches - before
+    close = torch.isclose(img_r, img, rtol=REGEN_RTOL, atol=REGEN_ATOL)
+    log(f"== het-vol with regenerate: {wall_r:.3f} s wall (first render), {stats_r['n_rays']} "
+        f"rays, {stats_r['wavefront_iters']} iterations, K1 launches {k1_regen}; against the "
+        f"wavefront image {close.float().mean().item():.5%} of values within rtol {REGEN_RTOL} / "
+        f"atol {REGEN_ATOL}")
+    if k1_regen == 0 or not bool(close.all()):
+        raise AssertionError("het-vol regenerate: no K1 launch, or the image differs")
+
+    scene32 = mi.load_dict(het_vol_scene(res=32, spp=4))
+    img_k = mi.render(scene32, spp=4, seed=0)
+    with plain_versions(K1, K2, K3):
+        img_p = mi.render(scene32, spp=4, seed=0)
+    if not torch.equal(img_k, img_p):
+        raise AssertionError("het-vol 32x32: the render through K1 differs from the plain one")
+    log("== het-vol 32x32 @ 4 spp, kernel vs plain render: bitwise equal")
+    return dict(walls=walls, rays=rays, mrays=mrays, k1_per_pass=per_pass, peak=peak,
+                means=means, k1_pass_launches=len(per), k1_pass_ms=k_ms,
+                k1_pass_back_to_back_ms=b2b_ms, k1_pass_bound_ms=b_ms, regen_wall=wall_r,
+                regen_iters=stats_r["wavefront_iters"], k1_regen=k1_regen)
+
+
+def phase_vol32(mi, K1, K2, K3):
+    """bench.py's vol32 cell: the wavefront render and the regenerative one
+    at 128x128 @ 16 spp, each one warm-up and two timed renders (best of
+    two, as bench.py), the regenerative image held to the wavefront's."""
+    from mitsuba_tpu_torch.render.scene_loader import vol32_scene
+
+    spp = 16
+    out = {}
+    for regen in (False, True):
+        scene = mi.load_dict(vol32_scene(spp=spp, regenerate=regen))
+        img0, _ = render_timed(mi, scene, spp, 0)
+        reset_launches(K1, K2, K3)
+        timed = []
+        for seed in (1, 2):
+            stats = {}
+            with no_plain_closest_hit(K1, f"vol32 regenerate={regen}"):
+                _, wall = render_timed(mi, scene, spp, seed, stats)
+            timed.append((wall, stats))
+        n_k1 = K1.smem_intersect.launches // 2
+        if n_k1 == 0 or K2.bvh_sweep_intersect.launches or K3.mxu_intersect.launches:
+            raise AssertionError(f"vol32 regenerate={regen}: K1 launched {n_k1} times a render")
+        best, stats = min(timed, key=lambda x: x[0])
+        out[regen] = dict(img=img0, wall=best, walls=[w for w, _ in timed], stats=stats, k1=n_k1)
+        log(f"== vol32 {scene.film.width}x{scene.film.height} @ {spp} spp, volpath max_depth "
+            f"{scene.integrator.max_depth}, regenerate={regen}: walls "
+            f"{[round(w, 4) for w, _ in timed]} s, best {best:.4f} s, {stats['n_rays']} rays "
+            f"({stats['n_rays'] / best / 1e6:.3f} Mrays/s), K1 launches per render {n_k1}"
+            + (f", wavefront iterations {stats['wavefront_iters']} "
+               f"({best / stats['wavefront_iters'] * 1e3:.2f} ms each)" if regen else ""))
+    std, reg = out[False], out[True]
+    speedup = std["wall"] / reg["wall"]
+    close = torch.isclose(reg["img"], std["img"], rtol=REGEN_RTOL, atol=REGEN_ATOL)
+    log(f"  vol32_regen_speedup {speedup:.4f} (wavefront {std['wall']:.4f} s / regenerate "
+        f"{reg['wall']:.4f} s); regenerate vs wavefront image: {close.float().mean().item():.5%} "
+        f"of values within rtol {REGEN_RTOL} / atol {REGEN_ATOL}, max abs diff "
+        f"{(reg['img'] - std['img']).abs().max().item():.3e}")
+    if not bool(close.all()):
+        raise AssertionError("vol32: the regenerative image differs from the wavefront image")
+    return dict(std_wall=std["wall"], std_walls=std["walls"], regen_wall=reg["wall"],
+                regen_walls=reg["walls"], speedup=speedup,
+                regen_iters=reg["stats"]["wavefront_iters"], std_rays=std["stats"]["n_rays"],
+                regen_rays=reg["stats"]["n_rays"], k1_std=std["k1"], k1_regen=reg["k1"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one card", file=sys.stderr)
@@ -1128,14 +1319,26 @@ def main():
         del scene
     torch.cuda.empty_cache()
     k4_entry = phase_k4(K4)
+    torch.cuda.empty_cache()
+    hetvol = phase_hetvol(mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    vol32 = phase_vol32(mi, K1, K2, K3)
 
     per_path = f"{PRB_ITERS} iterations"
     k1_entry["launches"] = cbox_launches
     k1_entry["launches_by_path"] = {"cbox path 256x256 @ 64 spp": cbox_launches,
                                     f"cbox prb, K1 route, {per_path}": l_smem["K1"],
                                     f"cbox prb, K3 route, {per_path}": l_mma["K1"],
-                                    "mesh path": 0}
+                                    "mesh path": 0,
+                                    "het-vol pass 96x96 @ 16 spp": hetvol["k1_per_pass"][0],
+                                    "het-vol regenerate render": hetvol["k1_regen"],
+                                    "vol32 wavefront render": vol32["k1_std"],
+                                    "vol32 regenerate render": vol32["k1_regen"]}
     k1_entry.update(step_k1)
+    k1_entry.update(hetvol_pass_launches=hetvol["k1_pass_launches"],
+                    hetvol_pass_ms=hetvol["k1_pass_ms"],
+                    hetvol_pass_back_to_back_ms=hetvol["k1_pass_back_to_back_ms"],
+                    hetvol_pass_bound_ms=hetvol["k1_pass_bound_ms"])
     k3_entry.update(step_k3)
     k3_entry["launches"] = l_mma["K3"]
     k3_entry["launches_by_path"] = {f"cbox prb, K3 route, {per_path}": l_mma["K3"],
@@ -1153,7 +1356,9 @@ def main():
              batch="mesh bounce-0 shadow rays", **k2_pass["anyhit"], **k2),
         k3_entry,
         k4_entry,
-    ], "prb": {k: v for k, v in prb.items()}}
+    ], "prb": {k: v for k, v in prb.items()},
+        "hetvol": hetvol,
+        "vol32": vol32}
     log(f"== chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(report))

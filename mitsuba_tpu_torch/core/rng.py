@@ -65,9 +65,12 @@ def uniform_from_bits(bits):
 class RNG:
     """Per-lane random stream with a dimension counter (independent mode).
 
-    ``lane`` is an int64 tensor of uint32 lane keys, ``seed`` and ``dim``
-    are Python ints: every lane of a wavefront shares its dimension
-    counter, so the counter needs no tensor."""
+    ``lane`` is an int64 tensor of uint32 lane keys and ``seed`` a Python
+    int. ``dim`` is a Python int on the wavefront, where every lane shares
+    its dimension counter, or an int64 tensor [N] of per-lane counters
+    under path regeneration (``lanes_rng``), where a restarted lane sits at
+    a fresh dimension while the others are deeper in their streams. Both
+    forms draw the same numbers for the same (lane, dim)."""
 
     __slots__ = ("seed", "lane", "dim")
 
@@ -78,7 +81,11 @@ class RNG:
             )
         self.seed = int(seed) & MASK32
         self.lane = lane.to(torch.int64) & MASK32
-        self.dim = int(dim)
+        self.dim = dim.to(torch.int64) if torch.is_tensor(dim) else int(dim)
+
+    def skip(self, n):
+        """The stream n dimensions further on."""
+        return RNG(self.seed, self.lane, self.dim + n)
 
     def next_1d(self):
         b0, _ = threefry2x32(self.seed, _STREAM_SALT, self.lane, self.dim)
@@ -111,3 +118,19 @@ def sample_tea_32(v0, v1, rounds=4):
         v1 = (v1 + ((((v0 << 4) + 0xAD90777D) & MASK32) ^ ((v0 + s) & MASK32)
                     ^ ((v0 >> 5) + 0x7E95761E) & MASK32)) & MASK32
     return v0, v1
+
+
+def lanes_rng(rng, n):
+    """The stream with its shared dimension counter broadcast to one
+    counter per lane [n] (the JAX package's integrators/path.py:lanes_rng)."""
+    dim = rng.dim if torch.is_tensor(rng.dim) else torch.full(
+        (n,), rng.dim, dtype=torch.int64, device=rng.lane.device)
+    return RNG(rng.seed, rng.lane, dim.expand(n))
+
+
+def merge_rng(new, old, m):
+    """Per-lane select of two streams of one seed: lanes where m is true
+    take `new` (its lane key and dimension), the others keep `old`."""
+    new_dim = new.dim if torch.is_tensor(new.dim) else torch.full_like(old.lane, new.dim)
+    old_dim = old.dim if torch.is_tensor(old.dim) else torch.full_like(old.lane, old.dim)
+    return RNG(old.seed, torch.where(m, new.lane, old.lane), torch.where(m, new_dim, old_dim))

@@ -1,6 +1,6 @@
-"""Sampling warps used by the Cornell-box path (counterpart of
-mitsuba_tpu/core/warp.py): the concentric disk, the cosine hemisphere, the
-uniform triangle and the tent.
+"""Sampling warps (counterpart of mitsuba_tpu/core/warp.py): the concentric
+disk, the cosine hemisphere, the uniform triangle, the tent, the uniform
+sphere and the Henyey-Greenstein lobe.
 
 Inputs carry a trailing dimension of 2 (or none, for 1D warps) and
 broadcast over the leading wavefront axes; there is no data-dependent
@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from .math import INV_PI, safe_sqrt
+from .math import INV_FOUR_PI, INV_PI, TWO_PI, safe_sqrt
 
 
 def square_to_uniform_disk_concentric(u):
@@ -60,3 +60,34 @@ def interval_to_tent(u):
         torch.sqrt(torch.clamp(u2, min=0.0)) - 1.0,
         1.0 - torch.sqrt(torch.clamp(2.0 - u2, min=0.0)),
     )
+
+
+def square_to_uniform_sphere(u):
+    z = 1.0 - 2.0 * u[..., 1]
+    r = safe_sqrt(1.0 - z * z)
+    phi = TWO_PI * u[..., 0]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_hg(u, g):
+    """Henyey-Greenstein direction around +z (the forward axis); |g| below
+    1e-3 takes the isotropic limit of the inverse cdf."""
+    g = torch.as_tensor(g, dtype=torch.float32, device=u.device)
+    tiny = torch.abs(g) < 1e-3
+    g_safe = torch.where(tiny, 0.5, g)
+    sqr = (1.0 - g_safe * g_safe) / (1.0 - g_safe + 2.0 * g_safe * u[..., 1])
+    cos_theta_hg = (1.0 + g_safe * g_safe - sqr * sqr) / (2.0 * g_safe)
+    cos_theta_iso = 2.0 * u[..., 1] - 1.0
+    cos_theta = torch.where(tiny, cos_theta_iso, torch.clamp(cos_theta_hg, -1.0, 1.0))
+    sin_theta = safe_sqrt(1.0 - cos_theta * cos_theta)
+    phi = TWO_PI * u[..., 0]
+    return torch.stack(
+        [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], dim=-1
+    )
+
+
+def square_to_hg_pdf(d, g):
+    """HG density of direction d about the +z axis."""
+    cos_theta = d[..., 2]
+    temp = 1.0 + g * g - 2.0 * g * cos_theta
+    return INV_FOUR_PI * (1.0 - g * g) / torch.clamp(temp * safe_sqrt(temp), min=1e-12)

@@ -17,6 +17,10 @@ With ``use_nee=False`` the tracer is the pure BSDF-sampling estimator (no
 next-event estimation, no MIS: emitter hits count at full weight), the
 semantics of ``prb_basic``; the random numbers are drawn in the same order
 either way.
+
+``path_regen_render`` is the regenerative schedule of the same estimator
+(forward only): one lane per pixel, and a lane whose path ends starts its
+pixel's next sample.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..core.rng import lanes_rng, merge_rng
 from ..render.records import Ray, spawn_ray
 
 
@@ -44,6 +49,11 @@ class PathIntegrator:
     defer_nee: bool = True
     # next-event estimation with MIS; False gives prb_basic's estimator
     use_nee: bool = True
+    # path regeneration (path_regen_render), forward renders only
+    regenerate: bool = False
+
+    def regen_render(self, scene, seed, spp, sensor_idx):
+        return path_regen_render(self, scene, seed, spp, sensor_idx)
 
     def sample(self, scene, rng, ray, active):
         """Radiance [N, 3] along each ray and {"n_rays": rays cast}: one
@@ -153,3 +163,113 @@ def emitter_mis_weights(scene, nee, si, ray_d, prev_pdf, prev_delta, prev_p):
     env_pdf = torch.where(prev_delta, 0.0, scene.pdf_emitter_direction_escaped(ray_d))
     em_pdf = torch.where(prev_delta, 0.0, scene.pdf_emitter_direction_hit(prev_p, si))
     return mis_weight(prev_pdf, env_pdf), mis_weight(prev_pdf, em_pdf)
+
+
+def path_regen_render(integrator, scene, seed, spp, sensor_idx):
+    """Regenerative wavefront of the surface path tracer: one lane per
+    pixel, and a lane whose path ends starts its pixel's next sample, so
+    iterations drop from spp * max_depth to about spp times the mean path
+    length. Every sample draws the numbers it draws in the plain wavefront
+    (RNG keyed by (pixel, sample), a dimension counter per lane); its shadow
+    rays are traced in their own bounce (no deferred NEE). Returns (L_px
+    [n_pixels, C], the sum of each pixel's samples, {"n_rays",
+    "wavefront_iters"}). The loop reads from the card, once per step,
+    whether any lane has work left; it stops there or after
+    spp * max_depth + 1 steps."""
+    from ..render_api import wavefront_for
+
+    n = scene.film.n_pixels
+    nc = scene.n_channels
+    dev = scene.device
+    max_depth = integrator.max_depth if integrator.max_depth > 0 else 1024
+    nee = integrator.use_nee
+    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    rng0, ray0, _ = wavefront_for(scene, seed, pix, torch.zeros_like(pix), spp, sensor_idx)
+    f32 = dict(dtype=torch.float32, device=dev)
+    s = dict(
+        n_rays=torch.zeros((), dtype=torch.int64, device=dev),
+        s_next=torch.zeros(n, dtype=torch.int64, device=dev),
+        depth=torch.zeros(n, dtype=torch.int64, device=dev),
+        L_px=torch.zeros(n, nc, **f32),
+        L=torch.zeros(n, nc, **f32),
+        beta=torch.ones(n, nc, **f32),
+        eta=torch.ones(n, **f32),
+        ray_o=ray0.o,
+        ray_d=ray0.d,
+        rng=lanes_rng(rng0, n),
+        active=torch.zeros(n, dtype=torch.bool, device=dev),
+        prev_pdf=torch.ones(n, **f32),
+        prev_delta=torch.ones(n, dtype=torch.bool, device=dev),
+        prev_p=ray0.o,
+    )
+    iters = 0
+    while iters < spp * max_depth + 1 and bool((s["active"] | (s["s_next"] < spp)).any()):
+        # ---- regenerate the lanes whose path ended ----
+        regen = ~s["active"] & (s["s_next"] < spp)
+        rng_new, ray_new, _ = wavefront_for(scene, seed, pix, s["s_next"], spp, sensor_idx)
+        r1 = regen[..., None]
+        s = dict(
+            s,
+            L_px=s["L_px"] + torch.where(r1, s["L"], 0.0),
+            L=torch.where(r1, 0.0, s["L"]),
+            beta=torch.where(r1, 1.0, s["beta"]),
+            eta=torch.where(regen, 1.0, s["eta"]),
+            ray_o=torch.where(r1, ray_new.o, s["ray_o"]),
+            ray_d=torch.where(r1, ray_new.d, s["ray_d"]),
+            rng=merge_rng(rng_new, s["rng"], regen),
+            depth=torch.where(regen, 0, s["depth"]),
+            prev_pdf=torch.where(regen, 1.0, s["prev_pdf"]),
+            prev_delta=torch.where(regen, True, s["prev_delta"]),
+            prev_p=torch.where(r1, ray_new.o, s["prev_p"]),
+            active=s["active"] | regen,
+            s_next=torch.where(regen, s["s_next"] + 1, s["s_next"]),
+        )
+
+        # ---- one bounce: sample()'s math and draws, with per-lane depth ----
+        active, beta, rng = s["active"], s["beta"], s["rng"]
+        ray_d = s["ray_d"]
+        si = scene.ray_intersect(Ray.make(s["ray_o"], ray_d), active)
+        w_env, w_em = emitter_mis_weights(scene, nee, si, ray_d, s["prev_pdf"],
+                                          s["prev_delta"], s["prev_p"])
+        shown = ~(integrator.hide_emitters & (s["depth"] == 0))
+        escaped = active & ~si.is_valid
+        L = s["L"] + torch.where((escaped & shown)[..., None],
+                                 beta * w_env[..., None] * scene.eval_environment(ray_d), 0.0)
+        hit_em = active & si.is_valid
+        L = L + torch.where((hit_em & shown)[..., None],
+                            beta * w_em[..., None] * scene.eval_emitter_hit(si), 0.0)
+        active_next = active & si.is_valid & (s["depth"] + 1 < max_depth)
+
+        u0, u2a_x, rng = rng.next_2d()
+        u2a_y, u_lobe, rng = rng.next_2d()
+        u2b_x, u2b_y, rng = rng.next_2d()
+        u_rr, _, rng = rng.next_2d()
+        if nee:
+            ds, em_weight = scene.sample_emitter_direction(
+                si.p, u0, torch.stack([u2a_x, u2a_y], dim=-1), active_next,
+                test_visibility=True, ref_n=si.n)
+            bsdf_val, bsdf_pdf = scene.bsdf_eval_pdf(si, si.to_local(ds.d), active_next)
+            w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf))
+            L = L + torch.where(active_next[..., None],
+                                beta * bsdf_val * em_weight * w_nee[..., None], 0.0)
+
+        bs, bsdf_weight = scene.bsdf_sample(
+            si, u_lobe, torch.stack([u2b_x, u2b_y], dim=-1), active_next)
+        new_ray = spawn_ray(si.p, si.n, si.to_world(bs.wo))
+        beta = beta * bsdf_weight
+        eta = s["eta"] * bs.eta
+        alive = active_next & (bs.pdf > 0) & torch.any(beta > 0, dim=-1)
+        rr_active = s["depth"] + 1 >= integrator.rr_depth
+        q = torch.clamp(torch.amax(beta, dim=-1) * eta * eta, max=0.95)
+        beta = torch.where((rr_active & alive)[..., None],
+                           beta / torch.clamp(q, min=1e-6)[..., None], beta)
+        alive = alive & (~rr_active | (u_rr < q))
+
+        n_rays = s["n_rays"] + active.sum() + (active_next.sum() if nee else 0)
+        s = dict(s, n_rays=n_rays, depth=s["depth"] + 1, L=L, beta=beta, eta=eta,
+                 ray_o=new_ray.o, ray_d=new_ray.d, rng=rng, active=alive,
+                 prev_pdf=bs.pdf, prev_delta=bs.delta, prev_p=si.p)
+        iters += 1
+    # a lane leaves the loop inactive unless the step cap cut its path
+    L_px = s["L_px"] + torch.where(s["active"][..., None], 0.0, s["L"])
+    return L_px, {"n_rays": s["n_rays"], "wavefront_iters": iters}

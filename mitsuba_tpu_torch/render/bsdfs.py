@@ -1,4 +1,5 @@
-"""BSDFs: the smooth Lambertian (counterpart of mitsuba_tpu/render/bsdfs.py).
+"""BSDFs: the smooth Lambertian and the null BSDF of medium boundaries
+(counterpart of mitsuba_tpu/render/bsdfs.py).
 
 As in the reference, eval(si, wo) returns f(wi, wo) * |cos_theta_o|, and
 sample() returns (BSDFSample, weight) with weight = eval / pdf. The other
@@ -18,6 +19,7 @@ from .records import BSDFSample
 @dataclass
 class DiffuseBSDF:
     reflectance: object   # texture
+    flags_smooth = True
 
     def eval(self, si, wo):
         cos_i = si.wi[..., 2]
@@ -44,3 +46,28 @@ class DiffuseBSDF:
             delta=torch.zeros_like(valid),
         )
         return bs, weight
+
+
+@dataclass
+class NullBSDF:
+    """A perfect transmitter: the boundary of a medium. It has no smooth
+    lobe (eval and pdf are 0); sampling passes the ray on unchanged, a
+    Dirac event of weight 1."""
+
+    flags_smooth = False
+
+    def eval(self, si, wo):
+        return torch.zeros(wo.shape[:-1] + (3,), dtype=torch.float32, device=wo.device)
+
+    def pdf(self, si, wo):
+        return torch.zeros(wo.shape[:-1], dtype=torch.float32, device=wo.device)
+
+    def sample(self, u_lobe, u2, si):
+        n, dev = si.wi.shape[0], si.wi.device
+        bs = BSDFSample(
+            wo=-si.wi,
+            pdf=torch.ones(n, dtype=torch.float32, device=dev),
+            eta=torch.ones(n, dtype=torch.float32, device=dev),
+            delta=torch.ones(n, dtype=torch.bool, device=dev),
+        )
+        return bs, torch.ones(n, 3, dtype=torch.float32, device=dev)

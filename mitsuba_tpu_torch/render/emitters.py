@@ -1,5 +1,5 @@
-"""Area emitters (counterpart of mitsuba_tpu/render/emitters.py, the area
-light only).
+"""Emitters (counterpart of mitsuba_tpu/render/emitters.py): the area
+light and the constant environment.
 
 As in the reference: sample_direction(ref_p, u) returns (DirectionSample,
 weight) with weight = radiance / pdf, pdf_direction is a solid-angle
@@ -20,6 +20,7 @@ import torch
 
 from ..core import warp
 from ..core.frame import dot
+from ..core.math import INV_FOUR_PI
 from .records import DirectionSample
 
 
@@ -43,6 +44,9 @@ class AreaEmitter:
     tri_index: torch.Tensor     # [K] int64 triangle ids in the scene Geometry
     tri_cdf: torch.Tensor       # [K] area cdf (unnormalized, ends at total area)
     total_area: torch.Tensor    # [] float32
+
+    is_environment = False
+    is_delta = False
 
     @staticmethod
     def attach(radiance, shape_index, geometry):
@@ -117,3 +121,41 @@ class AreaEmitter:
         return torch.where(
             valid, dist2 / torch.where(valid, cos_e * self.total_area, 1.0), 0.0
         )
+
+
+@dataclass
+class ConstantEmitter:
+    """Uniform environment radiance. Its direction samples lie on a sphere
+    of twice the scene's bounding radius (at least 1) around the reference
+    point."""
+
+    radiance: object            # texture
+    scene_radius: torch.Tensor  # [] the scene's bounding-sphere radius
+
+    is_environment = True
+    is_delta = False
+
+    def eval_escaped(self, d):
+        return self.radiance.eval(torch.zeros(d.shape[0], 2, dtype=torch.float32, device=d.device))
+
+    def sample_direction(self, ref_p, u2, geom, emitter_index):
+        n_lanes, dev = ref_p.shape[0], ref_p.device
+        d = warp.square_to_uniform_sphere(u2)
+        pdf = torch.full((n_lanes,), INV_FOUR_PI, dtype=torch.float32, device=dev)
+        dist = torch.full((n_lanes,), 2.0, dtype=torch.float32, device=dev) * torch.clamp(
+            self.scene_radius, min=1.0)
+        uv = torch.zeros(n_lanes, 2, dtype=torch.float32, device=dev)
+        weight = self.radiance.eval(uv) / pdf[..., None]
+        ds = DirectionSample(
+            p=ref_p + d * dist[..., None], n=-d, d=d, dist=dist, pdf=pdf,
+            delta=torch.zeros(n_lanes, dtype=torch.bool, device=dev),
+            emitter_index=torch.full((n_lanes,), emitter_index, dtype=torch.int32, device=dev),
+            uv=uv,
+        )
+        return ds, weight
+
+    def pdf_direction_escaped(self, d):
+        return torch.full(d.shape[:-1], INV_FOUR_PI, dtype=torch.float32, device=d.device)
+
+    def parameters_changed(self, geometry):
+        return self

@@ -8,7 +8,8 @@ dict made from the JAX package's ``mi.traverse(scene)`` carries across:
 
 ``update()`` returns a new scene (also kept as ``.scene``) and leaves the
 old one as it was. After a vertex write it re-derives the triangle tables
-(Geometry.refresh) and the area emitters' cdfs from them.
+(Geometry.refresh) and the area emitters' cdfs from them; after a write to
+a medium, its majorant (the reference's parameters_changed).
 """
 from __future__ import annotations
 
@@ -99,13 +100,19 @@ class SceneParameters:
                     self[k] = v
         scene = self._scene
         geometry_touched = False
+        media_touched = set()
         for key, value in self._pending.items():
             path = self._paths[key]
             old = _tree_get(scene, path)
             value = value.to(old.device).expand(old.shape).clone(memory_format=torch.contiguous_format)
             scene = _tree_set(scene, path, value)
             geometry_touched |= path[0] == "geometry"
+            if path[0] == "media":
+                media_touched.add(path[:2])
         self._pending.clear()
+        for root in sorted(media_touched):
+            # a medium re-derives its majorant from its new coefficients
+            scene = _tree_set(scene, root, _tree_get(scene, root).parameters_changed())
         if geometry_touched:
             geometry = scene.geometry.refresh()
             scene = dataclasses.replace(

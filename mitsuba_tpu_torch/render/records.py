@@ -10,7 +10,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..core.frame import dot, frame_to_local, frame_to_world
+from ..core.frame import coordinate_system, dot, frame_to_local, frame_to_world
 from ..core.math import RAY_EPSILON
 
 
@@ -102,3 +102,32 @@ class BSDFSample:
     pdf: torch.Tensor        # [N]
     eta: torch.Tensor        # [N] relative IOR of the sampled event
     delta: torch.Tensor      # [N] bool, Dirac lobe sampled
+
+
+@dataclass
+class MediumInteraction:
+    """A scattering event inside a medium. As in the reference, the shading
+    frame is Frame(ray.d): sh_n is the propagation direction and the
+    incident direction is (0, 0, -1) in local space."""
+
+    t: torch.Tensor           # [N], inf = no event
+    p: torch.Tensor           # [N, 3]
+    sh_n: torch.Tensor        # [N, 3] = ray.d
+    sh_s: torch.Tensor        # [N, 3]
+    sh_t: torch.Tensor        # [N, 3]
+    medium_index: torch.Tensor  # [N] int
+
+    @property
+    def is_valid(self):
+        return torch.isfinite(self.t)
+
+    def to_world(self, v):
+        return frame_to_world(self.sh_n, self.sh_s, self.sh_t, v)
+
+    def to_local(self, v):
+        return frame_to_local(self.sh_n, self.sh_s, self.sh_t, v)
+
+    @staticmethod
+    def make(t, p, d, medium_index):
+        s, tt = coordinate_system(d)
+        return MediumInteraction(t=t, p=p, sh_n=d, sh_s=s, sh_t=tt, medium_index=medium_index)

@@ -3,7 +3,9 @@
 
 Dispatch over plugin instances is a Python loop with lane masks, the
 wavefront analog of the reference's vectorized virtual calls. The shape ->
-BSDF / emitter maps are small index tensors read by plain indexing.
+BSDF / emitter / medium maps are small index tensors read by plain
+indexing. Medium index -1 is vacuum, where the camera sits (camera_medium
+is -1, as in the reference).
 """
 from __future__ import annotations
 
@@ -12,11 +14,20 @@ from dataclasses import dataclass
 import torch
 
 from ..core import warp
+from ..core.frame import dot
 from ..core.math import INV_PI
 from . import shapes as shapes_mod
-from .bsdfs import DiffuseBSDF
+from .phase import sggx_projected_area
+from .bsdfs import DiffuseBSDF, NullBSDF
 from .records import BSDFSample, DirectionSample, PreliminaryIntersection, Ray, spawn_ray
 from .textures import ConstantTexture
+
+
+def _unit_z(n, device):
+    """[n, 3] of (0, 0, 1), made on the device (no copy from the host)."""
+    z = torch.zeros(n, 3, dtype=torch.float32, device=device)
+    z[:, 2] = 1.0
+    return z
 
 
 @dataclass
@@ -34,6 +45,17 @@ class Scene:
     n_channels: int = 3
     # (key, path) pairs for traverse()/SceneParameters
     param_paths: tuple = ()
+    media: tuple = ()            # medium instances
+    phases: tuple = ()           # phase function instances
+    shape_interior_medium: torch.Tensor = None   # [n_shapes] int64, -1 none
+    shape_exterior_medium: torch.Tensor = None   # [n_shapes] int64, -1 none
+    bbox_min: torch.Tensor = None   # [3] of the geometry
+    bbox_max: torch.Tensor = None   # [3]
+    medium_phase: torch.Tensor = None   # [n_media] int64 phase index of each medium
+    env_emitter: int = -1           # index of the environment emitter or -1
+    # the camera sits in vacuum, and only the unpolarized variant is ported
+    camera_medium = -1
+    polarized = False
 
     # -- intersection -------------------------------------------------------
     def ray_intersect(self, ray: Ray, active=None):
@@ -132,10 +154,17 @@ class Scene:
         if E == 0:
             return pdf
         em_idx = self._emitter_at(si)
-        sel_p = 1.0 / E
+        sel_p = self._emitter_sel_pmf()
         for i, em in enumerate(self.emitters):
+            if em.is_environment or em.is_delta:
+                continue
             pdf = torch.where(em_idx == i, em.pdf_direction(ref_p, si) * sel_p, pdf)
         return pdf
+
+    def _emitter_sel_pmf(self):
+        """The selection probability of each emitter: uniform (the
+        reference's power-weighted selection is not yet ported)."""
+        return 1.0 / max(self.n_emitters, 1)
 
     def eval_emitter_hit(self, si):
         """Radiance of the emitter (if any) at surface hit si."""
@@ -144,6 +173,8 @@ class Scene:
             return out
         em_idx = self._emitter_at(si)
         for i, em in enumerate(self.emitters):
+            if em.is_environment or em.is_delta:
+                continue
             out = torch.where((em_idx == i)[..., None], em.eval(si), out)
         return out
 
@@ -154,15 +185,23 @@ class Scene:
         as a detached ratio."""
         out = torch.zeros(ds.d.shape[0], self.n_channels, dtype=torch.float32, device=ds.d.device)
         for i, em in enumerate(self.emitters):
-            out = torch.where((ds.emitter_index == i)[..., None], em.radiance.eval(ds.uv), out)
+            v = em.eval_escaped(ds.d) if em.is_environment else em.radiance.eval(ds.uv)
+            out = torch.where((ds.emitter_index == i)[..., None], v, out)
         return out
 
     def eval_environment(self, d):
-        """Radiance of escaped rays: no environment emitter is ported, so 0."""
-        return torch.zeros(d.shape[:-1] + (self.n_channels,), dtype=torch.float32, device=d.device)
+        """Radiance of escaped rays along d: the environment emitter's, or 0."""
+        if self.env_emitter < 0:
+            return torch.zeros(d.shape[:-1] + (self.n_channels,), dtype=torch.float32,
+                               device=d.device)
+        return self.emitters[self.env_emitter].eval_escaped(d)
 
     def pdf_emitter_direction_escaped(self, d):
-        return torch.zeros(d.shape[:-1], dtype=torch.float32, device=d.device)
+        """NEE pdf of an escaped ray's direction on the environment emitter."""
+        if self.env_emitter < 0 or self.n_emitters == 0:
+            return torch.zeros(d.shape[:-1], dtype=torch.float32, device=d.device)
+        em = self.emitters[self.env_emitter]
+        return em.pdf_direction_escaped(d) * self._emitter_sel_pmf()
 
     # -- BSDF dispatch ------------------------------------------------------
     def bsdf_index_at(self, si):
@@ -222,7 +261,7 @@ class Scene:
         dev = si.p.device
         b_idx = self.bsdf_index_at(si)
         bs = BSDFSample(
-            wo=torch.tensor([0.0, 0.0, 1.0], device=dev).expand(n_lanes, 3),
+            wo=_unit_z(n_lanes, dev),
             pdf=torch.zeros(n_lanes, dtype=torch.float32, device=dev),
             eta=torch.ones(n_lanes, dtype=torch.float32, device=dev),
             delta=torch.zeros(n_lanes, dtype=torch.bool, device=dev),
@@ -255,3 +294,99 @@ class Scene:
             )
             weight = torch.where(m[..., None], w_i, weight)
         return bs, weight
+
+    # -- media ---------------------------------------------------------------
+    @property
+    def bbox_radius(self):
+        return 0.5 * torch.sqrt(torch.sum((self.bbox_max - self.bbox_min) ** 2))
+
+    def medium_majorant(self, medium_idx, p):
+        """Majorant [N] at p of each lane's medium (-1 = vacuum: 0)."""
+        out = torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device)
+        for i, m in enumerate(self.media):
+            out = torch.where(medium_idx == i, m.get_majorant(p, self.n_channels), out)
+        return out
+
+    def medium_majorant_spectrum(self, medium_idx, p):
+        """Per-channel majorant [N, C] of each lane's medium."""
+        out = torch.zeros(p.shape[:-1] + (self.n_channels,), dtype=torch.float32, device=p.device)
+        for i, m in enumerate(self.media):
+            out = torch.where((medium_idx == i)[..., None],
+                              m.get_majorant_spectrum(p, self.n_channels), out)
+        return out
+
+    def medium_coefficients(self, medium_idx, p, d=None):
+        """(sigma_s, sigma_n, sigma_t) [N, C] of each lane's medium. With
+        the propagation direction d, a medium whose phase is a microflake
+        distribution has sigma_t and sigma_s scaled by the projected area
+        sigma(-d), and its null density makes up the difference."""
+        z = torch.zeros(p.shape[0], self.n_channels, dtype=torch.float32, device=p.device)
+        ss, sn, st = z, z, z
+        for i, m in enumerate(self.media):
+            sel = (medium_idx == i)[..., None]
+            ss_i, sn_i, st_i = m.get_scattering_coefficients(p, self.n_channels)
+            ph = self.phases[m.phase_index]
+            if d is not None and getattr(ph, "is_microflake", False):
+                pa = sggx_projected_area(-d, ph.S.eval(p, 6))[..., None]
+                st_pa = st_i * pa
+                sn_i = torch.clamp(sn_i + st_i - st_pa, min=0.0)
+                ss_i = ss_i * pa
+                st_i = st_pa
+            ss = torch.where(sel, ss_i, ss)
+            sn = torch.where(sel, sn_i, sn)
+            st = torch.where(sel, st_i, st)
+        return ss, sn, st
+
+    def medium_phase_of(self, medium_idx):
+        """Phase index [N] of each lane's medium, -1 in vacuum."""
+        if not self.media:
+            return torch.full_like(medium_idx, -1)
+        safe = torch.clamp(medium_idx, 0, len(self.media) - 1)
+        return torch.where(medium_idx >= 0, self.medium_phase[safe], -1)
+
+    def phase_sample(self, phase_idx, mei, u1, u2, active):
+        """(wo local [N, 3], weight [N, C], pdf [N]) of each lane's phase."""
+        n, dev = phase_idx.shape[0], phase_idx.device
+        wo = _unit_z(n, dev)
+        weight = torch.zeros(n, self.n_channels, dtype=torch.float32, device=dev)
+        pdf = torch.zeros(n, dtype=torch.float32, device=dev)
+        for i, ph in enumerate(self.phases):
+            m = (phase_idx == i) & active
+            wo_i, w_i, p_i = ph.sample(mei, u1, u2, self.n_channels)
+            wo = torch.where(m[..., None], wo_i, wo)
+            weight = torch.where(m[..., None], w_i, weight)
+            pdf = torch.where(m, p_i, pdf)
+        return wo, weight, pdf
+
+    def phase_eval_pdf(self, phase_idx, mei, wo, active):
+        """(value [N, C], pdf [N]) of each lane's phase toward local wo."""
+        n, dev = phase_idx.shape[0], phase_idx.device
+        val = torch.zeros(n, self.n_channels, dtype=torch.float32, device=dev)
+        pdf = torch.zeros(n, dtype=torch.float32, device=dev)
+        for i, ph in enumerate(self.phases):
+            m = (phase_idx == i) & active
+            v_i, p_i = ph.eval_pdf(mei, wo, self.n_channels)
+            val = torch.where(m[..., None], v_i, val)
+            pdf = torch.where(m, p_i, pdf)
+        return val, pdf
+
+    def is_null_bsdf(self, si):
+        """Lanes whose hit surface has a null (medium-boundary) BSDF."""
+        b_idx = self.bsdf_index_at(si)
+        out = torch.zeros(b_idx.shape, dtype=torch.bool, device=b_idx.device)
+        for i, b in enumerate(self.bsdfs):
+            if isinstance(b, NullBSDF):
+                out = out | (b_idx == i)
+        return out
+
+    def medium_transition(self, si, d, medium_idx):
+        """Each lane's medium after crossing surface si along d: the
+        shape's interior when entering (d against the normal), its exterior
+        when leaving; unchanged where the shape separates no two media."""
+        shape_idx = torch.clamp(si.shape_index, min=0).to(torch.int64)
+        interior = self.shape_interior_medium[shape_idx]
+        exterior = self.shape_exterior_medium[shape_idx]
+        entering = dot(d, si.n) < 0.0
+        new_med = torch.where(entering, interior, exterior)
+        is_transition = (si.shape_index >= 0) & (interior != exterior)
+        return torch.where(is_transition, new_med, medium_idx)

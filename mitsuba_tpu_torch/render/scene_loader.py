@@ -1,12 +1,16 @@
 """Scene-dict loader for the Cornell-box and mesh vocabulary (counterpart
 of mitsuba_tpu/render/scene_loader.py).
 
-Accepted plugin types: ``scene``; the ``path``, ``prb`` and ``prb_basic``
-integrators; the
+Accepted plugin types: ``scene``; the ``path``, ``prb``, ``prb_basic``
+and ``volpath`` integrators; the
 ``perspective`` sensor with an ``independent`` sampler and an ``hdrfilm``
 with a ``gaussian``, ``box`` or ``tent`` filter; ``diffuse`` BSDFs with
-``rgb`` or scalar reflectance; ``rectangle``, ``cube``, ``obj``, ``ply``
-and raw-array ``mesh`` shapes; ``area`` emitters; ``ref`` to a named BSDF.
+``rgb`` or scalar reflectance and the ``null`` BSDF of medium boundaries;
+``rectangle``, ``cube``, ``obj``, ``ply`` and raw-array ``mesh`` shapes,
+with an ``interior`` and ``exterior`` medium; ``homogeneous`` and
+``heterogeneous`` media (``constvolume``/``gridvolume`` fields, the
+``isotropic``, ``hg`` and ``sggx`` phase functions); ``area`` emitters and
+the ``constant`` environment emitter; ``ref`` to a named BSDF or medium.
 Any other type raises ``NotImplementedError``: it is not yet ported
 (``serialized`` and ``blender`` meshes among them).
 
@@ -26,15 +30,19 @@ import torch
 
 from .. import native
 from ..core.transform import Transform, build_transform
-from .bsdfs import DiffuseBSDF
-from .emitters import AreaEmitter
+from .bsdfs import DiffuseBSDF, NullBSDF
+from .emitters import AreaEmitter, ConstantEmitter
 from .film import Film
+from .media import MEDIUM_TYPES, parse_medium
 from .scene import Scene
 from .sensors import PerspectiveCamera
 from . import shapes as SH
 from .textures import ConstantTexture
 
 SHAPE_TYPES = ("rectangle", "cube", "obj", "ply", "mesh")
+BSDF_TYPES = ("diffuse", "null")
+# the reference's environment and delta emitters; only "constant" is ported
+EMITTER_TYPES = ("constant", "point", "directional", "envmap", "spot", "projector")
 FILM_KEYS_NOT_PORTED = ("crop_offset_x", "crop_offset_y", "crop_width", "crop_height")
 
 
@@ -110,6 +118,8 @@ def parse_texture(spec, device, default=1.0):
 
 def parse_bsdf(spec, name, paths, device):
     t = spec["type"]
+    if t == "null":
+        return NullBSDF()
     if t != "diffuse":
         raise _not_ported(f"BSDF type {t!r}")
     tex, leaf = parse_texture(spec.get("reflectance", 0.5), device)
@@ -152,7 +162,7 @@ def parse_sensor(spec, device):
     return cam, film, spp
 
 
-INTEGRATOR_TYPES = ("path", "prb", "prb_basic")
+INTEGRATOR_TYPES = ("path", "prb", "prb_basic", "volpath")
 
 
 def load_dict(d, device=None, intersector="smem"):
@@ -178,8 +188,12 @@ def load_dict(d, device=None, intersector="smem"):
     spp = 16
     integrator_spec = {"type": "path"}
     tri_meshes = []
-    shape_records = []    # per shape: dict(name, bsdf index, emitter index)
+    shape_records = []    # per shape: dict(name, bsdf, emitter, interior, exterior)
     emitter_specs = []    # (shape index, emitter spec, shape name)
+    env_specs = []        # (name, spec) of top-level emitters
+    media_list = []
+    media_names = {}      # id -> medium index
+    phase_list = []
     param_paths = []      # (key, full path tuple)
 
     def register_bsdf(spec, name):
@@ -200,25 +214,47 @@ def load_dict(d, device=None, intersector="smem"):
             return named_bsdfs[spec["id"]]
         return register_bsdf(spec, f"{shape_name}.bsdf")
 
+    def register_medium(spec, name):
+        idx = len(media_list)
+        media_list.append(parse_medium(spec, name, phase_list, param_paths, idx, device))
+        return idx
+
+    def resolve_medium(spec, owner_name):
+        """A shape's interior or exterior: a ref to a named medium (-1 if
+        none has that name, as in the reference), an inline medium dict, or
+        None (-1, vacuum)."""
+        if spec is None:
+            return -1
+        if spec.get("type") == "ref":
+            return media_names.get(spec["id"], -1)
+        return register_medium(spec, owner_name)
+
     # pass 1: named top-level BSDFs, so that refs resolve
     for name, spec in d.items():
-        if isinstance(spec, dict) and spec.get("type") == "diffuse":
+        if isinstance(spec, dict) and spec.get("type") in BSDF_TYPES:
             named_bsdfs[name] = register_bsdf(spec, name)
 
-    # pass 2: everything else
+    # pass 2: named top-level media, which shapes may refer to
+    for name, spec in d.items():
+        if isinstance(spec, dict) and spec.get("type") in MEDIUM_TYPES:
+            media_names[name] = register_medium(spec, name)
+
+    # pass 3: everything else
     for name, spec in d.items():
         if not isinstance(spec, dict):
             continue
         t = spec.get("type")
-        if t == "diffuse":
+        if t in BSDF_TYPES or t in MEDIUM_TYPES:
             continue
         if name == "integrator" or t in INTEGRATOR_TYPES:
             integrator_spec = spec
         elif t == "perspective":
             sensor, film, spp = parse_sensor(spec, device)
+        elif t in EMITTER_TYPES:
+            if t != "constant":
+                raise _not_ported(f"emitter type {t!r}")
+            env_specs.append((name, spec))
         elif t in SHAPE_TYPES:
-            if "interior" in spec or "exterior" in spec:
-                raise _not_ported("participating media")
             to_world = build_transform(spec.get("to_world", Transform.identity()))
             if t == "rectangle":
                 m = SH.make_rectangle(to_world)
@@ -232,9 +268,11 @@ def load_dict(d, device=None, intersector="smem"):
             tri_meshes.append(m)
             if "emitter" in spec:
                 emitter_specs.append((len(shape_records), spec["emitter"], name))
-            shape_records.append(
-                {"name": name, "bsdf": resolve_bsdf(spec.get("bsdf"), name), "emitter": -1}
-            )
+            shape_records.append({
+                "name": name, "bsdf": resolve_bsdf(spec.get("bsdf"), name), "emitter": -1,
+                "interior": resolve_medium(spec.get("interior"), f"{name}.interior_medium"),
+                "exterior": resolve_medium(spec.get("exterior"), f"{name}.exterior_medium"),
+            })
         else:
             raise _not_ported(f"scene entry {name!r} of plugin type {t!r}")
 
@@ -249,6 +287,18 @@ def load_dict(d, device=None, intersector="smem"):
              ("geometry", "vertices", ("slice", v_start, v_start + v_count)))
         )
 
+    # the bounding box of the real triangles and its sphere's radius
+    real = geometry.tri_shape.cpu().numpy() >= 0
+    if real.any():
+        v0 = geometry.tri_v0.detach().cpu().numpy()
+        pts = np.concatenate([v0, v0 + geometry.tri_e1.detach().cpu().numpy(),
+                              v0 + geometry.tri_e2.detach().cpu().numpy()], 0)
+        pts = pts[np.concatenate([real] * 3)]
+        bbox_min, bbox_max = pts.min(0), pts.max(0)
+    else:
+        bbox_min, bbox_max = np.full(3, -1.0, np.float32), np.full(3, 1.0, np.float32)
+    radius = 0.5 * float(np.linalg.norm(bbox_max - bbox_min)) or 1.0
+
     emitters = []
     for shape_index, em_spec, shape_name in emitter_specs:
         if em_spec.get("type") != "area":
@@ -260,15 +310,29 @@ def load_dict(d, device=None, intersector="smem"):
             (f"{shape_name}.emitter.radiance.{leaf}", ("emitters", e_idx, "radiance", leaf))
         )
         shape_records[shape_index]["emitter"] = e_idx
+    env_emitter = -1
+    for name, spec in env_specs:
+        tex, leaf = parse_texture(spec.get("radiance", 1.0), device)
+        env_emitter = len(emitters)
+        emitters.append(ConstantEmitter(
+            radiance=tex, scene_radius=torch.tensor(radius, dtype=torch.float32, device=device)))
+        param_paths.append((f"{name}.radiance.{leaf}", ("emitters", env_emitter, "radiance", leaf)))
 
     if not bsdf_list:
         bsdf_list.append(DiffuseBSDF(reflectance=parse_texture(0.5, device)[0]))
     n_shapes = max(len(shape_records), 1)
     shape_bsdf = np.zeros(n_shapes, np.int64)
     shape_emitter = np.full(n_shapes, -1, np.int64)
+    shape_int_med = np.full(n_shapes, -1, np.int64)
+    shape_ext_med = np.full(n_shapes, -1, np.int64)
     for i, rec in enumerate(shape_records):
         shape_bsdf[i] = rec["bsdf"]
         shape_emitter[i] = rec["emitter"]
+        shape_int_med[i] = rec["interior"]
+        shape_ext_med[i] = rec["exterior"]
+
+    def dev(x, dtype=None):
+        return torch.from_numpy(np.asarray(x, dtype)).to(device)
 
     return Scene(
         geometry=geometry,
@@ -277,11 +341,19 @@ def load_dict(d, device=None, intersector="smem"):
         sensors=(sensor,),
         integrator=make_integrator(integrator_spec),
         film=film,
-        shape_bsdf=torch.from_numpy(shape_bsdf).to(device),
-        shape_emitter=torch.from_numpy(shape_emitter).to(device),
+        shape_bsdf=dev(shape_bsdf),
+        shape_emitter=dev(shape_emitter),
         spp=spp,
         device=device,
         param_paths=tuple(param_paths),
+        media=tuple(media_list),
+        phases=tuple(phase_list),
+        shape_interior_medium=dev(shape_int_med),
+        shape_exterior_medium=dev(shape_ext_med),
+        bbox_min=dev(bbox_min, np.float32),
+        bbox_max=dev(bbox_max, np.float32),
+        medium_phase=dev([m.phase_index for m in media_list], np.int64),
+        env_emitter=env_emitter,
     )
 
 
@@ -434,3 +506,65 @@ def mesh_scene(obj_path, k=130, res=256):
         "bsdf": {"type": "diffuse", "reflectance": {"type": "rgb", "value": [0.6, 0.55, 0.5]}},
     }
     return d
+
+
+def het_vol_scene(res=96, spp=16, max_depth=12, steps=16, regenerate=False):
+    """bench.py's heterogeneous-medium scene (BASELINE config 3, the
+    het_vol_fwd_mrays cell): a 32^3 grid of sigma_t in [0.3, 2.5) made from
+    numpy's default_rng(3), albedo 0.9 and an HG phase (g 0.5), inside a
+    null cube of half-size 1.2 under a constant white environment; volpath
+    with `steps` delta-tracking and NEE ratio-tracking steps, a box filter."""
+    grid = (0.3 + 2.2 * np.random.default_rng(3).random((32, 32, 32, 1))).astype(np.float32)
+    return {
+        "type": "scene",
+        "integrator": {"type": "volpath", "max_depth": max_depth, "track_steps": steps,
+                       "nee_steps": steps, "regenerate": regenerate},
+        "sensor": _vol_sensor(res, spp),
+        "light": {"type": "constant", "radiance": {"type": "rgb", "value": [1.0, 1.0, 1.0]}},
+        "cloud": {
+            "type": "cube",
+            "to_world": [{"type": "scale", "value": [1.2, 1.2, 1.2]}],
+            "bsdf": {"type": "null"},
+            "interior": {
+                "type": "heterogeneous",
+                "sigma_t": {"type": "gridvolume", "data": grid,
+                            "bbox_min": [-1, -1, -1], "bbox_max": [1, 1, 1]},
+                "albedo": 0.9,
+                "phase": {"type": "hg", "g": 0.5},
+            },
+        },
+    }
+
+
+def vol32_scene(res=128, spp=16, max_depth=32, steps=16, regenerate=False):
+    """bench.py's deep-volume scene (the vol32_regen_speedup cell): a
+    homogeneous slab (sigma_t 4, albedo 0.95, HG g 0.6) in the same null
+    cube and environment as het_vol_scene, volpath at max_depth 32."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "volpath", "max_depth": max_depth, "track_steps": steps,
+                       "nee_steps": steps, "regenerate": regenerate},
+        "sensor": _vol_sensor(res, spp),
+        "light": {"type": "constant", "radiance": {"type": "rgb", "value": [1.0, 1.0, 1.0]}},
+        "slab": {
+            "type": "cube",
+            "to_world": [{"type": "scale", "value": [1.2, 1.2, 1.2]}],
+            "bsdf": {"type": "null"},
+            "interior": {
+                "type": "homogeneous",
+                "sigma_t": [4.0, 4.0, 4.0],
+                "albedo": [0.95, 0.95, 0.95],
+                "phase": {"type": "hg", "g": 0.6},
+            },
+        },
+    }
+
+
+def _vol_sensor(res, spp):
+    return {
+        "type": "perspective", "fov": 45,
+        "to_world": [{"type": "look_at", "origin": [0, 0, 4], "target": [0, 0, 0],
+                      "up": [0, 1, 0]}],
+        "film": {"type": "hdrfilm", "width": res, "height": res, "rfilter": {"type": "box"}},
+        "sampler": {"type": "independent", "sample_count": spp},
+    }

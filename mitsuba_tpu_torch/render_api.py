@@ -92,6 +92,9 @@ def render(scene, params=None, sensor=0, seed=0, spp=None, spp_per_pass=None,
            seed_grad=None, spp_grad=None, stats=None):
     """Render to an image tensor [H, W, 3] on scene.device (mirrors
     mi.render). `params` may be a SceneParameters whose scene is rendered.
+    An integrator with ``regenerate`` takes the regenerative loop: one
+    lane per pixel, all spp in one pass (spp_per_pass has no effect), and
+    `stats` also gets wavefront_iters, the loop's steps.
 
     With a PRB integrator, `seed_grad` seeds the backward pass (by default
     the TEA hash of `seed`; a ValueError if it equals `seed`) and
@@ -104,6 +107,9 @@ def render(scene, params=None, sensor=0, seed=0, spp=None, spp_per_pass=None,
         scene = params.scene
     film = scene.film
     spp = spp or scene.spp
+    if getattr(scene.integrator, "regenerate", False):
+        # PRB integrators refuse regenerate when they are built
+        return _render_regen(scene, seed, spp, sensor, stats)
     spp_per_pass = min(spp_per_pass or spp, spp)
     n_passes = (spp + spp_per_pass - 1) // spp_per_pass
     seed_grad = derive_seed_grad(seed, seed_grad)
@@ -141,18 +147,46 @@ def render(scene, params=None, sensor=0, seed=0, spp=None, spp_per_pass=None,
     return acc / spp
 
 
-def render_forward(scene, key, tangent=None, sensor=0, seed=0, spp=None):
+def _render_regen_pass(scene, seed, spp, sensor_idx):
+    """The regenerative loop's per-pixel sample sums [n_pixels, C],
+    sanitized as a pass's lanes are, and its counters (n_rays,
+    wavefront_iters, n_invalid, n_negative)."""
+    scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
+    L_px, aux = scene.integrator.regen_render(scene, seed, spp, sensor_idx)
+    L_px, inv = warn_invalid(L_px)
+    return L_px, {**aux, **inv}
+
+
+def _render_regen(scene, seed, spp, sensor_idx, stats=None):
+    """Regenerative render (``regenerate: True``): one lane per pixel, the
+    samples summed in the loop; the image is that of one pass of a
+    filter-importance-sampled film."""
+    film = scene.film
+    L_px, aux = _render_regen_pass(scene, seed, spp, sensor_idx)
+    if stats is not None:
+        stats.update({k: int(v) for k, v in aux.items()})
+    return L_px.reshape(film.height, film.width, -1) / float(spp)
+
+
+def render_forward(scene, tangent=None, key=None, sensor=0, seed=0, spp=None):
     """Forward-mode derivative of the image along a parameter direction:
-    d image / d params[key] . tangent (ones when not given). The path
-    integrator is differentiated by tape (two reverse passes: the
-    derivative of the VJP with respect to its cotangent); a PRB integrator
-    implements the reverse replay only and raises, as in the JAX
-    package."""
+    d image / d params[key] . tangent. The reference takes a whole
+    scene-tangent pytree as `tangent`; PyTorch has none, so here `tangent`
+    is the direction for the one parameter `key` (ones when not given), and
+    a call without `key` raises ValueError as the reference's does without
+    either argument. The path integrator is differentiated by tape (two
+    reverse passes: the derivative of the VJP with respect to its
+    cotangent); a PRB integrator implements the reverse replay only and
+    raises, as in the JAX package."""
     if getattr(scene.integrator, "is_prb", False):
         raise NotImplementedError(
             "render_forward requires a tape-differentiable integrator (path); "
             "PRB integrators implement the reverse replay only"
         )
+    if key is None:
+        raise ValueError("render_forward needs `tangent` or `key`" if tangent is None else
+                         "render_forward: without a scene-tangent pytree, `tangent` is the "
+                         "direction of one parameter and needs its `key`")
     params = traverse(scene)
     value = params[key].detach().clone().requires_grad_()
     img = render(params.update({key: value}), sensor=sensor, seed=seed, spp=spp)

@@ -329,3 +329,21 @@ def test_k4_sink_equals_plain(cuda):
         got = K4.copy_probe(x, rows, ring, n_copies)
         assert K4.copy_probe.launches == before + 1
         assert int(got) == int(K4.copy_probe_reference(x, rows, n_copies))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regenerate", [False, True], ids=["wavefront", "regenerate"])
+def test_volpath_render_runs_through_k1(cuda, regenerate, monkeypatch):
+    """The 32x32 @ 4 spp heterogeneous-grid volpath render (BASELINE config
+    3's scene) goes through K1 on every closest hit and equals, bit for bit,
+    the same render through K1's plain version."""
+    from mitsuba_tpu_torch.render.scene_loader import het_vol_scene
+
+    scene = mt.load_dict(het_vol_scene(res=32, spp=4, regenerate=regenerate))
+    before = K1.smem_intersect.launches
+    img = mt.render(scene, spp=4, seed=0)
+    assert K1.smem_intersect.launches > before
+    assert img.shape == (32, 32, 3) and bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+    monkeypatch.setattr(K1, "smem_intersect", K1.tri_intersect_reference)
+    plain = mt.render(scene, spp=4, seed=0)
+    assert torch.equal(img, plain)

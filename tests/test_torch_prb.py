@@ -184,10 +184,10 @@ def test_render_forward():
     JAX package); on the path integrator render_forward's JVP is the
     transpose of the tape VJP: <J t, c> = <t, J^T c>."""
     with pytest.raises(NotImplementedError):
-        mt.render_forward(mt.load_dict(_cbox(), device="cpu"), KEYS[0])
+        mt.render_forward(mt.load_dict(_cbox(), device="cpu"), key=KEYS[0])
     scene = mt.load_dict(_cbox("path", depth=2), device="cpu")
     tangent = torch.tensor([0.3, -0.2, 0.5])
-    jvp = mt.render_forward(scene, KEYS[0], tangent, spp=2, seed=1)
+    jvp = mt.render_forward(scene, tangent, KEYS[0], spp=2, seed=1)
     c = torch.from_numpy(np.random.default_rng(0).random((W, W, 3), dtype=np.float32))
     params = mt.traverse(scene)
     v = params[KEYS[0]].clone().requires_grad_()
@@ -195,12 +195,31 @@ def test_render_forward():
     assert float((jvp * c).sum()) == pytest.approx(float((v.grad * tangent).sum()), rel=1e-5)
 
 
+def test_render_forward_calling_forms():
+    """The reference's parameter order, render_forward(scene, tangent=None,
+    key=None, ...): positional and keyword calls agree, a missing tangent
+    is ones, and neither argument (or a tangent without its key, which has
+    no scene-tangent pytree here) raises ValueError."""
+    scene = mt.load_dict(_cbox("path", w=4, depth=2), device="cpu")
+    tangent = torch.tensor([1.0, 1.0, 1.0])
+    a = mt.render_forward(scene, tangent, KEYS[0], 0, 1, 2)
+    b = mt.render_forward(scene, key=KEYS[0], tangent=tangent, seed=1, spp=2)
+    c = mt.render_forward(scene, key=KEYS[0], seed=1, spp=2)
+    assert torch.equal(a, b) and torch.equal(a, c) and bool(a.abs().sum() > 0)
+    with pytest.raises(ValueError, match="tangent` or `key"):
+        mt.render_forward(scene)
+    with pytest.raises(ValueError):
+        mt.render_forward(scene, tangent)
+
+
 def test_integrator_types():
     for t, nee in (("prb", True), ("prb_basic", False)):
         scene = mt.load_dict(_cbox(t), device="cpu")
         assert scene.integrator.is_prb and scene.integrator.use_nee is nee
     assert not getattr(mt.load_dict(_cbox("path"), device="cpu").integrator, "is_prb", False)
-    for t in ("volpath", "prbvolpath", "direct"):
+    assert type(mt.load_dict(_cbox("volpath"), device="cpu").integrator).__name__ == \
+        "VolPathIntegrator"
+    for t in ("prbvolpath", "direct", "volpathmis"):
         with pytest.raises(NotImplementedError):
             mt.load_dict(_cbox(t), device="cpu")
 

@@ -266,6 +266,27 @@ def test_port_imports_and_renders_without_jax(tmp_path):
         opt = ad.Adam(lr=0.1)
         opt["white.reflectance.value"] = v.detach()
         assert bool(opt.step({"white.reflectance.value": v.grad})["white.reflectance.value"].isfinite().all())
+        # a grid medium in a null cube under a constant environment (volpath),
+        # as a wavefront and with path regeneration
+        import numpy as np
+        grid = np.random.default_rng(3).random((8, 8, 8, 1)).astype(np.float32)
+        vol = {"type": "scene",
+               "integrator": {"type": "volpath", "max_depth": 3, "track_steps": 4, "nee_steps": 4},
+               "sensor": {"type": "perspective", "fov": 45,
+                          "to_world": [{"type": "look_at", "origin": [0, 0, 4], "target": [0, 0, 0],
+                                        "up": [0, 1, 0]}],
+                          "film": {"type": "hdrfilm", "width": 8, "height": 8,
+                                   "rfilter": {"type": "box"}}},
+               "light": {"type": "constant", "radiance": 1.0},
+               "cloud": {"type": "cube", "bsdf": {"type": "null"},
+                         "interior": {"type": "heterogeneous",
+                                      "sigma_t": {"type": "gridvolume", "data": grid,
+                                                  "bbox_min": [-1, -1, -1], "bbox_max": [1, 1, 1]},
+                                      "albedo": 0.9, "phase": {"type": "hg", "g": 0.5}}}}
+        for regen in (False, True):
+            vol["integrator"]["regenerate"] = regen
+            img = mt.render(mt.load_dict(vol, device="cpu"), spp=2, seed=0)
+            assert img.shape == (8, 8, 3) and bool(img.isfinite().all()) and float(img.mean()) > 0
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         print("OK")
     """)
@@ -297,7 +318,7 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
     d = _cbox()
-    d["integrator"] = {"type": "volpath"}
+    d["integrator"] = {"type": "volpathmis"}
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
     d = _cbox()
