@@ -1135,6 +1135,48 @@ def no_plain_closest_hit(K1, name):
         raise AssertionError(f"{name}: the plain closest hit ran {len(calls)} times")
 
 
+def k1_bits_differ(got, ref):
+    """Elements of K1's (t, prim, u, v) whose bits differ from the plain
+    version's, as a 0-d tensor on the card (no synchronisation)."""
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+    return sum((bits(g) != bits(r)).sum() for g, r in zip(got, ref))
+
+
+@contextlib.contextmanager
+def k1_held_to_plain(K1, held):
+    """Inside, every K1 call's result is held bit for bit against the plain
+    version on the same inputs: `held` gets (lanes, differing elements as a
+    0-d tensor) per call. The wrapper counts its launches on the module's
+    name, so the count moves to the stand-in and back."""
+    fn = K1.smem_intersect
+
+    def wrapper(*args):
+        out = fn(*args)
+        held.append((args[1].shape[0], k1_bits_differ(out, K1.tri_intersect_reference(*args))))
+        return out
+
+    wrapper.launches = fn.launches
+    K1.smem_intersect = wrapper
+    try:
+        yield
+    finally:
+        fn.launches = wrapper.launches
+        K1.smem_intersect = fn
+
+
+def k1_held_summary(name, held):
+    """{"launches", "lanes", "differing"} of the calls k1_held_to_plain
+    held; raises if one element differed."""
+    differing = int(sum(d for _, d in held)) if held else 0
+    out = dict(launches=len(held), lanes=sum(n for n, _ in held), differing=differing)
+    log(f"  {name}: K1 held bit for bit against the plain version on the path's own inputs: "
+        f"{out['launches']} launches, {out['lanes']} lanes, {differing} differing elements")
+    if not held or differing:
+        raise AssertionError(f"{name}: K1 against the plain version on the path's inputs: {out}")
+    return out
+
+
 def render_timed(mi, scene, spp, seed, stats=None):
     """(image, wall seconds) of one render ending in a synchronise."""
     torch.cuda.synchronize()
@@ -1148,7 +1190,8 @@ def phase_hetvol(mi, K1, K2, K3):
     """The het-vol main path: HETVOL_PASSES warm passes at 96x96 @ 16 spp
     (Mrays/s and their spread, K1 launches, peak memory), the means against
     the JAX package's, one more pass with CUDA events around each K1 launch
-    (summed time against summed bounds), and the 32x32 @ 4 spp render
+    (summed time against summed bounds) whose inputs are kept and each held
+    bit for bit against the plain version, and the 32x32 @ 4 spp render
     through K1 against the same render through the plain version."""
     from mitsuba_tpu_torch.render.scene_loader import het_vol_scene
 
@@ -1202,6 +1245,10 @@ def phase_hetvol(mi, K1, K2, K3):
     # back to back give the kernel's own time
     inputs = [x for _, _, (_, x) in timed]
     b2b_ms = time_cuda(lambda: [K1.smem_intersect(*x) for x in inputs], reps=10)
+    # every launch of the pass, on its own inputs, against the plain version
+    bitwise = k1_held_summary("het-vol pass", [
+        (x[1].shape[0], k1_bits_differ(K1.smem_intersect(*x), K1.tri_intersect_reference(*x)))
+        for x in inputs])
     log(f"  one more pass with events around each K1 launch: {wall_t * 1e3:.1f} ms wall, "
         f"{len(per)} launches, {k_ms:.3f} ms in K1 in place ({k_ms / (sorted(walls)[len(walls) // 2] * 1e3):.2%} "
         f"of a warm pass's median wall), {b2b_ms:.4f} ms for the same launches back to back; "
@@ -1235,13 +1282,16 @@ def phase_hetvol(mi, K1, K2, K3):
     return dict(walls=walls, rays=rays, mrays=mrays, k1_per_pass=per_pass, peak=peak,
                 means=means, k1_pass_launches=len(per), k1_pass_ms=k_ms,
                 k1_pass_back_to_back_ms=b2b_ms, k1_pass_bound_ms=b_ms, regen_wall=wall_r,
-                regen_iters=stats_r["wavefront_iters"], k1_regen=k1_regen)
+                regen_iters=stats_r["wavefront_iters"], k1_regen=k1_regen,
+                k1_bitwise_vs_plain=bitwise)
 
 
 def phase_vol32(mi, K1, K2, K3):
     """bench.py's vol32 cell: the wavefront render and the regenerative one
     at 128x128 @ 16 spp, each one warm-up and two timed renders (best of
-    two, as bench.py), the regenerative image held to the wavefront's."""
+    two, as bench.py), the regenerative image held to the wavefront's; then
+    one more render of each with every K1 launch held bit for bit against
+    the plain version on the same inputs."""
     from mitsuba_tpu_torch.render.scene_loader import vol32_scene
 
     spp = 16
@@ -1260,7 +1310,12 @@ def phase_vol32(mi, K1, K2, K3):
         if n_k1 == 0 or K2.bvh_sweep_intersect.launches or K3.mxu_intersect.launches:
             raise AssertionError(f"vol32 regenerate={regen}: K1 launched {n_k1} times a render")
         best, stats = min(timed, key=lambda x: x[0])
-        out[regen] = dict(img=img0, wall=best, walls=[w for w, _ in timed], stats=stats, k1=n_k1)
+        held = []
+        with k1_held_to_plain(K1, held):
+            mi.render(scene, spp=spp, seed=1)
+        bitwise = k1_held_summary(f"vol32 regenerate={regen}", held)
+        out[regen] = dict(img=img0, wall=best, walls=[w for w, _ in timed], stats=stats, k1=n_k1,
+                          bitwise=bitwise)
         log(f"== vol32 {scene.film.width}x{scene.film.height} @ {spp} spp, volpath max_depth "
             f"{scene.integrator.max_depth}, regenerate={regen}: walls "
             f"{[round(w, 4) for w, _ in timed]} s, best {best:.4f} s, {stats['n_rays']} rays "
@@ -1279,7 +1334,8 @@ def phase_vol32(mi, K1, K2, K3):
     return dict(std_wall=std["wall"], std_walls=std["walls"], regen_wall=reg["wall"],
                 regen_walls=reg["walls"], speedup=speedup,
                 regen_iters=reg["stats"]["wavefront_iters"], std_rays=std["stats"]["n_rays"],
-                regen_rays=reg["stats"]["n_rays"], k1_std=std["k1"], k1_regen=reg["k1"])
+                regen_rays=reg["stats"]["n_rays"], k1_std=std["k1"], k1_regen=reg["k1"],
+                k1_bitwise_vs_plain={"wavefront": std["bitwise"], "regenerate": reg["bitwise"]})
 
 
 def main():
@@ -1338,7 +1394,9 @@ def main():
     k1_entry.update(hetvol_pass_launches=hetvol["k1_pass_launches"],
                     hetvol_pass_ms=hetvol["k1_pass_ms"],
                     hetvol_pass_back_to_back_ms=hetvol["k1_pass_back_to_back_ms"],
-                    hetvol_pass_bound_ms=hetvol["k1_pass_bound_ms"])
+                    hetvol_pass_bound_ms=hetvol["k1_pass_bound_ms"],
+                    hetvol_bitwise_vs_plain=hetvol["k1_bitwise_vs_plain"],
+                    vol32_bitwise_vs_plain=vol32["k1_bitwise_vs_plain"])
     k3_entry.update(step_k3)
     k3_entry["launches"] = l_mma["K3"]
     k3_entry["launches_by_path"] = {f"cbox prb, K3 route, {per_path}": l_mma["K3"],

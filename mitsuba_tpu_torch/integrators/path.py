@@ -25,6 +25,7 @@ pixel's next sample.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -85,73 +86,110 @@ class PathIntegrator:
                 L = L + torch.where((pend_active & ~occluded)[..., None], pend_contrib, 0.0)
             else:
                 si = scene.ray_intersect(cur_ray, active)
-            hide = self.hide_emitters and depth == 0
-
-            # ---- emitter hits and escaped rays, MIS against the BSDF pdf ----
-            escaped = active & ~si.is_valid
-            env_val = scene.eval_environment(ray_d)
-            hit_em = active & si.is_valid
-            em_val = scene.eval_emitter_hit(si)
-            w_env, w_em = emitter_mis_weights(scene, nee, si, ray_d, prev_pdf, prev_delta, prev_p)
-            if not hide:
-                L = L + torch.where(escaped[..., None], beta * w_env[..., None] * env_val, 0.0)
-                L = L + torch.where(hit_em[..., None], beta * w_em[..., None] * em_val, 0.0)
-
-            active_next = active & si.is_valid & (depth + 1 < max_depth)
-
-            # ---- random numbers: always 4 x next_2d, in this order ----
-            u0, u2a_x, rng = rng.next_2d()
-            u2a_y, u_lobe, rng = rng.next_2d()
-            u2b_x, u2b_y, rng = rng.next_2d()
-            u_rr, _, rng = rng.next_2d()
-
-            # ---- NEE ----
-            if nee:
-                ds, em_weight = scene.sample_emitter_direction(
-                    si.p, u0, torch.stack([u2a_x, u2a_y], dim=-1), active_next,
-                    test_visibility=not defer, ref_n=si.n,
-                )
-                bsdf_val, bsdf_pdf = scene.bsdf_eval_pdf(si, si.to_local(ds.d), active_next)
-                w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf))
-                contrib = torch.where(
-                    active_next[..., None], beta * bsdf_val * em_weight * w_nee[..., None], 0.0
-                )
+            b = path_bounce(self, scene, si, rng, ray_d, L, beta, eta, active, prev_pdf,
+                            prev_delta, prev_p, depth, max_depth, defer)
             if defer:
                 # the shadow ray rides the next bounce's fused launch
-                pend = spawn_ray(si.p, si.n, ds.d, maxt=ds.dist * (1.0 - 1e-3))
-                pend_active = active_next & (ds.pdf > 0) & torch.any(contrib != 0.0, dim=-1)
-                pend_contrib = contrib
-            elif nee:
-                L = L + contrib
-
-            # ---- BSDF sampling ----
-            bs, bsdf_weight = scene.bsdf_sample(
-                si, u_lobe, torch.stack([u2b_x, u2b_y], dim=-1), active_next
-            )
-            new_ray = spawn_ray(si.p, si.n, si.to_world(bs.wo))
-            beta = beta * bsdf_weight
-            eta = eta * bs.eta
-            alive = active_next & (bs.pdf > 0) & torch.any(beta > 0, dim=-1)
-
-            # ---- Russian roulette ----
-            if depth + 1 >= self.rr_depth:
-                beta_max = torch.amax(beta, dim=-1) * eta * eta
-                q = torch.clamp(beta_max, max=0.95)
-                beta = torch.where(
-                    alive[..., None], beta / torch.clamp(q, min=1e-6)[..., None], beta
-                )
-                alive = alive & (u_rr < q)
-
-            n_rays = n_rays + active.sum() + (active_next.sum() if nee else 0)
-            ray_o, ray_d = new_ray.o, new_ray.d
-            active = alive
-            prev_pdf, prev_delta, prev_p = bs.pdf, bs.delta, si.p
+                pend = spawn_ray(si.p, si.n, b.ds.d, maxt=b.ds.dist * (1.0 - 1e-3))
+                pend_active = (b.active_next & (b.ds.pdf > 0)
+                               & torch.any(b.contrib != 0.0, dim=-1))
+                pend_contrib = b.contrib
+            n_rays = n_rays + b.n_rays
+            L, beta, eta, rng, active = b.L, b.beta, b.eta, b.rng, b.alive
+            ray_o, ray_d = b.new_ray.o, b.new_ray.d
+            prev_pdf, prev_delta, prev_p = b.bs.pdf, b.bs.delta, si.p
 
         if defer:
             # flush the last bounce's pending shadow rays
             occluded = scene.ray_test(pend, pend_active)
             L = L + torch.where((pend_active & ~occluded)[..., None], pend_contrib, 0.0)
         return L, {"n_rays": n_rays}
+
+
+class Bounce(NamedTuple):
+    """What one bounce of path_bounce leaves for the next."""
+    L: torch.Tensor
+    beta: torch.Tensor
+    eta: torch.Tensor
+    alive: torch.Tensor        # lanes that go on to the next bounce
+    active_next: torch.Tensor  # lanes that hit a surface below max_depth
+    new_ray: Ray
+    bs: object                 # the BSDF sample (its pdf and delta feed the next MIS)
+    rng: object
+    n_rays: torch.Tensor       # closest hits and shadow rays of this bounce
+    ds: object                 # the emitter sample (None without NEE)
+    contrib: torch.Tensor      # its NEE contribution, in L unless deferred
+
+
+def _lanes(cond, mask):
+    """mask & cond, for a cond that is one Python bool for every lane (the
+    wavefront's depth) or a per-lane bool tensor (regeneration's)."""
+    if isinstance(cond, bool):
+        return mask if cond else torch.zeros_like(mask)
+    return mask & cond
+
+
+def path_bounce(integrator, scene, si, rng, ray_d, L, beta, eta, active, prev_pdf, prev_delta,
+                prev_p, depth, max_depth, defer):
+    """One bounce of the path tracer after its closest hit `si`: emitter
+    hits and escapes with MIS, NEE, the BSDF sample and Russian roulette,
+    drawing 4 x next_2d in this order. `depth` is the bounce's index, one
+    int for every lane (the wavefront) or an int64 tensor per lane
+    (regeneration). With `defer` the NEE shadow ray is not traced and its
+    contribution is left out of L, for the caller to trace later."""
+    nee = integrator.use_nee
+
+    # ---- emitter hits and escaped rays, MIS against the BSDF pdf ----
+    shown = (depth != 0) | (not integrator.hide_emitters)
+    if shown is not False:
+        w_env, w_em = emitter_mis_weights(scene, nee, si, ray_d, prev_pdf, prev_delta, prev_p)
+        L = L + torch.where(_lanes(shown, active & ~si.is_valid)[..., None],
+                            beta * w_env[..., None] * scene.eval_environment(ray_d), 0.0)
+        L = L + torch.where(_lanes(shown, active & si.is_valid)[..., None],
+                            beta * w_em[..., None] * scene.eval_emitter_hit(si), 0.0)
+
+    active_next = active & si.is_valid & (depth + 1 < max_depth)
+
+    # ---- random numbers: always 4 x next_2d, in this order ----
+    u0, u2a_x, rng = rng.next_2d()
+    u2a_y, u_lobe, rng = rng.next_2d()
+    u2b_x, u2b_y, rng = rng.next_2d()
+    u_rr, _, rng = rng.next_2d()
+
+    # ---- NEE ----
+    ds, contrib = None, None
+    if nee:
+        ds, em_weight = scene.sample_emitter_direction(
+            si.p, u0, torch.stack([u2a_x, u2a_y], dim=-1), active_next,
+            test_visibility=not defer, ref_n=si.n,
+        )
+        bsdf_val, bsdf_pdf = scene.bsdf_eval_pdf(si, si.to_local(ds.d), active_next)
+        w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf))
+        contrib = torch.where(
+            active_next[..., None], beta * bsdf_val * em_weight * w_nee[..., None], 0.0
+        )
+        if not defer:
+            L = L + contrib
+
+    # ---- BSDF sampling ----
+    bs, bsdf_weight = scene.bsdf_sample(
+        si, u_lobe, torch.stack([u2b_x, u2b_y], dim=-1), active_next
+    )
+    new_ray = spawn_ray(si.p, si.n, si.to_world(bs.wo))
+    beta = beta * bsdf_weight
+    eta = eta * bs.eta
+    alive = active_next & (bs.pdf > 0) & torch.any(beta > 0, dim=-1)
+
+    # ---- Russian roulette, on the lanes past rr_depth ----
+    rr = depth + 1 >= integrator.rr_depth
+    if rr is not False:
+        q = torch.clamp(torch.amax(beta, dim=-1) * eta * eta, max=0.95)
+        beta = torch.where(_lanes(rr, alive)[..., None],
+                           beta / torch.clamp(q, min=1e-6)[..., None], beta)
+        alive = alive & (u_rr < q if rr is True else ~rr | (u_rr < q))
+
+    n_rays = active.sum() + (active_next.sum() if nee else 0)
+    return Bounce(L, beta, eta, alive, active_next, new_ray, bs, rng, n_rays, ds, contrib)
 
 
 def emitter_mis_weights(scene, nee, si, ray_d, prev_pdf, prev_delta, prev_p):
@@ -182,7 +220,6 @@ def path_regen_render(integrator, scene, seed, spp, sensor_idx):
     nc = scene.n_channels
     dev = scene.device
     max_depth = integrator.max_depth if integrator.max_depth > 0 else 1024
-    nee = integrator.use_nee
     pix = torch.arange(n, dtype=torch.int64, device=dev)
     rng0, ray0, _ = wavefront_for(scene, seed, pix, torch.zeros_like(pix), spp, sensor_idx)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -225,50 +262,14 @@ def path_regen_render(integrator, scene, seed, spp, sensor_idx):
             s_next=torch.where(regen, s["s_next"] + 1, s["s_next"]),
         )
 
-        # ---- one bounce: sample()'s math and draws, with per-lane depth ----
-        active, beta, rng = s["active"], s["beta"], s["rng"]
-        ray_d = s["ray_d"]
-        si = scene.ray_intersect(Ray.make(s["ray_o"], ray_d), active)
-        w_env, w_em = emitter_mis_weights(scene, nee, si, ray_d, s["prev_pdf"],
-                                          s["prev_delta"], s["prev_p"])
-        shown = ~(integrator.hide_emitters & (s["depth"] == 0))
-        escaped = active & ~si.is_valid
-        L = s["L"] + torch.where((escaped & shown)[..., None],
-                                 beta * w_env[..., None] * scene.eval_environment(ray_d), 0.0)
-        hit_em = active & si.is_valid
-        L = L + torch.where((hit_em & shown)[..., None],
-                            beta * w_em[..., None] * scene.eval_emitter_hit(si), 0.0)
-        active_next = active & si.is_valid & (s["depth"] + 1 < max_depth)
-
-        u0, u2a_x, rng = rng.next_2d()
-        u2a_y, u_lobe, rng = rng.next_2d()
-        u2b_x, u2b_y, rng = rng.next_2d()
-        u_rr, _, rng = rng.next_2d()
-        if nee:
-            ds, em_weight = scene.sample_emitter_direction(
-                si.p, u0, torch.stack([u2a_x, u2a_y], dim=-1), active_next,
-                test_visibility=True, ref_n=si.n)
-            bsdf_val, bsdf_pdf = scene.bsdf_eval_pdf(si, si.to_local(ds.d), active_next)
-            w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf))
-            L = L + torch.where(active_next[..., None],
-                                beta * bsdf_val * em_weight * w_nee[..., None], 0.0)
-
-        bs, bsdf_weight = scene.bsdf_sample(
-            si, u_lobe, torch.stack([u2b_x, u2b_y], dim=-1), active_next)
-        new_ray = spawn_ray(si.p, si.n, si.to_world(bs.wo))
-        beta = beta * bsdf_weight
-        eta = s["eta"] * bs.eta
-        alive = active_next & (bs.pdf > 0) & torch.any(beta > 0, dim=-1)
-        rr_active = s["depth"] + 1 >= integrator.rr_depth
-        q = torch.clamp(torch.amax(beta, dim=-1) * eta * eta, max=0.95)
-        beta = torch.where((rr_active & alive)[..., None],
-                           beta / torch.clamp(q, min=1e-6)[..., None], beta)
-        alive = alive & (~rr_active | (u_rr < q))
-
-        n_rays = s["n_rays"] + active.sum() + (active_next.sum() if nee else 0)
-        s = dict(s, n_rays=n_rays, depth=s["depth"] + 1, L=L, beta=beta, eta=eta,
-                 ray_o=new_ray.o, ray_d=new_ray.d, rng=rng, active=alive,
-                 prev_pdf=bs.pdf, prev_delta=bs.delta, prev_p=si.p)
+        # ---- one bounce, with per-lane depth ----
+        si = scene.ray_intersect(Ray.make(s["ray_o"], s["ray_d"]), s["active"])
+        b = path_bounce(integrator, scene, si, s["rng"], s["ray_d"], s["L"], s["beta"], s["eta"],
+                        s["active"], s["prev_pdf"], s["prev_delta"], s["prev_p"], s["depth"],
+                        max_depth, defer=False)
+        s = dict(s, n_rays=s["n_rays"] + b.n_rays, depth=s["depth"] + 1, L=b.L, beta=b.beta,
+                 eta=b.eta, ray_o=b.new_ray.o, ray_d=b.new_ray.d, rng=b.rng, active=b.alive,
+                 prev_pdf=b.bs.pdf, prev_delta=b.bs.delta, prev_p=si.p)
         iters += 1
     # a lane leaves the loop inactive unless the step cap cut its path
     L_px = s["L_px"] + torch.where(s["active"][..., None], 0.0, s["L"])
