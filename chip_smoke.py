@@ -23,7 +23,15 @@ user entry points, and checks that each went through its kernels:
   through K1 against the same render through the plain version, bitwise;
 - bench.py's vol32_regen_speedup scene (a homogeneous slab, 128x128 @ 16
   spp, volpath max_depth 32), rendered as a wavefront and with path
-  regeneration, the two images held together and their times compared.
+  regeneration, the two images held together and their times compared;
+- the polarized Rayleigh + Mie atmosphere (BASELINE config 4, bench.py's
+  atmo_msamples scene) in the mono_polarized variant: render_1 of a
+  radiancemeter's 64x64 film @ 64 spp in one pass (262,144 lanes), volpath
+  max_depth 8 under a directional sun, the Mie phase baked on the card
+  (held against the same bake on the CPU): kernel K1 on every segment and
+  NEE crossing of the null slab; the Stokes vector against the JAX
+  package's, and every K1 launch of one pass against the plain version,
+  bitwise.
 
 Any failure raises and exits non-zero.
 
@@ -80,6 +88,21 @@ PRB64_GRAD_RTOL = 0.01
 JAX_HETVOL_MEANS = (0.8984217047691345, 0.8984217047691345, 0.8984217047691345)
 HETVOL_MEAN_RTOL = 0.01
 HETVOL_PASSES = 4
+# The JAX package's Stokes vector (I, Q, U, V) of bench.py's polarized
+# atmosphere (render/scene_loader.py:atmo_scene: mono_polarized, 64x64
+# radiancemeter film, render_1 at spp=64, seed=0, one pass), computed once
+# with mitsuba_tpu on the CPU (XLA_FLAGS=--xla_backend_optimization_level=1):
+# mi.render_1(mi.load_dict(atmo_scene(64, 64)), spp=64, seed=0)[:, 0]
+# (126.7 s, the bake and the compile included). The port draws the same
+# samples: I within ATMO_I_RTOL, Q/U/V within ATMO_QUV_ATOL * I.
+JAX_ATMO_STOKES = (0.5410645604133606, -0.36343690752983093, -1.172064003185369e-05,
+                   8.731047273613513e-06)
+ATMO_I_RTOL, ATMO_QUV_ATOL = 1e-3, 1e-3
+ATMO_RES, ATMO_SPP, ATMO_PASSES = 64, 64, 3
+# the Mie bake on the card against the same bake on the CPU (complex64 on
+# both): the four tables within rtol 1e-4 and 1e-6 of max|M11|, the
+# tolerance of the CPU tests against the JAX package's bake
+BAKE_RTOL, BAKE_ATOL_REL = 1e-4, 1e-6
 # the regenerative image against the wavefront image (tests/test_regen.py's
 # volpath tolerance: the same samples, summed in another order)
 REGEN_RTOL, REGEN_ATOL = 3e-4, 3e-5
@@ -1338,6 +1361,147 @@ def phase_vol32(mi, K1, K2, K3):
                 k1_bitwise_vs_plain={"wavefront": std["bitwise"], "regenerate": reg["bitwise"]})
 
 
+def profiled_launches(fn):
+    """(kernel launches, device ms) of fn() under torch.profiler, or (None,
+    None) where the profiler sees no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not rows:
+        return None, None
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in rows)
+    return sum(e.count for e in rows), us / 1e3
+
+
+def check_atmo_bake(mi, scene):
+    """The config 4 scene's Mie phase, baked on the card when it was
+    loaded, against the same bake on the CPU; returns the largest error of
+    the four tables relative to max|M11|, and the bake's time on the card."""
+    from mitsuba_tpu_torch.render.media import parse_phase
+    from mitsuba_tpu_torch.render.scene_loader import atmo_scene
+
+    spec = atmo_scene(ATMO_RES, ATMO_SPP)["atmo"]["phase"]["aerosol"]
+    cpu = parse_phase(spec, [], "aerosol", ("p",), "cpu")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = parse_phase(spec, [], "aerosol", ("p",), "cuda")
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    loaded = scene.phases[0].phase_b
+    scale = float(cpu.m11.abs().max())
+    err = 0.0
+    for k in ("m11", "m12", "m33", "m34"):
+        got, ref = getattr(loaded, k).cpu(), getattr(cpu, k)
+        if not torch.equal(got, getattr(card, k).cpu()):
+            raise AssertionError(f"atmo bake: the loaded {k} differs from a second bake on the card")
+        err = max(err, float((got - ref).abs().max()) / scale)
+        if not torch.allclose(got, ref, rtol=BAKE_RTOL, atol=BAKE_ATOL_REL * scale):
+            raise AssertionError(f"atmo bake: {k} on the card vs the CPU: max abs diff "
+                                 f"{float((got - ref).abs().max()):.3e} (max|M11| {scale:.3e})")
+    log(f"== atmo: the Mie bake on the card ({bake_s * 1e3:.1f} ms, {cpu.nodes.shape[0]} "
+        f"cosines x {spec['size_distr']['gauss_points']} radii) against the CPU bake: max error "
+        f"{err:.3e} of max|M11| (rtol {BAKE_RTOL}, atol {BAKE_ATOL_REL} max|M11|)")
+    return err, bake_s
+
+
+def render_1_timed(mi, scene, spp, seed, stats=None):
+    """(Stokes vector, wall seconds) of one render_1 ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = mi.render_1(scene, spp=spp, seed=seed, stats=stats)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_atmo(mi, K1, K2, K3):
+    """BASELINE config 4 in the mono_polarized variant: the bake against
+    the CPU's, one warm-up pass and ATMO_PASSES timed passes of render_1 at
+    64x64 @ 64 spp (wall, Msamples/s = lanes / wall, K1 launches, peak
+    memory), the Stokes vector against the JAX package's, one pass with
+    CUDA events around each K1 launch, one under the profiler (all kernel
+    launches), and one with every K1 launch held bit for bit against the
+    plain version."""
+    from mitsuba_tpu_torch.render.scene_loader import atmo_scene
+
+    mi.set_variant("mono_polarized")
+    try:
+        scene = mi.load_dict(atmo_scene(ATMO_RES, ATMO_SPP))
+        bake_err, bake_s = check_atmo_bake(mi, scene)
+        lanes = scene.film.n_pixels * ATMO_SPP
+        render_1_timed(mi, scene, ATMO_SPP, 1)           # warm-up, not counted
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(K1, K2, K3)
+        walls, per_pass, stats = [], [], {}
+        for _ in range(ATMO_PASSES):
+            before = K1.smem_intersect.launches
+            stats = {}
+            with no_plain_closest_hit(K1, "atmo"):
+                stokes, wall = render_1_timed(mi, scene, ATMO_SPP, 0, stats)
+            walls.append(wall)
+            per_pass.append(K1.smem_intersect.launches - before)
+        launches = dict(K1=K1.smem_intersect.launches, K3=K3.mxu_intersect.launches,
+                        K2=K2.bvh_sweep_intersect.launches + K2.bvh_sweep_occluded.launches)
+        peak = torch.cuda.max_memory_allocated()
+        if launches["K1"] == 0 or launches["K2"] or launches["K3"] or len(set(per_pass)) != 1:
+            raise AssertionError(f"atmo: launches {launches}, K1 per pass {per_pass}")
+        if tuple(stokes.shape) != (4, 1) or not bool(torch.isfinite(stokes).all()):
+            raise AssertionError(f"atmo: Stokes vector {stokes.tolist()}")
+        I, Q, U, V = stokes[:, 0].tolist()
+        msamples = [lanes / w / 1e6 for w in walls]
+        log(f"== main path: atmo (config 4, mono_polarized) {ATMO_RES}x{ATMO_RES} @ {ATMO_SPP} "
+            f"spp, {lanes} lanes, volpath max_depth {scene.integrator.max_depth}: "
+            f"{ATMO_PASSES} warm passes {[round(w, 4) for w in walls]} s wall, "
+            f"{[round(m, 4) for m in msamples]} Msamples/s, {stats['n_rays']} rays a pass; K1 "
+            f"launches per pass {per_pass}; launches {launches}; peak memory "
+            f"{peak / 2**30:.3f} GiB; Stokes {[I, Q, U, V]}")
+        rel_i = abs(I - JAX_ATMO_STOKES[0]) / JAX_ATMO_STOKES[0]
+        quv = [abs(a - b) / I for a, b in zip((Q, U, V), JAX_ATMO_STOKES[1:])]
+        dolp = (Q * Q + U * U + V * V) ** 0.5 / I
+        log(f"  against the JAX package's {JAX_ATMO_STOKES}: I within {rel_i:.3e} (rtol "
+            f"{ATMO_I_RTOL}), Q/U/V within {[f'{x:.3e}' for x in quv]} of I (atol "
+            f"{ATMO_QUV_ATOL} I); DoLP {dolp:.4f}")
+        if rel_i > ATMO_I_RTOL or max(quv) > ATMO_QUV_ATOL or not 0.0 < dolp < 1.0:
+            raise AssertionError(f"atmo: Stokes {[I, Q, U, V]} vs JAX {JAX_ATMO_STOKES}")
+
+        def work_and_inputs(*args):
+            return k1_work(*args), [a.detach().clone() for a in args]
+
+        timed = []
+        with timed_launches(K1, "smem_intersect", work_and_inputs, timed):
+            _, wall_t = render_1_timed(mi, scene, ATMO_SPP, 0)
+        per = [(start.elapsed_time(end), k1_bound_ms(w)) for start, end, (w, _) in timed]
+        k_ms = sum(m for m, _ in per)
+        b_ms = sum(b["ms"] for _, b in per)
+        inputs = [x for _, _, (_, x) in timed]
+        b2b_ms = time_cuda(lambda: [K1.smem_intersect(*x) for x in inputs], reps=10)
+        del inputs, timed
+        n_launch, device_ms = profiled_launches(lambda: mi.render_1(scene, spp=ATMO_SPP, seed=0))
+        log(f"  one more pass with events around each K1 launch: {wall_t * 1e3:.1f} ms wall, "
+            f"{len(per)} launches, {k_ms:.3f} ms in K1 in place, {b2b_ms:.4f} ms for the same "
+            f"launches back to back; summed bound {b_ms:.4f} ms; active lanes per launch "
+            f"{[int(b['n_active']) for _, b in per]}; one pass under the profiler: "
+            + (f"{n_launch} kernel launches, {device_ms:.1f} ms of device time"
+               if n_launch is not None else "no device activity seen (not measured)"))
+        held = []
+        with k1_held_to_plain(K1, held):
+            mi.render_1(scene, spp=ATMO_SPP, seed=0)
+        bitwise = k1_held_summary("atmo pass", held)
+    finally:
+        mi.set_variant("rgb")
+    return dict(walls=walls, msamples=msamples, lanes=lanes, rays=stats["n_rays"],
+                k1_per_pass=per_pass, peak=peak, stokes=[I, Q, U, V], dolp=dolp,
+                stokes_rel_err_i=rel_i, stokes_err_quv_over_i=quv, bake_err=bake_err,
+                bake_s=bake_s, k1_pass_launches=len(per), k1_pass_ms=k_ms,
+                k1_pass_back_to_back_ms=b2b_ms, k1_pass_bound_ms=b_ms,
+                pass_kernel_launches=n_launch, pass_device_ms=device_ms,
+                k1_bitwise_vs_plain=bitwise)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one card", file=sys.stderr)
@@ -1379,6 +1543,8 @@ def main():
     hetvol = phase_hetvol(mi, K1, K2, K3)
     torch.cuda.empty_cache()
     vol32 = phase_vol32(mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    atmo = phase_atmo(mi, K1, K2, K3)
 
     per_path = f"{PRB_ITERS} iterations"
     k1_entry["launches"] = cbox_launches
@@ -1389,14 +1555,20 @@ def main():
                                     "het-vol pass 96x96 @ 16 spp": hetvol["k1_per_pass"][0],
                                     "het-vol regenerate render": hetvol["k1_regen"],
                                     "vol32 wavefront render": vol32["k1_std"],
-                                    "vol32 regenerate render": vol32["k1_regen"]}
+                                    "vol32 regenerate render": vol32["k1_regen"],
+                                    "atmo pass 64x64 @ 64 spp": atmo["k1_per_pass"][0]}
     k1_entry.update(step_k1)
     k1_entry.update(hetvol_pass_launches=hetvol["k1_pass_launches"],
                     hetvol_pass_ms=hetvol["k1_pass_ms"],
                     hetvol_pass_back_to_back_ms=hetvol["k1_pass_back_to_back_ms"],
                     hetvol_pass_bound_ms=hetvol["k1_pass_bound_ms"],
                     hetvol_bitwise_vs_plain=hetvol["k1_bitwise_vs_plain"],
-                    vol32_bitwise_vs_plain=vol32["k1_bitwise_vs_plain"])
+                    vol32_bitwise_vs_plain=vol32["k1_bitwise_vs_plain"],
+                    atmo_launches=atmo["k1_per_pass"][0],
+                    atmo_pass_ms=atmo["k1_pass_ms"],
+                    atmo_pass_back_to_back_ms=atmo["k1_pass_back_to_back_ms"],
+                    atmo_pass_bound_ms=atmo["k1_pass_bound_ms"],
+                    atmo_bitwise_vs_plain=atmo["k1_bitwise_vs_plain"])
     k3_entry.update(step_k3)
     k3_entry["launches"] = l_mma["K3"]
     k3_entry["launches_by_path"] = {f"cbox prb, K3 route, {per_path}": l_mma["K3"],
@@ -1416,7 +1588,8 @@ def main():
         k4_entry,
     ], "prb": {k: v for k, v in prb.items()},
         "hetvol": hetvol,
-        "vol32": vol32}
+        "vol32": vol32,
+        "atmo": atmo}
     log(f"== chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(report))

@@ -12,6 +12,11 @@ Entry points run on the card unless the caller names another device:
     scene = mi.load_dict(mi.cornell_box())          # on "cuda"
     img = mi.render(scene, spp=64)                  # [H, W, 3] on scene.device
 
+The polarized Rayleigh + Mie atmosphere (BASELINE config 4) as a radiometer:
+
+    mi.set_variant("mono_polarized")
+    stokes = mi.render_1(mi.load_dict(mi.atmo_scene()), spp=64)   # [4, 1]
+
 Gradients: write a parameter that requires grad and call backward, through
 the path integrator's tape or the PRB integrators' replay:
 
@@ -22,9 +27,9 @@ the path integrator's tape or the PRB integrators' replay:
 from .variant import set_variant, variant, variants, current_variant, Variant
 from .core.rng import RNG
 from .core.transform import Transform, build_transform
-from .render.scene_loader import load_dict, cornell_box
+from .render.scene_loader import load_dict, cornell_box, atmo_scene
 from .render.params import traverse, SceneParameters
-from .render_api import render, render_forward
+from .render_api import render, render_1, render_forward
 from . import ad
 
 __version__ = "0.1.0"

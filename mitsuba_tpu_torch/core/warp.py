@@ -1,6 +1,6 @@
 """Sampling warps (counterpart of mitsuba_tpu/core/warp.py): the concentric
 disk, the cosine hemisphere, the uniform triangle, the tent, the uniform
-sphere and the Henyey-Greenstein lobe.
+sphere, the Henyey-Greenstein lobe and the Rayleigh lobe.
 
 Inputs carry a trailing dimension of 2 (or none, for 1D warps) and
 broadcast over the leading wavefront axes; there is no data-dependent
@@ -91,3 +91,27 @@ def square_to_hg_pdf(d, g):
     cos_theta = d[..., 2]
     temp = 1.0 + g * g - 2.0 * g * cos_theta
     return INV_FOUR_PI * (1.0 - g * g) / torch.clamp(temp * safe_sqrt(temp), min=1e-12)
+
+
+def square_to_rayleigh(u):
+    """A direction about +z whose cos(theta) follows the unpolarized
+    Rayleigh phase 3/(16 pi) (1 + cos^2): the closed-form inverse cdf
+    (Cardano)."""
+    z = 2.0 * (2.0 * u[..., 1] - 1.0)
+    a = _cbrt(z + torch.sqrt(z * z + 1.0))
+    cos_theta = torch.clamp(a - 1.0 / a, -1.0, 1.0)
+    sin_theta = safe_sqrt(1.0 - cos_theta * cos_theta)
+    phi = TWO_PI * u[..., 0]
+    return torch.stack(
+        [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], dim=-1
+    )
+
+
+def square_to_rayleigh_pdf(d):
+    cos_theta = d[..., 2]
+    return (3.0 / (16.0 * math.pi)) * (1.0 + cos_theta * cos_theta)
+
+
+def _cbrt(x):
+    """The real cube root (torch has none): sign(x) |x|^(1/3)."""
+    return torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)

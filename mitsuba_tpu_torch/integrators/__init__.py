@@ -3,8 +3,15 @@ mitsuba_tpu/integrators/__init__.py): ``path``, ``prb``, ``prb_basic`` and
 ``volpath``. Any other type raises ``NotImplementedError``: it is not yet
 ported. ``regenerate`` is taken by ``path`` and ``volpath`` (forward
 renders); the PRB integrators refuse it until their regenerative backward
-replay is ported."""
+replay is ported.
+
+In a polarized variant, ``path`` is ``volpath`` (as in the reference, the
+volumetric integrator carries the Mueller transport of surface scenes
+too); the polarized PRB integrators and polarized path regeneration are
+not yet ported."""
 from __future__ import annotations
+
+from ..variant import current_variant
 
 
 def make_integrator(spec):
@@ -14,6 +21,15 @@ def make_integrator(spec):
     if t not in ("path", "prb", "prb_basic", "volpath"):
         raise NotImplementedError(f"integrator {t!r} is not yet ported")
     regenerate = bool(spec.get("regenerate", False))
+    if current_variant().polarized:
+        if t != "path" and t != "volpath":
+            raise NotImplementedError(
+                f"{t!r} in a polarized variant (the reference's prb_polarized) is not yet ported")
+        if regenerate:
+            raise NotImplementedError(
+                "regenerate in a polarized variant (the Stokes rotation at each path's "
+                "flush) is not yet ported; it is queued after the polarized forward slice")
+        t = "volpath"
     kw = dict(
         max_depth=int(spec.get("max_depth", 8)),
         rr_depth=int(spec.get("rr_depth", 5)),

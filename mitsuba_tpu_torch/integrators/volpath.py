@@ -11,6 +11,12 @@ hero channel drawn per path. NEE transmittance is ratio tracking across up
 to ``nee_crossings`` null interfaces, one intersection per crossing. Every
 ``ray_intersect`` here is a closest-hit query through the scene's kernel.
 
+In a polarized variant the throughput is a Mueller matrix [N, C, 4, 4] and
+the radiance a Stokes vector [N, C, 4] (spectrum_ops.MuellerOps): the NEE
+and the sampled direction are weighted by the world-frame Mueller matrices
+of the phase or BSDF, and draw no random number more than the unpolarized
+path. The regenerative schedule is unpolarized only.
+
 Random numbers are drawn unconditionally and in a fixed order, so each lane
 consumes the same (lane, dim) counters as in the JAX package. The loops are
 Python loops of eager PyTorch, and they stop early where the rest of a loop
@@ -267,6 +273,7 @@ class VolPathIntegrator:
         # ---- delta-track the segment up to the surface ----
         reached_end, real, t_real, beta_f, rng = track_segment(
             scene, ray_o, ray_d, t_surf, medium, channel, rng, active, self.track_steps)
+        # tracking ratios are per-channel scalars: they keep the polarization
         beta = ops.mul_scalar(s["beta"], torch.where(active[..., None], beta_f, 1.0))
         surface_event = active & reached_end & si.is_valid
         escaped = active & reached_end & ~si.is_valid
@@ -314,9 +321,15 @@ class VolPathIntegrator:
             scene, p_nee, ds, nee_medium, channel, rng, nee_active,
             max_crossings=self.nee_crossings, steps_per_segment=self.nee_steps)
 
-        ph_val, ph_pdf = scene.phase_eval_pdf(phase_idx, mei, mei.to_local(ds.d), scatter_med)
-        b_val, b_pdf = scene.bsdf_eval_pdf(si, si.to_local(ds.d), scatter_surf)
-        f_nee = torch.where(scatter_med[..., None], ph_val, b_val)
+        wo_med, wo_surf = mei.to_local(ds.d), si.to_local(ds.d)
+        if ops.polarized:
+            ph_val, ph_pdf = scene.phase_eval_pdf_pol(phase_idx, mei, wo_med, scatter_med)
+            b_val, b_pdf = scene.bsdf_eval_pdf_pol(si, wo_surf, scatter_surf)
+            f_nee = torch.where(scatter_med[..., None, None, None], ph_val, b_val)
+        else:
+            ph_val, ph_pdf = scene.phase_eval_pdf(phase_idx, mei, wo_med, scatter_med)
+            b_val, b_pdf = scene.bsdf_eval_pdf(si, wo_surf, scatter_surf)
+            f_nee = torch.where(scatter_med[..., None], ph_val, b_val)
         pdf_fwd = torch.where(scatter_med, ph_pdf, b_pdf)
         w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, pdf_fwd))
         nee_contrib = ops.contrib_nee(beta, f_nee, em_weight * T_nee * w_nee[..., None])
@@ -324,8 +337,12 @@ class VolPathIntegrator:
 
         # ---- direction sampling ----
         u2b = torch.stack([u2b_x, u2b_y], dim=-1)
-        wo_ph, w_ph, pdf_ph = scene.phase_sample(phase_idx, mei, u_lobe, u2b, scatter_med)
-        bs, bw = scene.bsdf_sample(si, u_lobe, u2b, scatter_surf)
+        if ops.polarized:
+            wo_ph, w_ph, pdf_ph = scene.phase_sample_pol(phase_idx, mei, u_lobe, u2b, scatter_med)
+            bs, bw = scene.bsdf_sample_pol(si, u_lobe, u2b, scatter_surf)
+        else:
+            wo_ph, w_ph, pdf_ph = scene.phase_sample(phase_idx, mei, u_lobe, u2b, scatter_med)
+            bs, bw = scene.bsdf_sample(si, u_lobe, u2b, scatter_surf)
         d_med = mei.to_world(wo_ph)
         d_surf = si.to_world(bs.wo)
         new_d = torch.where(scatter_med[..., None], d_med,

@@ -1,9 +1,12 @@
 """Emitters (counterpart of mitsuba_tpu/render/emitters.py): the area
-light and the constant environment.
+light, the constant environment and the directional sun.
 
-As in the reference: sample_direction(ref_p, u) returns (DirectionSample,
-weight) with weight = radiance / pdf, pdf_direction is a solid-angle
-density, and eval(si) is the radiance of a ray that hits the emitter.
+As in the reference: sample_direction(ref_p, u2, geom, emitter_index,
+n_channels) returns (DirectionSample, weight) with weight = radiance / pdf
+([N, C]), pdf_direction is a solid-angle density, and eval(si,
+n_channels) is the radiance of a ray that hits the emitter. A delta emitter
+(the sun) is never hit: its samples have pdf 1 and ``delta`` set, and MIS
+gives them weight 1.
 
 An area light samples its shape's triangles by area (an inverse-cdf lookup
 with searchsorted(side="right")), then a uniform point in the triangle. The
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 
 from ..core import warp
-from ..core.frame import dot
+from ..core.frame import dot, normalize
 from ..core.math import INV_FOUR_PI
 from .records import DirectionSample
 
@@ -67,12 +70,12 @@ class AreaEmitter:
             self, tri_cdf=fresh.tri_cdf, total_area=fresh.total_area
         )
 
-    def eval(self, si):
+    def eval(self, si, n_channels):
         """Radiance toward si.wi; the front face only."""
         front = si.wi[..., 2] > 0
-        return torch.where(front[..., None], self.radiance.eval(si.uv), 0.0)
+        return torch.where(front[..., None], self.radiance.eval(si.uv, n_channels), 0.0)
 
-    def sample_direction(self, ref_p, u2, geom, emitter_index):
+    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels):
         n_lanes = ref_p.shape[0]
         scaled = u2[..., 0] * self.total_area
         K = self.tri_cdf.shape[0]
@@ -97,7 +100,7 @@ class AreaEmitter:
         pdf = torch.where(
             valid, dist2 / torch.where(valid, cos_e * self.total_area, 1.0), 0.0
         )
-        val = self.radiance.eval(bary)
+        val = self.radiance.eval(bary, n_channels)
         pos = pdf > 0
         weight = torch.where(
             pos[..., None], val / torch.where(pos, pdf, 1.0)[..., None], 0.0
@@ -135,17 +138,18 @@ class ConstantEmitter:
     is_environment = True
     is_delta = False
 
-    def eval_escaped(self, d):
-        return self.radiance.eval(torch.zeros(d.shape[0], 2, dtype=torch.float32, device=d.device))
+    def eval_escaped(self, d, n_channels):
+        return self.radiance.eval(
+            torch.zeros(d.shape[0], 2, dtype=torch.float32, device=d.device), n_channels)
 
-    def sample_direction(self, ref_p, u2, geom, emitter_index):
+    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels):
         n_lanes, dev = ref_p.shape[0], ref_p.device
         d = warp.square_to_uniform_sphere(u2)
         pdf = torch.full((n_lanes,), INV_FOUR_PI, dtype=torch.float32, device=dev)
         dist = torch.full((n_lanes,), 2.0, dtype=torch.float32, device=dev) * torch.clamp(
             self.scene_radius, min=1.0)
         uv = torch.zeros(n_lanes, 2, dtype=torch.float32, device=dev)
-        weight = self.radiance.eval(uv) / pdf[..., None]
+        weight = self.radiance.eval(uv, n_channels) / pdf[..., None]
         ds = DirectionSample(
             p=ref_p + d * dist[..., None], n=-d, d=d, dist=dist, pdf=pdf,
             delta=torch.zeros(n_lanes, dtype=torch.bool, device=dev),
@@ -156,6 +160,46 @@ class ConstantEmitter:
 
     def pdf_direction_escaped(self, d):
         return torch.full(d.shape[:-1], INV_FOUR_PI, dtype=torch.float32, device=d.device)
+
+    def parameters_changed(self, geometry):
+        return self
+
+
+@dataclass
+class DirectionalEmitter:
+    """A distant directional emitter (the sun): irradiance arriving along
+    `direction`, the direction in which the light propagates. Its samples
+    lie at twice the scene's bounding radius (at least 1) from the
+    reference point, toward the light."""
+
+    irradiance: object          # texture
+    direction: torch.Tensor     # [3] unit propagation direction (world)
+    scene_radius: torch.Tensor  # []
+
+    is_environment = False
+    is_delta = True
+
+    def eval(self, si, n_channels):
+        return torch.zeros(si.p.shape[:-1] + (n_channels,), dtype=torch.float32,
+                           device=si.p.device)
+
+    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels):
+        n_lanes, dev = ref_p.shape[0], ref_p.device
+        d = -normalize(self.direction.expand(ref_p.shape))
+        dist = torch.full((n_lanes,), 2.0, dtype=torch.float32, device=dev) * torch.clamp(
+            self.scene_radius, min=1.0)
+        uv = torch.zeros(n_lanes, 2, dtype=torch.float32, device=dev)
+        ds = DirectionSample(
+            p=ref_p + d * dist[..., None], n=-d, d=d, dist=dist,
+            pdf=torch.ones(n_lanes, dtype=torch.float32, device=dev),
+            delta=torch.ones(n_lanes, dtype=torch.bool, device=dev),
+            emitter_index=torch.full((n_lanes,), emitter_index, dtype=torch.int32, device=dev),
+            uv=uv,
+        )
+        return ds, self.irradiance.eval(uv, n_channels)
+
+    def pdf_direction(self, ref_p, si):
+        return torch.zeros(ref_p.shape[:-1], dtype=torch.float32, device=ref_p.device)
 
     def parameters_changed(self, geometry):
         return self

@@ -11,6 +11,10 @@ The port sums a pixel's samples one sample index after another, always in
 that order (``accumulate``): a render split into several passes then adds
 the same numbers in the same order as one pass, and the image is bitwise
 independent of the split.
+
+Polarized variants put the raw Stokes components on the film: per-lane
+[N, C, 4] values develop to [H, W, 4, C], Stokes-major, as the reference's
+film does; no colour conversion is applied.
 """
 from __future__ import annotations
 
@@ -64,14 +68,21 @@ def sample_filter_offset(rfilter: str, u2):
 
 
 def accumulate(film: Film, values, spp: int, acc=None):
-    """Add pixel-major per-lane values [H*W*spp, C] into the per-pixel sums
-    acc [H, W, C], one sample index after the other."""
-    rows = values.reshape(film.height, film.width, spp, values.shape[-1])
+    """Add pixel-major per-lane values [H*W*spp, ...] into the per-pixel
+    sums acc [H, W, ...], one sample index after the other."""
+    rows = values.reshape((film.height, film.width, spp) + values.shape[1:])
     for s in range(spp):
         acc = rows[:, :, s] if acc is None else acc + rows[:, :, s]
     return acc
 
 
+def stokes_major(img):
+    """A polarized image [H, W, C, 4] -> [H, W, 4, C]; an unpolarized
+    [H, W, C] one is returned as it is."""
+    return img.transpose(-1, -2) if img.ndim == 4 else img
+
+
 def develop(film: Film, values, spp: int):
-    """Pixel-major per-lane radiance [H*W*spp, C] -> image [H, W, C]."""
-    return accumulate(film, values, spp) / spp
+    """Pixel-major per-lane radiance [H*W*spp, C] (or [H*W*spp, C, 4]
+    Stokes) -> image [H, W, C] (or [H, W, 4, C])."""
+    return stokes_major(accumulate(film, values, spp) / spp)

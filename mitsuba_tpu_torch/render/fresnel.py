@@ -1,0 +1,53 @@
+"""Polarized Fresnel equations (counterpart of mitsuba_tpu/render/fresnel.py,
+its ``fresnel_polarized`` only: the Mueller matrices of specular reflection
+and transmission need it; the unpolarized forms wait for the smooth
+dielectric and conductor BSDFs).
+
+Complex amplitudes are ``torch.complex64``, as the reference's jnp.complex64.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _mulsign_c(z, s):
+    return torch.where(s >= 0, z, -z)
+
+
+def fresnel_polarized(cos_theta_i, eta):
+    """Complex polarized Fresnel amplitudes (Verdet convention) at an
+    interface of relative IOR eta (real or complex; a real eta is the
+    dielectric case, total internal reflection included). Returns
+    (a_s, a_p, cos_theta_t_signed, eta_it, eta_ti), a_s and a_p complex64."""
+    cos_theta_i = torch.as_tensor(cos_theta_i, dtype=torch.float32)
+    eta = torch.as_tensor(eta, device=cos_theta_i.device).to(torch.complex64)
+    # the kappa sign convention: a positive imaginary part is conjugated
+    eta = torch.where(eta.imag > 0, eta.conj(), eta)
+
+    outside = cos_theta_i >= 0.0
+    rcp_eta = 1.0 / eta
+    eta_it = torch.where(outside, eta, rcp_eta)
+    eta_ti = torch.where(outside, rcp_eta, eta)
+
+    cos_theta_t_sqr = 1.0 - eta_ti * eta_ti * (1.0 - cos_theta_i * cos_theta_i).to(torch.complex64)
+    cos_theta_i_abs = torch.abs(cos_theta_i)
+    cos_theta_t = torch.sqrt(cos_theta_t_sqr)
+    # the sign of the root (Clarke, "Stellar Polarimetry", A.2)
+    cos_theta_t = _mulsign_c(cos_theta_t, cos_theta_t_sqr.real)
+
+    a_s = (cos_theta_i_abs - eta_it * cos_theta_t) / (cos_theta_i_abs + eta_it * cos_theta_t)
+    a_p = (eta_it * cos_theta_i_abs - cos_theta_t) / (eta_it * cos_theta_i_abs + cos_theta_t)
+
+    sq_norm = eta.real ** 2 + eta.imag ** 2
+    index_matched = (sq_norm == 1.0) & (eta.imag == 0.0)
+    bad = index_matched | (sq_norm == 0.0)
+    zero = torch.zeros((), dtype=torch.complex64, device=a_s.device)
+    a_s = torch.where(bad, zero, a_s)
+    a_p = torch.where(bad, zero, a_p)
+
+    cos_theta_t_signed = torch.where(
+        cos_theta_t_sqr.real >= 0.0,
+        -torch.sign(cos_theta_i) * torch.abs(cos_theta_t.real),
+        0.0,
+    )
+    return a_s, a_p, cos_theta_t_signed, eta_it, eta_ti

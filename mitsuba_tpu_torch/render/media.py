@@ -20,13 +20,14 @@ from dataclasses import dataclass
 
 import torch
 
-from .phase import HGPhase, IsotropicPhase, SGGXPhase
+from .phase import HGPhase, IsotropicPhase, RayleighPhase, SGGXPhase
+from .phase_polarized import parse_polarized_phase
 from .volumes import parse_volume
 
-PHASE_TYPES = ("isotropic", "hg", "sggx")
+PHASE_TYPES = ("isotropic", "hg", "sggx", "rayleigh", "mie", "tabphase_polarized", "blendphase")
 # phase types of the reference that are not ported; a medium's unnamed
 # phase child of one of these types is still recognised, and refused
-UNPORTED_PHASE_TYPES = ("rayleigh", "mie", "tabphase", "tabphase_polarized", "blendphase")
+UNPORTED_PHASE_TYPES = ("tabphase",)
 MEDIUM_TYPES = ("homogeneous", "heterogeneous")
 
 
@@ -139,6 +140,12 @@ def parse_phase(spec, param_paths, phase_prefix, phase_path_root, device):
         vol, leaf = parse_volume(spec.get("S", [1.0, 1.0, 1.0, 0.0, 0.0, 0.0]), device)
         param_paths.append((f"{phase_prefix}.S.{leaf}", phase_path_root + ("S", leaf)))
         return SGGXPhase(S=vol)
+    if t == "rayleigh":
+        rho = float(spec.get("depolarization", spec.get("rho", 0.0)))
+        return RayleighPhase(rho=torch.tensor(rho, dtype=torch.float32, device=device))
+    if t in ("mie", "tabphase_polarized", "blendphase"):
+        return parse_polarized_phase(spec, param_paths, phase_prefix, phase_path_root, device,
+                                     parse_phase)
     raise NotImplementedError(f"phase function type {t!r} is not yet ported")
 
 

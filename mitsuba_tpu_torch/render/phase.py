@@ -1,15 +1,17 @@
 """Phase functions (counterpart of mitsuba_tpu/render/phase.py): isotropic,
-Henyey-Greenstein and the SGGX microflake phase.
+Henyey-Greenstein, Rayleigh and the SGGX microflake phase, and the rotation
+of a phase matrix into the Stokes bases of the medium frame.
 
 Conventions, as in the reference: a medium interaction's shading frame is
 Frame(ray.d) and the incident direction is (0, 0, -1) in local space;
 sample() returns a local direction wo, a weight [N, C] and a pdf, and the
 integrator maps wo to the world with mei.to_world. For HG the scattering
-angle has cos(theta) = dot(wi, wo) = -wo.z.
+angle has cos(theta) = dot(wi, wo) = -wo.z. A phase with a polarized form
+also has eval_pdf_mueller(mei, wo, n_channels) -> ([N, C, 4, 4] in the
+local implicit Stokes bases, pdf); the others depolarize
+(Scene.phase_eval_pdf_pol).
 
-Not yet ported: the Rayleigh phase and the Mueller rotation of phase
-matrices (the polarized slice), and the tabulated phase (it needs
-core/distr.py).
+Not yet ported: the tabulated (unpolarized) phase.
 """
 from __future__ import annotations
 
@@ -19,8 +21,33 @@ from dataclasses import dataclass
 import torch
 
 from ..core import warp
-from ..core.frame import coordinate_system, dot, normalize
+from ..core.frame import coordinate_system, cross, dot, normalize
 from ..core.math import INV_FOUR_PI
+from . import mueller as mu
+
+
+def rotate_phase_mueller(M, wo_hat, wi_hat):
+    """A phase matrix in the scattering-plane basis, rotated to the implicit
+    local Stokes bases of -wo_hat (in) and wi_hat (out): its reference
+    vector lies in the scattering plane, so collinear directions give NaN,
+    which is zeroed. M [N, C, 4, 4]; light arrives along -wo_hat and leaves
+    along +wi_hat, both [N, 3]."""
+    x_hat = cross(-wo_hat, wi_hat)
+    p_axis_in = normalize(cross(x_hat, -wo_hat))
+    p_axis_out = normalize(cross(x_hat, wi_hat))
+    out = mu.rotate_mueller_basis(
+        M,
+        -wo_hat[..., None, :], p_axis_in[..., None, :], mu.stokes_basis(-wo_hat)[..., None, :],
+        wi_hat[..., None, :], p_axis_out[..., None, :], mu.stokes_basis(wi_hat)[..., None, :],
+    )
+    return torch.nan_to_num(out)
+
+
+def local_wi(wo):
+    """The local incident direction (0, 0, -1), shaped like wo."""
+    wi = torch.zeros_like(wo)
+    wi[..., 2] = -1.0
+    return wi
 
 
 def _ones(wo, n_channels):
@@ -53,6 +80,43 @@ class HGPhase:
     def eval_pdf(self, mei, wo, n_channels):
         pdf = warp.square_to_hg_pdf(wo, self.g)
         return pdf[..., None].expand(pdf.shape + (n_channels,)), pdf
+
+
+@dataclass
+class RayleighPhase:
+    """Rayleigh scattering with the depolarization factor rho. Directions
+    are sampled from the rho = 0 shape, with the weight phase / pdf; the
+    polarized form is mueller.rayleigh_scatter."""
+
+    rho: torch.Tensor   # []
+
+    def _phase_value(self, cos_theta):
+        # 3/(16 pi) r1 (r2 + cos^2), M00 of rayleigh_scatter; integrates to 1
+        rho = self.rho
+        r1 = (1.0 - rho) / (1.0 + rho / 2.0)
+        r2 = (1.0 + rho) / (1.0 - rho)
+        return (3.0 / (16.0 * math.pi)) * r1 * (r2 + cos_theta * cos_theta)
+
+    def sample(self, mei, u1, u2, n_channels):
+        wo = warp.square_to_rayleigh(u2)
+        pdf = warp.square_to_rayleigh_pdf(wo)
+        w = (self._phase_value(wo[..., 2]) / torch.clamp(pdf, min=1e-12))[..., None]
+        return wo, w.expand(w.shape[:-1] + (n_channels,)), pdf
+
+    def eval_pdf(self, mei, wo, n_channels):
+        val = self._phase_value(wo[..., 2])
+        pdf = warp.square_to_rayleigh_pdf(wo)
+        return val[..., None].expand(val.shape + (n_channels,)), pdf
+
+    def eval_pdf_mueller(self, mei, wo, n_channels):
+        """The Mueller matrix in the local implicit bases; cos(theta) =
+        -dot(wo, wi) = wo.z with wi = (0, 0, -1)."""
+        cos_theta = wo[..., 2]
+        sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta ** 2, min=0.0))
+        M = mu.rayleigh_scatter(cos_theta, sin_theta, self.rho)
+        M = M[..., None, :, :].expand(M.shape[:-2] + (n_channels, 4, 4))
+        M = rotate_phase_mueller(M, wo, local_wi(wo))
+        return M, warp.square_to_rayleigh_pdf(wo)
 
 
 def _sggx_det(s6):

@@ -16,9 +16,12 @@ import torch
 from ..core import warp
 from ..core.frame import dot
 from ..core.math import INV_PI
+from . import mueller as mu
 from . import shapes as shapes_mod
-from .phase import sggx_projected_area
+from .phase import local_wi, sggx_projected_area
+from .phase_polarized import phase_eval_pdf_mueller
 from .bsdfs import DiffuseBSDF, NullBSDF
+from .spectrum_ops import depolarizer_weight, identity_weight
 from .records import BSDFSample, DirectionSample, PreliminaryIntersection, Ray, spawn_ray
 from .textures import ConstantTexture
 
@@ -53,9 +56,10 @@ class Scene:
     bbox_max: torch.Tensor = None   # [3]
     medium_phase: torch.Tensor = None   # [n_media] int64 phase index of each medium
     env_emitter: int = -1           # index of the environment emitter or -1
-    # the camera sits in vacuum, and only the unpolarized variant is ported
+    # Mueller throughput and Stokes radiance (the *_polarized variants)
+    polarized: bool = False
+    # the camera sits in vacuum
     camera_medium = -1
-    polarized = False
 
     # -- intersection -------------------------------------------------------
     def ray_intersect(self, ray: Ray, active=None):
@@ -114,7 +118,7 @@ class Scene:
         sel = torch.clamp((u0 * E).to(torch.int32), 0, E - 1)
         ds_out = w_out = None
         for i, em in enumerate(self.emitters):
-            ds_i, w_i = em.sample_direction(ref_p, u2, self.geometry, i)
+            ds_i, w_i = em.sample_direction(ref_p, u2, self.geometry, i, self.n_channels)
             m = sel == i
             if ds_out is None:
                 ds_out, w_out = ds_i, torch.where(m[..., None], w_i, 0.0)
@@ -175,17 +179,23 @@ class Scene:
         for i, em in enumerate(self.emitters):
             if em.is_environment or em.is_delta:
                 continue
-            out = torch.where((em_idx == i)[..., None], em.eval(si), out)
+            out = torch.where((em_idx == i)[..., None], em.eval(si, self.n_channels), out)
         return out
 
     def eval_emitter_sample(self, ds):
-        """Radiance value [N, 3] of the emitter recorded in each direction
+        """Radiance value [N, C] of the emitter recorded in each direction
         sample, without its geometric factors (1/dist^2, pdf): the PRB
         replay evaluates it attached and carries the rest of the NEE weight
         as a detached ratio."""
-        out = torch.zeros(ds.d.shape[0], self.n_channels, dtype=torch.float32, device=ds.d.device)
+        nc = self.n_channels
+        out = torch.zeros(ds.d.shape[0], nc, dtype=torch.float32, device=ds.d.device)
         for i, em in enumerate(self.emitters):
-            v = em.eval_escaped(ds.d) if em.is_environment else em.radiance.eval(ds.uv)
+            if em.is_environment:
+                v = em.eval_escaped(ds.d, nc)
+            elif hasattr(em, "radiance"):
+                v = em.radiance.eval(ds.uv, nc)
+            else:   # directional
+                v = em.irradiance.eval(ds.uv, nc)
             out = torch.where((ds.emitter_index == i)[..., None], v, out)
         return out
 
@@ -194,7 +204,7 @@ class Scene:
         if self.env_emitter < 0:
             return torch.zeros(d.shape[:-1] + (self.n_channels,), dtype=torch.float32,
                                device=d.device)
-        return self.emitters[self.env_emitter].eval_escaped(d)
+        return self.emitters[self.env_emitter].eval_escaped(d, self.n_channels)
 
     def pdf_emitter_direction_escaped(self, d):
         """NEE pdf of an escaped ray's direction on the environment emitter."""
@@ -220,13 +230,14 @@ class Scene:
         return idxs if len(idxs) >= 2 else ()
 
     def _fused_diffuse_refl(self, idxs, b_idx):
-        """(in_group mask [N], per-lane reflectance [N, 3]) of the fused group."""
+        """(in_group mask [N], per-lane reflectance [N, C]) of the fused group."""
         uv0 = torch.zeros(1, 2, dtype=torch.float32, device=b_idx.device)
         refl = torch.zeros(b_idx.shape + (self.n_channels,), dtype=torch.float32, device=b_idx.device)
         in_group = torch.zeros(b_idx.shape, dtype=torch.bool, device=b_idx.device)
         for i in idxs:
             hit = b_idx == i
-            refl = torch.where(hit[..., None], self.bsdfs[i].reflectance.eval(uv0)[0], refl)
+            refl = torch.where(hit[..., None],
+                               self.bsdfs[i].reflectance.eval(uv0, self.n_channels)[0], refl)
             in_group = in_group | hit
         return in_group, refl
 
@@ -252,7 +263,7 @@ class Scene:
             if i in fused:
                 continue
             m = (b_idx == i) & active
-            val = torch.where(m[..., None], b.eval(si, wo), val)
+            val = torch.where(m[..., None], b.eval(si, wo, self.n_channels), val)
             pdf = torch.where(m, b.pdf(si, wo), pdf)
         return val, pdf
 
@@ -285,7 +296,7 @@ class Scene:
             if i in fused:
                 continue
             m = (b_idx == i) & active
-            bs_i, w_i = b.sample(u_lobe, u2, si)
+            bs_i, w_i = b.sample(u_lobe, u2, si, self.n_channels)
             bs = BSDFSample(
                 wo=torch.where(m[..., None], bs_i.wo, bs.wo),
                 pdf=torch.where(m, bs_i.pdf, bs.pdf),
@@ -294,6 +305,72 @@ class Scene:
             )
             weight = torch.where(m[..., None], w_i, weight)
         return bs, weight
+
+    # -- polarized dispatch: Mueller weights in the world's implicit bases --
+    def bsdf_eval_pdf_pol(self, si, wo, active):
+        """Polarized eval: the world-frame Mueller weight [N, C, 4, 4] (f *
+        cos) and the pdf. A BSDF without a polarized eval depolarizes."""
+        n_lanes, nc = si.p.shape[0], self.n_channels
+        b_idx = self.bsdf_index_at(si)
+        M = torch.zeros(n_lanes, nc, 4, 4, dtype=torch.float32, device=si.p.device)
+        pdf = torch.zeros(n_lanes, dtype=torch.float32, device=si.p.device)
+        for i, b in enumerate(self.bsdfs):
+            if not b.flags_smooth:
+                continue
+            m = (b_idx == i) & active
+            M = torch.where(m[..., None, None, None],
+                            depolarizer_weight(b.eval(si, wo, nc)), M)
+            pdf = torch.where(m, b.pdf(si, wo), pdf)
+        M = mu.to_world_mueller(M, -wo, si.wi, si.sh_s, si.sh_t, si.sh_n)
+        return M, pdf
+
+    def bsdf_sample_pol(self, si, u_lobe, u2, active):
+        """Polarized sample: (BSDFSample, world-frame weight [N, C, 4, 4]).
+        A null BSDF passes the polarization on; the others depolarize."""
+        n_lanes, nc, dev = si.p.shape[0], self.n_channels, si.p.device
+        b_idx = self.bsdf_index_at(si)
+        bs = BSDFSample(
+            wo=_unit_z(n_lanes, dev),
+            pdf=torch.zeros(n_lanes, dtype=torch.float32, device=dev),
+            eta=torch.ones(n_lanes, dtype=torch.float32, device=dev),
+            delta=torch.zeros(n_lanes, dtype=torch.bool, device=dev),
+        )
+        M = torch.zeros(n_lanes, nc, 4, 4, dtype=torch.float32, device=dev)
+        for i, b in enumerate(self.bsdfs):
+            m = (b_idx == i) & active
+            bs_i, w_i = b.sample(u_lobe, u2, si, nc)
+            M_i = identity_weight(w_i) if isinstance(b, NullBSDF) else depolarizer_weight(w_i)
+            bs = BSDFSample(
+                wo=torch.where(m[..., None], bs_i.wo, bs.wo),
+                pdf=torch.where(m, bs_i.pdf, bs.pdf),
+                eta=torch.where(m, bs_i.eta, bs.eta),
+                delta=torch.where(m, bs_i.delta, bs.delta),
+            )
+            M = torch.where(m[..., None, None, None], M_i, M)
+        M = mu.to_world_mueller(M, -bs.wo, si.wi, si.sh_s, si.sh_t, si.sh_n)
+        return bs, M
+
+    def phase_eval_pdf_pol(self, phase_idx, mei, wo, active):
+        """Polarized phase eval: the world-frame Mueller matrix [N, C, 4, 4]
+        and the pdf toward local wo. A phase without a polarized form
+        depolarizes."""
+        n, nc, dev = phase_idx.shape[0], self.n_channels, phase_idx.device
+        M = torch.zeros(n, nc, 4, 4, dtype=torch.float32, device=dev)
+        pdf = torch.zeros(n, dtype=torch.float32, device=dev)
+        for i, ph in enumerate(self.phases):
+            m = (phase_idx == i) & active
+            M_i, p_i = phase_eval_pdf_mueller(ph, mei, wo, nc)
+            M = torch.where(m[..., None, None, None], M_i, M)
+            pdf = torch.where(m, p_i, pdf)
+        M = mu.to_world_mueller(M, -wo, local_wi(wo), mei.sh_s, mei.sh_t, mei.sh_n)
+        return M, pdf
+
+    def phase_sample_pol(self, phase_idx, mei, u1, u2, active):
+        """(wo local, world-frame weight M / pdf [N, C, 4, 4], pdf): the
+        unpolarized sample's direction, weighted by the Mueller matrix."""
+        wo, _, pdf = self.phase_sample(phase_idx, mei, u1, u2, active)
+        M, _ = self.phase_eval_pdf_pol(phase_idx, mei, wo, active)
+        return wo, M / torch.clamp(pdf, min=1e-12)[..., None, None, None], pdf
 
     # -- media ---------------------------------------------------------------
     @property

@@ -2,17 +2,23 @@
 of mitsuba_tpu/render/scene_loader.py).
 
 Accepted plugin types: ``scene``; the ``path``, ``prb``, ``prb_basic``
-and ``volpath`` integrators; the
-``perspective`` sensor with an ``independent`` sampler and an ``hdrfilm``
-with a ``gaussian``, ``box`` or ``tent`` filter; ``diffuse`` BSDFs with
-``rgb`` or scalar reflectance and the ``null`` BSDF of medium boundaries;
-``rectangle``, ``cube``, ``obj``, ``ply`` and raw-array ``mesh`` shapes,
-with an ``interior`` and ``exterior`` medium; ``homogeneous`` and
-``heterogeneous`` media (``constvolume``/``gridvolume`` fields, the
-``isotropic``, ``hg`` and ``sggx`` phase functions); ``area`` emitters and
-the ``constant`` environment emitter; ``ref`` to a named BSDF or medium.
-Any other type raises ``NotImplementedError``: it is not yet ported
-(``serialized`` and ``blender`` meshes among them).
+and ``volpath`` integrators; the ``perspective`` and ``radiancemeter``
+(with an optional ``wavelength``) sensors with an ``independent`` sampler
+and an ``hdrfilm`` with a ``gaussian``, ``box`` or ``tent`` filter;
+``diffuse`` BSDFs with ``rgb`` or scalar reflectance and the ``null`` BSDF
+of medium boundaries; ``rectangle``, ``cube``, ``obj``, ``ply`` and
+raw-array ``mesh`` shapes, with an ``interior`` and ``exterior`` medium;
+``homogeneous`` and ``heterogeneous`` media (``constvolume``/``gridvolume``
+fields, the ``isotropic``, ``hg``, ``sggx``, ``rayleigh``, ``mie`` (with a
+``monodisperse``, ``gamma``, ``lognormal`` or ``powerlaw`` size
+distribution), ``tabphase_polarized`` and ``blendphase`` phase functions);
+``area`` emitters, the ``constant`` environment emitter and the
+``directional`` sun; ``ref`` to a named BSDF or medium. Any other type
+raises ``NotImplementedError``: it is not yet ported (``serialized`` and
+``blender`` meshes among them).
+
+The scene takes the channel count and polarization of the current variant
+(``set_variant``): ``mono`` scenes carry one channel, ``rgb`` three.
 
 An ``obj`` or ``ply`` ``filename`` is an absolute path or one relative to
 the working directory: the reference's file-resolver search path is not
@@ -31,18 +37,21 @@ import torch
 from .. import native
 from ..core.transform import Transform, build_transform
 from .bsdfs import DiffuseBSDF, NullBSDF
-from .emitters import AreaEmitter, ConstantEmitter
+from ..variant import current_variant
+from .emitters import AreaEmitter, ConstantEmitter, DirectionalEmitter
 from .film import Film
 from .media import MEDIUM_TYPES, parse_medium
 from .scene import Scene
-from .sensors import PerspectiveCamera
+from .sensors import PerspectiveCamera, RadiancemeterSensor
 from . import shapes as SH
 from .textures import ConstantTexture
 
 SHAPE_TYPES = ("rectangle", "cube", "obj", "ply", "mesh")
 BSDF_TYPES = ("diffuse", "null")
-# the reference's environment and delta emitters; only "constant" is ported
+# the reference's environment and delta emitters; "constant" and
+# "directional" are ported
 EMITTER_TYPES = ("constant", "point", "directional", "envmap", "spot", "projector")
+SENSOR_TYPES = ("perspective", "radiancemeter")
 FILM_KEYS_NOT_PORTED = ("crop_offset_x", "crop_offset_y", "crop_width", "crop_height")
 
 
@@ -129,7 +138,7 @@ def parse_bsdf(spec, name, paths, device):
 
 def parse_sensor(spec, device):
     t = spec["type"]
-    if t != "perspective":
+    if t not in SENSOR_TYPES:
         raise _not_ported(f"sensor type {t!r}")
     film_spec = spec.get("film", {})
     if film_spec.get("type", "hdrfilm") != "hdrfilm":
@@ -146,6 +155,12 @@ def parse_sensor(spec, device):
     spp = int(sampler_spec.get("sample_count", 16))
     to_world = build_transform(spec.get("to_world", Transform.identity()))
     aspect = w / h
+    to_world_m = torch.from_numpy(np.asarray(to_world.m, np.float32)).to(device)
+    if t == "radiancemeter":
+        wl = float(spec.get("wavelength", -1.0))
+        return RadiancemeterSensor(
+            to_world_m=to_world_m, aspect=aspect,
+            wavelength=torch.tensor(wl, dtype=torch.float32, device=device)), film, spp
     fov = float(spec.get("fov", 45.0))
     fov_axis = spec.get("fov_axis", "x")
     tan_half = np.tan(np.deg2rad(fov) / 2)
@@ -155,7 +170,7 @@ def parse_sensor(spec, device):
     ):
         tan_half = tan_half * aspect
     cam = PerspectiveCamera(
-        to_world_m=torch.from_numpy(np.asarray(to_world.m, np.float32)).to(device),
+        to_world_m=to_world_m,
         tan_half_fov_x=torch.tensor(float(tan_half), dtype=torch.float32, device=device),
         aspect=aspect,
     )
@@ -248,10 +263,10 @@ def load_dict(d, device=None, intersector="smem"):
             continue
         if name == "integrator" or t in INTEGRATOR_TYPES:
             integrator_spec = spec
-        elif t == "perspective":
+        elif t in SENSOR_TYPES:
             sensor, film, spp = parse_sensor(spec, device)
         elif t in EMITTER_TYPES:
-            if t != "constant":
+            if t not in ("constant", "directional"):
                 raise _not_ported(f"emitter type {t!r}")
             env_specs.append((name, spec))
         elif t in SHAPE_TYPES:
@@ -277,7 +292,7 @@ def load_dict(d, device=None, intersector="smem"):
             raise _not_ported(f"scene entry {name!r} of plugin type {t!r}")
 
     if sensor is None:
-        raise _not_ported("a scene without a perspective sensor")
+        raise _not_ported("a scene without a perspective or radiancemeter sensor")
 
     geometry = SH.build_geometry(tri_meshes, device, intersector)
     for mesh, (v_start, v_count) in zip(tri_meshes, geometry.mesh_vertex_slices):
@@ -311,12 +326,21 @@ def load_dict(d, device=None, intersector="smem"):
         )
         shape_records[shape_index]["emitter"] = e_idx
     env_emitter = -1
+    scene_radius = torch.tensor(radius, dtype=torch.float32, device=device)
     for name, spec in env_specs:
+        e_idx = len(emitters)
+        if spec["type"] == "directional":
+            tex, leaf = parse_texture(spec.get("irradiance", 1.0), device)
+            dirn = np.asarray(spec.get("direction", [0, 0, -1]), np.float32)
+            emitters.append(DirectionalEmitter(
+                irradiance=tex, scene_radius=scene_radius,
+                direction=torch.from_numpy(dirn / np.linalg.norm(dirn)).to(device)))
+            param_paths.append((f"{name}.irradiance.{leaf}", ("emitters", e_idx, "irradiance", leaf)))
+            continue
         tex, leaf = parse_texture(spec.get("radiance", 1.0), device)
-        env_emitter = len(emitters)
-        emitters.append(ConstantEmitter(
-            radiance=tex, scene_radius=torch.tensor(radius, dtype=torch.float32, device=device)))
-        param_paths.append((f"{name}.radiance.{leaf}", ("emitters", env_emitter, "radiance", leaf)))
+        env_emitter = e_idx
+        emitters.append(ConstantEmitter(radiance=tex, scene_radius=scene_radius))
+        param_paths.append((f"{name}.radiance.{leaf}", ("emitters", e_idx, "radiance", leaf)))
 
     if not bsdf_list:
         bsdf_list.append(DiffuseBSDF(reflectance=parse_texture(0.5, device)[0]))
@@ -334,6 +358,7 @@ def load_dict(d, device=None, intersector="smem"):
     def dev(x, dtype=None):
         return torch.from_numpy(np.asarray(x, dtype)).to(device)
 
+    var = current_variant()
     return Scene(
         geometry=geometry,
         bsdfs=tuple(bsdf_list),
@@ -354,6 +379,8 @@ def load_dict(d, device=None, intersector="smem"):
         bbox_max=dev(bbox_max, np.float32),
         medium_phase=dev([m.phase_index for m in media_list], np.int64),
         env_emitter=env_emitter,
+        n_channels=var.n_channels,
+        polarized=var.polarized,
     )
 
 
@@ -567,4 +594,51 @@ def _vol_sensor(res, spp):
                       "up": [0, 1, 0]}],
         "film": {"type": "hdrfilm", "width": res, "height": res, "rfilter": {"type": "box"}},
         "sampler": {"type": "independent", "sample_count": spp},
+    }
+
+
+def atmo_scene(res=64, spp=64, max_depth=8):
+    """bench.py's polarized atmosphere (BASELINE config 4, the
+    atmo_msamples cell), for the mono_polarized variant: a directional sun
+    (irradiance 10, propagating along (0.3, 0, -1)) over a null slab (a cube
+    scaled 50 x 50 x 1) holding a homogeneous medium (sigma_t 0.1, albedo
+    0.95) whose phase blends Rayleigh (depolarization 0.03, weight 0.6) with
+    a Mie aerosol (550 nm, n 1.33, gamma size distribution a 600 nm, b 0.3,
+    radii 200-1500 nm over 24 Gauss points, baked on 128 cosines); a
+    radiancemeter at (-60, 0, 0) looking along +x, pinned to 550 nm, with a
+    res x res box film; volpath at max_depth."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "volpath", "max_depth": max_depth},
+        "sun": {"type": "directional", "direction": [0.3, 0, -1], "irradiance": 10.0},
+        "slab": {
+            "type": "cube",
+            "to_world": [{"type": "scale", "value": [50.0, 50.0, 1.0]}],
+            "bsdf": {"type": "null"},
+            "interior": {"type": "ref", "id": "atmo"},
+        },
+        "atmo": {
+            "type": "homogeneous", "sigma_t": 0.1, "albedo": 0.95,
+            "phase": {
+                "type": "blendphase", "weight": 0.4,
+                "rayleigh_part": {"type": "rayleigh", "depolarization": 0.03},
+                "aerosol": {
+                    "type": "mie", "wavelength": 550.0, "ior_sph": 1.33,
+                    "size_distr": {
+                        "type": "gamma", "a": 600.0, "b": 0.3,
+                        "min_radius": 200.0, "max_radius": 1500.0,
+                        "gauss_points": 24,
+                    },
+                    "bake_nodes": 128,
+                },
+            },
+        },
+        "sensor": {
+            "type": "radiancemeter", "wavelength": 550.0,
+            "to_world": [{"type": "look_at", "origin": [-60.0, 0.0, 0.0],
+                          "target": [1, 0, 0], "up": [0, 0, 1]}],
+            "film": {"type": "hdrfilm", "width": res, "height": res,
+                     "rfilter": {"type": "box"}},
+            "sampler": {"type": "independent", "sample_count": spp},
+        },
     }

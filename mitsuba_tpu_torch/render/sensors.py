@@ -1,7 +1,8 @@
-"""Perspective camera (counterpart of mitsuba_tpu/render/sensors.py).
+"""Sensors (counterpart of mitsuba_tpu/render/sensors.py): the perspective
+camera and the radiancemeter.
 
 ``sample_ray`` makes one camera ray per lane from a film-plane sample in
-[0,1]^2 (u right, v down: film row 0 is the top of the image). The camera
+[0,1]^2 (u right, v down: film row 0 is the top of the image). A sensor
 looks along +z of its to_world frame.
 """
 from __future__ import annotations
@@ -31,4 +32,22 @@ class PerspectiveCamera:
         o = self.to_world_m[:3, 3].expand(d_cam.shape)
         # d = d_cam @ R.T, written out so the summation order is fixed
         d = d_cam[..., 0:1] * R[:, 0] + d_cam[..., 1:2] * R[:, 1] + d_cam[..., 2:3] * R[:, 2]
+        return Ray.make(o, d)
+
+
+@dataclass
+class RadiancemeterSensor:
+    """A single-direction radiance probe: every film sample shares one ray
+    origin and direction. ``wavelength`` (<= 0: unset) pins the lanes'
+    wavelength in the spectral variants, which are not yet ported; in the
+    mono and rgb variants it changes nothing, as in the reference."""
+
+    to_world_m: torch.Tensor   # [4,4]
+    wavelength: torch.Tensor   # []
+    aspect: float = 1.0
+
+    def sample_ray(self, pos_sample, ap_sample=None):
+        n = pos_sample.shape[0]
+        o = self.to_world_m[:3, 3].expand(n, 3)
+        d = self.to_world_m[:3, 2].expand(n, 3)
         return Ray.make(o, d)

@@ -10,6 +10,11 @@ however spp is split.
 Everything runs on ``scene.device``: the card unless the scene was loaded
 with another device.
 
+Polarized variants carry Stokes radiance [N, C, 4] per lane; render_lanes
+rotates each lane's Stokes vector into the sensor's shared frame before
+lanes are summed. ``render`` returns [H, W, 4, C] for them and
+``render_1``, the radiometer render, [4, C].
+
 Gradients: with the ``path`` integrator, ``render`` is differentiable by
 ordinary autograd through the bounce loop (tape mode: every bounce's
 tensors stay alive until the backward pass). With ``prb`` or
@@ -24,7 +29,9 @@ import torch
 
 from .ad.render_ad import derive_seed_grad, prb_pass
 from .core.rng import MASK32, RNG
-from .render.film import accumulate, sample_filter_offset
+from .core.frame import cross, normalize
+from .render import mueller as mu
+from .render.film import accumulate, sample_filter_offset, stokes_major
 from .render.params import traverse
 
 
@@ -58,28 +65,60 @@ def wavefront_for(scene, seed, pix, sidx, spp_total, sensor_idx=0):
     return rng, ray, jitter
 
 
-def warn_invalid(L):
-    """Sanitize per-lane radiance [N, 3] before it reaches the film: NaN/inf
-    values are dropped and negative values clamped. Returns (L_clean,
-    stats) with the lane counts {'n_invalid', 'n_negative'} as tensors."""
+def warn_invalid(L, polarized=False):
+    """Sanitize per-lane radiance [N, C] (polarized: Stokes [N, C, 4])
+    before it reaches the film: NaN/inf values are dropped and negative
+    values clamped, for a Stokes vector in I only (Q, U and V are signed).
+    Returns (L_clean, stats) with the lane counts {'n_invalid',
+    'n_negative'} as tensors."""
     bad = ~torch.isfinite(L)
     neg = L < 0.0
-    n_invalid = torch.any(bad, dim=1).sum()
-    n_negative = torch.any(neg & ~bad, dim=1).sum()
+    if polarized:
+        neg[..., 1:] = False
+    lane_dims = tuple(range(1, L.ndim))
+    n_invalid = torch.any(bad, dim=lane_dims).sum()
+    n_negative = torch.any(neg & ~bad, dim=lane_dims).sum()
     L = torch.where(bad | neg, 0.0, L)
     return L, {"n_invalid": n_invalid, "n_negative": n_negative}
 
 
+def sensor_stokes_rotation(ray_d):
+    """Per-lane [N, 4, 4] rotation from the implicit Stokes basis of the
+    light arriving along -ray_d to the sensor's shared basis, perpendicular
+    to the vertical (+z) (Chowdhary et al. 2020)."""
+    fwd = -ray_d
+    current = mu.stokes_basis(fwd)
+    vertical = torch.zeros_like(fwd)
+    vertical[..., 2] = 1.0
+    tmp = cross(fwd, vertical)
+    is_vertical = torch.sum(tmp * tmp, dim=-1, keepdim=True) < 1e-24
+    fallback = torch.zeros_like(fwd)
+    fallback[..., 0] = 1.0
+    target = torch.where(is_vertical, fallback,
+                         cross(fwd, normalize(torch.where(is_vertical, fallback, tmp))))
+    return mu.rotate_stokes_basis(fwd, current, target)
+
+
+def to_sensor_mueller(ray_d, L):
+    """Per-lane Stokes vectors L [N, C, 4] rotated into the sensor's shared
+    frame, where Stokes vectors of different rays can be summed."""
+    R = sensor_stokes_rotation(ray_d)
+    return torch.einsum("nij,ncj->nci", R, L)
+
+
 def render_lanes(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx=0):
-    """Radiance [n, 3] of lanes [lane0, lane0 + n) of a pass, and the
-    pass's counters (n_rays, n_invalid, n_negative)."""
+    """Radiance [n, C] (polarized: [n, C, 4] in the sensor frame) of lanes
+    [lane0, lane0 + n) of a pass, and the pass's counters (n_rays,
+    n_invalid, n_negative)."""
     scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
     rng, ray, _ = make_wavefront(
         scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx
     )
     active = torch.ones(n, dtype=torch.bool, device=scene.device)
     L, aux = scene.integrator.sample(scene, rng, ray, active)
-    L, inv_stats = warn_invalid(L)
+    if scene.polarized:
+        L = to_sensor_mueller(ray.d, L)
+    L, inv_stats = warn_invalid(L, scene.polarized)
     return L, {**aux, **inv_stats}
 
 
@@ -90,8 +129,8 @@ WEIGHTED_FILTERS = ("mitchell", "catmullrom", "lanczos")
 
 def render(scene, params=None, sensor=0, seed=0, spp=None, spp_per_pass=None,
            seed_grad=None, spp_grad=None, stats=None):
-    """Render to an image tensor [H, W, 3] on scene.device (mirrors
-    mi.render). `params` may be a SceneParameters whose scene is rendered.
+    """Render to an image tensor [H, W, C] on scene.device ([H, W, 4, C]
+    Stokes in a polarized variant; mirrors mi.render). `params` may be a SceneParameters whose scene is rendered.
     An integrator with ``regenerate`` takes the regenerative loop: one
     lane per pixel, all spp in one pass (spp_per_pass has no effect), and
     `stats` also gets wavefront_iters, the loop's steps.
@@ -144,7 +183,24 @@ def render(scene, params=None, sensor=0, seed=0, spp=None, spp_per_pass=None,
                 totals[key] = totals.get(key, 0) + aux[key]
     if stats is not None:
         stats.update({k: int(v) for k, v in totals.items()})
-    return acc / spp
+    return stokes_major(acc / spp)
+
+
+def render_1(scene, params=None, sensor=0, seed=0, spp=None, stats=None):
+    """Radiometer render (mirrors mi.render_1): the mean of all film
+    samples of one pass of spp samples per pixel, [C], or the Stokes vector
+    [4, C] in a polarized variant. `stats` receives the pass's counters as
+    render's does."""
+    if params is not None and hasattr(params, "scene"):
+        scene = params.scene
+    if getattr(scene.integrator, "is_prb", False):
+        raise NotImplementedError("render_1 with a PRB integrator is not yet ported")
+    spp = spp or scene.spp
+    L, aux = render_lanes(scene, seed, 0, scene.film.n_pixels * spp, 0, spp, spp, sensor)
+    if stats is not None:
+        stats.update({k: int(v) for k, v in aux.items()})
+    m = torch.mean(L, dim=0)
+    return m.T if scene.polarized else m
 
 
 def _render_regen_pass(scene, seed, spp, sensor_idx):
@@ -153,7 +209,7 @@ def _render_regen_pass(scene, seed, spp, sensor_idx):
     wavefront_iters, n_invalid, n_negative)."""
     scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
     L_px, aux = scene.integrator.regen_render(scene, seed, spp, sensor_idx)
-    L_px, inv = warn_invalid(L_px)
+    L_px, inv = warn_invalid(L_px, scene.polarized)
     return L_px, {**aux, **inv}
 
 

@@ -347,3 +347,48 @@ def test_volpath_render_runs_through_k1(cuda, regenerate, monkeypatch):
     monkeypatch.setattr(K1, "smem_intersect", K1.tri_intersect_reference)
     plain = mt.render(scene, spp=4, seed=0)
     assert torch.equal(img, plain)
+
+
+# ---------------------------------------------------------------------------
+# the polarized atmosphere (BASELINE config 4)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def mono_polarized():
+    mt.set_variant("mono_polarized")
+    yield
+    mt.set_variant("rgb")
+
+
+@pytest.mark.gpu
+def test_mie_bake_on_the_card_equals_the_cpu(cuda, mono_polarized):
+    """Config 4's Mie phase baked on the card against the same bake on the
+    CPU (complex64 on both): M11, M12, M33 and M34 within rtol 1e-4 and
+    1e-6 of max|M11|, the tolerance of the CPU tests against the JAX
+    package's bake."""
+    from mitsuba_tpu_torch.render.media import parse_phase
+
+    spec = mt.atmo_scene()["atmo"]["phase"]["aerosol"]
+    card = parse_phase(spec, [], "aerosol", ("p",), cuda)
+    host = parse_phase(spec, [], "aerosol", ("p",), "cpu")
+    assert card.m11.device.type == "cuda"
+    scale = float(host.m11.abs().max())
+    for k in ("nodes", "m11", "m12", "m33", "m34"):
+        torch.testing.assert_close(getattr(card, k).cpu(), getattr(host, k), rtol=1e-4,
+                                   atol=1e-6 * scale)
+
+
+@pytest.mark.gpu
+def test_atmo_render_1_on_the_card_equals_the_cpu(cuda, mono_polarized):
+    """Config 4's render_1 at 8x8 @ 16 spp on the card (every closest hit
+    through K1) against the same render on the CPU: the same samples, so I
+    within rtol 1e-3 and Q/U/V within 1e-3 I."""
+    d = mt.atmo_scene(res=8, spp=16)
+    before = K1.smem_intersect.launches
+    got = mt.render_1(mt.load_dict(d), spp=16, seed=0)
+    assert K1.smem_intersect.launches > before
+    ref = mt.render_1(mt.load_dict(d, device="cpu"), spp=16, seed=0)
+    assert got.shape == (4, 1) and bool(torch.isfinite(got).all())
+    I = float(ref[0, 0])
+    assert float(got[0, 0]) == pytest.approx(I, rel=1e-3)
+    torch.testing.assert_close(got[1:].cpu(), ref[1:], rtol=0.0, atol=1e-3 * I)

@@ -170,7 +170,7 @@ def test_area_emitter_sample_direction_matches_jax():
     ref_p = (_u(4096, 3, 6) * 1.8 - 0.9).astype(np.float32)
     u2 = _u(4096, 2, 7)
     jds, jw = js.emitters[0].sample_direction(jnp.asarray(ref_p), jnp.asarray(u2), js.geometry, None, 3, 0)
-    tds, tw = ts.emitters[0].sample_direction(torch.from_numpy(ref_p), torch.from_numpy(u2), ts.geometry, 0)
+    tds, tw = ts.emitters[0].sample_direction(torch.from_numpy(ref_p), torch.from_numpy(u2), ts.geometry, 0, 3)
     for k in ("p", "n", "d", "dist", "pdf", "uv"):
         _close(getattr(tds, k), getattr(jds, k), atol=1e-6)
     _close(tw, jw, rtol=1e-5)
@@ -312,7 +312,7 @@ def test_unported_parts_raise():
     mt.set_variant("scalar_rgb")
     mt.set_variant("rgb")
     with pytest.raises(NotImplementedError):
-        mt.set_variant("llvm_ad_mono_polarized")
+        mt.set_variant("llvm_ad_spectral_polarized")
     d = _cbox()
     d["ball"] = {"type": "sphere", "radius": 0.2}
     with pytest.raises(NotImplementedError):

@@ -307,7 +307,7 @@ def test_constant_emitter_sample_direction_matches_jax():
     jds, jw = js.emitters[i].sample_direction(jnp.asarray(ref_p), jnp.asarray(u), js.geometry,
                                                None, 3, i)
     tds, tw = ts.emitters[i].sample_direction(torch.from_numpy(ref_p), torch.from_numpy(u),
-                                              ts.geometry, i)
+                                              ts.geometry, i, 3)
     for k in ("p", "n", "d", "dist", "pdf"):
         _close(getattr(tds, k), getattr(jds, k), atol=1e-6)
     _close(tw, jw)
@@ -392,7 +392,7 @@ def test_sigma_t_update_changes_image_as_jax(jax_renders):
 
 def test_volume_scene_refusals():
     d = het_vol_scene()
-    d["cloud"]["interior"]["phase"] = {"type": "rayleigh"}
+    d["cloud"]["interior"]["phase"] = {"type": "tabphase", "values": [1.0, 2.0]}
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
     d = het_vol_scene()
@@ -400,8 +400,13 @@ def test_volume_scene_refusals():
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
     d = het_vol_scene()
-    d["sun"] = {"type": "directional", "direction": [0, -1, 0]}
+    d["lamp"] = {"type": "point", "position": [0, 2, 0]}
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
-    with pytest.raises(NotImplementedError):
-        get_ops(True)
+    assert get_ops(True).polarized
+    mt.set_variant("mono_polarized")
+    try:
+        with pytest.raises(NotImplementedError):
+            mt.load_dict(het_vol_dict(res=W, spp=SPP, regenerate=True), device="cpu")
+    finally:
+        mt.set_variant("rgb")
