@@ -31,7 +31,18 @@ user entry points, and checks that each went through its kernels:
   (held against the same bake on the CPU): kernel K1 on every segment and
   NEE crossing of the null slab; the Stokes vector against the JAX
   package's, and every K1 launch of one pass against the plain version,
-  bitwise.
+  bitwise;
+- inverse radiative transfer, each a PRB gradient step timed (one warm-up
+  and two timed steps), its gradient against the JAX package's, every K1
+  launch of one step held bit for bit against the plain version, and a
+  reduced step through K1 against the same step through the plain
+  version: BASELINE config 5 (bench.py's aos scene: a rough-dielectric
+  ocean under a Rayleigh atmosphere and a directional sun), the gradient
+  of sum(render_1) at 32x32 @ 64 spp for the atmosphere's sigma_t through
+  prb_volpathaos in mono_polarized, with volpathaos's Stokes vector of the
+  same dict; the polarized atmosphere above through prb_polarized
+  (sigma_t and albedo); and the het-vol scene through prbvolpath (the
+  32^3 grid's sigma_t and the albedo of the image mean).
 
 Any failure raises and exits non-zero.
 
@@ -99,6 +110,52 @@ JAX_ATMO_STOKES = (0.5410645604133606, -0.36343690752983093, -1.172064003185369e
                    8.731047273613513e-06)
 ATMO_I_RTOL, ATMO_QUV_ATOL = 1e-3, 1e-3
 ATMO_RES, ATMO_SPP, ATMO_PASSES = 64, 64, 3
+# BASELINE config 5 and the two other inverse paths (PRB steps, the
+# gradient of one loss each). The JAX package's gradients (and the aos
+# primal's Stokes vector, which is volpathaos's render_1 at the same seed)
+# were computed once with mitsuba_tpu on the CPU
+# (XLA_FLAGS=--xla_backend_optimization_level=1), as
+#   jax.jit(jax.value_and_grad(loss, has_aux=True))(values)
+# with loss(values) = (sum or mean of the render, the render) of
+# mi.traverse(scene).update(dict(zip(keys, values))) at seed 0:
+# - aos: render/scene_loader.py:aos_scene() (bench.py:268-312's dict),
+#   mono_polarized, prb_volpathaos max_depth 4, sum(render_1(spp=64)),
+#   the gradient of atmo_medium.sigma_t.value.value, and the Stokes vector
+#   (91.3 s);
+JAX_AOS_GRAD = -0.19625383615493774
+JAX_AOS_STOKES = (0.44527584314346313, -0.005421748384833336, -0.00029123417334631085, 0.0)
+# - atmo: atmo_scene(64, 64) with prb (so prb_polarized) max_depth 8,
+#   mono_polarized, sum(render_1(spp=64)), the gradients of
+#   atmo.sigma_t.value.value and atmo.albedo.value.value (47.8 s);
+JAX_ATMO_PRB_GRAD = (0.6898428797721863, 0.3288531005382538)
+# - hetvol: het_vol_scene(96, 16) with prbvolpath (max_depth 12; its
+#   tracking budgets are the reference's defaults, 32 steps), rgb,
+#   mean(render(spp=16)), the gradients of the grid's
+#   cloud.interior_medium.sigma_t.data (its float64 sum, and its 8 voxels
+#   of largest |gradient|: flat index and value) and of
+#   cloud.interior_medium.albedo.value (28.2 s). The largest voxel is the
+#   grid's maximum, which sets the majorant (traverse().update() re-derives
+#   it from the data in both packages).
+JAX_HETVOL_GRID_SUM = -0.06630628709661401
+JAX_HETVOL_GRID_TOP = ((3119, -0.0004919688799418509), (22455, -6.546457734657452e-05),
+                       (30683, -5.7239292800659314e-05), (30817, -5.561613943427801e-05),
+                       (28571, -4.987575448467396e-05), (26305, -4.7096298658289015e-05),
+                       (27886, -4.6997840399853885e-05), (16702, -4.6054348786128685e-05))
+JAX_HETVOL_ALBEDO_GRAD = 0.8701326847076416
+# The card draws the same samples (the forward paths above agree with the
+# JAX package to ~1e-7): scalar gradients and the grid's sum within 1e-3
+# relative, the grid's largest voxels within 1e-2 (each sums few lanes),
+# the aos Stokes vector within 1e-3 (I relative; Q/U/V relative to I).
+PRB_VOL_GRAD_RTOL = 1e-3
+PRB_VOL_VOXEL_RTOL = 1e-2
+AOS_STOKES_TOL = 1e-3
+# the kernel route against the plain route on the card: the grid's
+# gradient (summed with atomics, in no fixed order) within 1e-5 of its L2
+# norm; everything else bitwise
+GRID_PLAIN_TOL = 1e-5
+AOS_RES, AOS_SPP = 32, 64
+HETVOL_PRB_RES, HETVOL_PRB_SPP = 96, 16
+PRB_VOL_STEPS = 2
 # the Mie bake on the card against the same bake on the CPU (complex64 on
 # both): the four tables within rtol 1e-4 and 1e-6 of max|M11|, the
 # tolerance of the CPU tests against the JAX package's bake
@@ -1502,6 +1559,277 @@ def phase_atmo(mi, K1, K2, K3):
                 k1_bitwise_vs_plain=bitwise)
 
 
+# ---------------------------------------------------------------------------
+# inverse radiative transfer: the volumetric PRB replays through K1
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def backward_marks(cls, K1, marks):
+    """Inside, K1's launch count is appended to `marks` as each call of
+    cls.sample_backward (the replay) begins and as it ends; the backward
+    pass's own primal launches before it."""
+    fn = cls.sample_backward
+
+    def wrapper(self, *args, **kw):
+        marks.append(K1.smem_intersect.launches)
+        out = fn(self, *args, **kw)
+        marks.append(K1.smem_intersect.launches)
+        return out
+
+    cls.sample_backward = wrapper
+    try:
+        yield
+    finally:
+        cls.sample_backward = fn
+
+
+def prb_vol_step(mi, scene, keys, loss, seed, K1=None):
+    """One gradient step of `loss` (a scalar of the render) for `keys`:
+    (loss, {key: gradient}, stats, wall seconds to a synchronise, and with
+    K1 its launches (forward, backward primal, replay))."""
+    params = mi.traverse(scene)
+    leaves = {k: params[k].clone().requires_grad_() for k in keys}
+    stats, marks = {}, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l0 = K1.smem_intersect.launches if K1 else 0
+    out = loss(mi, params.update(leaves), seed, stats)
+    l1 = K1.smem_intersect.launches if K1 else 0
+    with backward_marks(type(scene.integrator), K1, marks) if K1 else contextlib.nullcontext():
+        out.backward()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (l1 - l0, marks[0] - l1, marks[1] - marks[0]) if K1 else None
+    return out.detach(), {k: v.grad for k, v in leaves.items()}, stats, wall, counts
+
+
+def run_prb_vol(mi, K1, K2, K3, name, scene, keys, loss, lanes):
+    """A PRB phase's main path: one warm-up step and PRB_VOL_STEPS timed
+    ones at seed 0 (wall, rays, fwd+bwd Msamples/s as bench.py's 3 x lanes
+    / wall, K1 launches of the forward, the backward's primal and the
+    replay, peak memory), then one more step with every K1 launch held bit
+    for bit against the plain version on its own inputs."""
+    prb_vol_step(mi, scene, keys, loss, 1, K1)          # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(K1, K2, K3)
+    steps = []
+    for _ in range(PRB_VOL_STEPS):
+        with no_plain_closest_hit(K1, name):
+            out, grads, stats, wall, counts = prb_vol_step(mi, scene, keys, loss, 0, K1)
+        if not bool(torch.isfinite(out)) or not all(
+                bool(torch.isfinite(g).all()) and bool((g != 0).any()) for g in grads.values()):
+            raise AssertionError(f"{name}: loss {out.item()}, gradients not finite or all 0")
+        steps.append(dict(wall=wall, n_rays=stats["n_rays"], n_rays_grad=stats["n_rays_grad"],
+                          k1=counts, loss=out.item(), grads=grads))
+    launches = dict(K1=K1.smem_intersect.launches, K3=K3.mxu_intersect.launches,
+                    K2=K2.bvh_sweep_intersect.launches + K2.bvh_sweep_occluded.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if launches["K2"] or launches["K3"] or any(min(st["k1"]) == 0 for st in steps):
+        raise AssertionError(f"{name}: launches {launches}, K1 per step "
+                             f"{[st['k1'] for st in steps]}")
+    for i, st in enumerate(steps):
+        rays = st["n_rays"] + st["n_rays_grad"]
+        log(f"== main path: {name}, step {i}: {st['wall']:.4f} s wall, rays forward "
+            f"{st['n_rays']} + backward {st['n_rays_grad']} = {rays} "
+            f"({rays / st['wall'] / 1e6:.4f} Mrays/s fwd+bwd), "
+            f"{3 * lanes / st['wall'] / 1e6:.4f} Msamples/s fwd+bwd (bench.py's 3 x {lanes} "
+            f"lanes / wall); K1 launches forward / backward primal / replay {st['k1']}; "
+            f"loss {st['loss']!r}")
+    log(f"  {name}: {PRB_VOL_STEPS} steps, launches {launches}, peak memory {peak / 2**30:.3f} GiB")
+    held = []
+    with k1_held_to_plain(K1, held):
+        prb_vol_step(mi, scene, keys, loss, 0)
+    bitwise = k1_held_summary(f"{name} step", held)
+
+    def work_and_inputs(*args):
+        return k1_work(*args), [a.detach().clone() for a in args]
+
+    timed = []
+    with timed_launches(K1, "smem_intersect", work_and_inputs, timed):
+        prb_vol_step(mi, scene, keys, loss, 0)
+    per = [(start.elapsed_time(end), k1_bound_ms(w)) for start, end, (w, _) in timed]
+    k_ms = sum(m for m, _ in per)
+    b_ms = sum(b["ms"] for _, b in per)
+    inputs = [x for _, _, (_, x) in timed]
+    b2b_ms = time_cuda(lambda: [K1.smem_intersect(*x) for x in inputs], reps=5)
+    del inputs, timed
+    log(f"  {name}: one more step with events around each K1 launch: {len(per)} launches, "
+        f"{k_ms:.3f} ms in K1 in place ({k_ms / (min(st['wall'] for st in steps) * 1e3):.3%} of "
+        f"the fastest step's wall), {b2b_ms:.4f} ms for the same launches back to back; summed "
+        f"bound {b_ms:.4f} ms")
+    first = steps[0]
+    return dict(walls=[st["wall"] for st in steps], n_rays=first["n_rays"],
+                n_rays_grad=first["n_rays_grad"], lanes=lanes,
+                msamples=[3 * lanes / st["wall"] / 1e6 for st in steps],
+                mrays=[(st["n_rays"] + st["n_rays_grad"]) / st["wall"] / 1e6 for st in steps],
+                k1_forward=first["k1"][0], k1_backward_primal=first["k1"][1],
+                k1_replay=first["k1"][2], k1_per_step=sum(first["k1"]), peak=peak,
+                loss=first["loss"], grads=first["grads"], k1_bitwise_vs_plain=bitwise,
+                k1_step_ms=k_ms, k1_step_back_to_back_ms=b2b_ms, k1_step_bound_ms=b_ms)
+
+
+def prb_vol_plain_check(mi, K1, K2, K3, name, scene, keys, loss, grid_key=None):
+    """A reduced step through K1 and through K1's plain version, on the
+    card: the loss and every scalar gradient bitwise; a grid's gradient
+    (accumulated with atomics) within GRID_PLAIN_TOL of its L2 norm."""
+    out_k, g_k, _, _, _ = prb_vol_step(mi, scene, keys, loss, 0)
+    with plain_versions(K1, K2, K3):
+        out_p, g_p, _, _, _ = prb_vol_step(mi, scene, keys, loss, 0)
+    same = {k: bool(torch.equal(g_k[k], g_p[k])) for k in keys}
+    grid_rel = None
+    if grid_key is not None:
+        grid_rel = float((g_k[grid_key] - g_p[grid_key]).norm() / g_p[grid_key].norm())
+    log(f"== {name}, kernel vs plain route: loss bitwise {torch.equal(out_k, out_p)}, gradients "
+        f"bitwise {same}" + (f"; {grid_key} within {grid_rel:.3e} of its L2 norm (tolerance "
+                             f"{GRID_PLAIN_TOL})" if grid_key else ""))
+    if not torch.equal(out_k, out_p) or not all(v for k, v in same.items() if k != grid_key):
+        raise AssertionError(f"{name}: the kernel route differs from the plain route: {same}")
+    if grid_key is not None and not grid_rel <= GRID_PLAIN_TOL:
+        raise AssertionError(f"{name}: {grid_key} {grid_rel:.3e} of its norm from the plain route")
+    return dict(loss_bitwise=True, grads_bitwise=same, grid_rel_to_plain=grid_rel)
+
+
+def check_rel(name, got, want, rtol):
+    rel = abs(got - want) / abs(want)
+    log(f"  {name}: {got!r} against the JAX package's {want!r}: {rel:.3e} relative (rtol {rtol})")
+    if not rel <= rtol:
+        raise AssertionError(f"{name}: {got} vs JAX {want}")
+    return rel
+
+
+def render_1_sum(mi, scene, spp, seed, stats):
+    return mi.render_1(scene, spp=spp, seed=seed, stats=stats).sum()
+
+
+def phase_aos_prb(mi, K1, K2, K3):
+    """BASELINE config 5 (bench.py:268-312's dict): the gradient of
+    sum(render_1) at 32x32 @ 64 spp for the atmosphere's sigma_t, through
+    prb_volpathaos in mono_polarized, against the JAX package's; volpathaos
+    render_1 of the same dict against the JAX package's Stokes vector; an
+    8x8 @ 16 spp step through K1 against the plain route."""
+    from mitsuba_tpu_torch.render.scene_loader import aos_scene
+
+    key = "atmo_medium.sigma_t.value.value"
+    mi.set_variant("mono_polarized")
+    try:
+        def loss(mi, sc, seed, stats, spp=AOS_SPP):
+            return render_1_sum(mi, sc, spp, seed, stats)
+
+        scene = mi.load_dict(aos_scene(AOS_RES))
+        out = run_prb_vol(mi, K1, K2, K3, f"aos-prb (config 5) {AOS_RES}x{AOS_RES} @ {AOS_SPP} "
+                          "spp, prb_volpathaos max_depth 4", scene, [key], loss,
+                          AOS_RES * AOS_RES * AOS_SPP)
+        out["grad"] = float(out.pop("grads")[key])
+        out["grad_rel_err"] = check_rel("aos-prb d sum(render_1) / d sigma_t", out["grad"],
+                                        JAX_AOS_GRAD, PRB_VOL_GRAD_RTOL)
+        fwd = mi.load_dict(aos_scene(AOS_RES, integrator="volpathaos"))
+        render_1_timed(mi, fwd, AOS_SPP, 1)
+        stats = {}
+        with no_plain_closest_hit(K1, "aos volpathaos"):
+            stokes, wall = render_1_timed(mi, fwd, AOS_SPP, 0, stats)
+        if tuple(stokes.shape) != (4, 1) or not bool(torch.isfinite(stokes).all()):
+            raise AssertionError(f"aos volpathaos: Stokes vector {stokes.tolist()}")
+        I, Q, U, V = stokes[:, 0].tolist()
+        rel_i = abs(I - JAX_AOS_STOKES[0]) / JAX_AOS_STOKES[0]
+        quv = [abs(a - b) / I for a, b in zip((Q, U, V), JAX_AOS_STOKES[1:])]
+        log(f"== aos volpathaos render_1 {AOS_RES}x{AOS_RES} @ {AOS_SPP} spp: {wall:.4f} s wall, "
+            f"{stats['n_rays']} rays, Stokes {[I, Q, U, V]} against the JAX package's "
+            f"{JAX_AOS_STOKES}: I within {rel_i:.3e}, Q/U/V within "
+            f"{[f'{x:.3e}' for x in quv]} of I (tolerance {AOS_STOKES_TOL}); the PRB step's "
+            f"primal sum {out['loss']!r}")
+        if rel_i > AOS_STOKES_TOL or max(quv) > AOS_STOKES_TOL:
+            raise AssertionError(f"aos volpathaos: Stokes {[I, Q, U, V]} vs JAX {JAX_AOS_STOKES}")
+        out.update(stokes=[I, Q, U, V], stokes_rel_err_i=rel_i, stokes_err_quv_over_i=quv,
+                   forward_wall=wall)
+        small = mi.load_dict(aos_scene(8))
+        out["plain"] = prb_vol_plain_check(mi, K1, K2, K3, "aos-prb 8x8 @ 16 spp", small, [key],
+                                           lambda mi, sc, seed, st: loss(mi, sc, seed, st, 16))
+    finally:
+        mi.set_variant("rgb")
+    return out
+
+
+def phase_atmo_prb(mi, K1, K2, K3):
+    """The polarized atmosphere (config 4's scene) inverted: prb, routed to
+    prb_polarized, max_depth 8, the gradient of sum(render_1) at 64x64 @ 64
+    spp for the slab medium's sigma_t and albedo, against the JAX
+    package's; a 16x16 @ 16 spp step through K1 against the plain route."""
+    from mitsuba_tpu_torch.ad.prb_polarized import PRBPolarizedVolpathIntegrator
+    from mitsuba_tpu_torch.render.scene_loader import atmo_scene
+
+    keys = ["atmo.sigma_t.value.value", "atmo.albedo.value.value"]
+    mi.set_variant("mono_polarized")
+    try:
+        def prb_atmo(res, spp):
+            d = atmo_scene(res, spp)
+            d["integrator"]["type"] = "prb"
+            return mi.load_dict(d)
+
+        def loss(mi, sc, seed, stats, spp=ATMO_SPP):
+            return render_1_sum(mi, sc, spp, seed, stats)
+
+        scene = prb_atmo(ATMO_RES, ATMO_SPP)
+        if type(scene.integrator) is not PRBPolarizedVolpathIntegrator:
+            raise AssertionError(f"atmo-prb: prb routed to {type(scene.integrator).__name__}")
+        out = run_prb_vol(mi, K1, K2, K3, f"atmo-prb {ATMO_RES}x{ATMO_RES} @ {ATMO_SPP} spp, "
+                          "prb_polarized max_depth 8", scene, keys, loss,
+                          ATMO_RES * ATMO_RES * ATMO_SPP)
+        grads = out.pop("grads")
+        out["grads"] = {k: float(grads[k]) for k in keys}
+        out["grad_rel_err"] = {k: check_rel(f"atmo-prb d sum(render_1) / d {k}", out["grads"][k],
+                                            want, PRB_VOL_GRAD_RTOL)
+                               for k, want in zip(keys, JAX_ATMO_PRB_GRAD)}
+        out["plain"] = prb_vol_plain_check(mi, K1, K2, K3, "atmo-prb 16x16 @ 16 spp",
+                                           prb_atmo(16, 16), keys,
+                                           lambda mi, sc, seed, st: loss(mi, sc, seed, st, 16))
+    finally:
+        mi.set_variant("rgb")
+    return out
+
+
+def phase_hetvol_prb(mi, K1, K2, K3):
+    """The cloud-extinction half of config 5: het_vol_scene (96x96 @ 16
+    spp, the 32^3 grid) with prbvolpath max_depth 12, the gradient of the
+    image mean for the grid's sigma_t and the albedo; the grid's gradient
+    sum and largest voxels and the albedo's against the JAX package's; a
+    16x16 @ 4 spp step through K1 against the plain route."""
+    from mitsuba_tpu_torch.render.scene_loader import het_vol_scene
+
+    grid_key = "cloud.interior_medium.sigma_t.data"
+    albedo_key = "cloud.interior_medium.albedo.value"
+    keys = [grid_key, albedo_key]
+
+    def prb_het(res, spp):
+        d = het_vol_scene(res=res, spp=spp)
+        d["integrator"]["type"] = "prbvolpath"
+        return mi.load_dict(d)
+
+    def loss(mi, sc, seed, stats, spp=HETVOL_PRB_SPP):
+        return mi.render(sc, spp=spp, seed=seed, stats=stats).mean()
+
+    res = HETVOL_PRB_RES
+    scene = prb_het(res, HETVOL_PRB_SPP)
+    out = run_prb_vol(mi, K1, K2, K3, f"hetvol-prb {res}x{res} @ {HETVOL_PRB_SPP} spp, "
+                      "prbvolpath max_depth 12", scene, keys, loss, res * res * HETVOL_PRB_SPP)
+    grads = out.pop("grads")
+    g = grads[grid_key].reshape(-1).double()
+    top_idx = [i for i, _ in JAX_HETVOL_GRID_TOP]
+    out["grid_sum"] = float(g.sum())
+    out["grid_top"] = g[top_idx].tolist()
+    out["albedo_grad"] = float(grads[albedo_key])
+    out["grid_sum_rel_err"] = check_rel("hetvol-prb grid gradient sum", out["grid_sum"],
+                                        JAX_HETVOL_GRID_SUM, PRB_VOL_GRAD_RTOL)
+    out["grid_top_rel_err"] = [check_rel(f"hetvol-prb grid gradient at voxel {i}", got, want,
+                                         PRB_VOL_VOXEL_RTOL)
+                               for (i, want), got in zip(JAX_HETVOL_GRID_TOP, out["grid_top"])]
+    out["albedo_rel_err"] = check_rel("hetvol-prb albedo gradient", out["albedo_grad"],
+                                      JAX_HETVOL_ALBEDO_GRAD, PRB_VOL_GRAD_RTOL)
+    out["plain"] = prb_vol_plain_check(mi, K1, K2, K3, "hetvol-prb 16x16 @ 4 spp", prb_het(16, 4),
+                                       keys, lambda mi, sc, seed, st: loss(mi, sc, seed, st, 4),
+                                       grid_key=grid_key)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one card", file=sys.stderr)
@@ -1545,6 +1873,12 @@ def main():
     vol32 = phase_vol32(mi, K1, K2, K3)
     torch.cuda.empty_cache()
     atmo = phase_atmo(mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    aos_prb = phase_aos_prb(mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    atmo_prb = phase_atmo_prb(mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    hetvol_prb = phase_hetvol_prb(mi, K1, K2, K3)
 
     per_path = f"{PRB_ITERS} iterations"
     k1_entry["launches"] = cbox_launches
@@ -1556,7 +1890,10 @@ def main():
                                     "het-vol regenerate render": hetvol["k1_regen"],
                                     "vol32 wavefront render": vol32["k1_std"],
                                     "vol32 regenerate render": vol32["k1_regen"],
-                                    "atmo pass 64x64 @ 64 spp": atmo["k1_per_pass"][0]}
+                                    "atmo pass 64x64 @ 64 spp": atmo["k1_per_pass"][0],
+                                    "aos-prb step 32x32 @ 64 spp": aos_prb["k1_per_step"],
+                                    "atmo-prb step 64x64 @ 64 spp": atmo_prb["k1_per_step"],
+                                    "hetvol-prb step 96x96 @ 16 spp": hetvol_prb["k1_per_step"]}
     k1_entry.update(step_k1)
     k1_entry.update(hetvol_pass_launches=hetvol["k1_pass_launches"],
                     hetvol_pass_ms=hetvol["k1_pass_ms"],
@@ -1568,7 +1905,19 @@ def main():
                     atmo_pass_ms=atmo["k1_pass_ms"],
                     atmo_pass_back_to_back_ms=atmo["k1_pass_back_to_back_ms"],
                     atmo_pass_bound_ms=atmo["k1_pass_bound_ms"],
-                    atmo_bitwise_vs_plain=atmo["k1_bitwise_vs_plain"])
+                    atmo_bitwise_vs_plain=atmo["k1_bitwise_vs_plain"],
+                    **{f"{name}_step_launches": {"forward": r["k1_forward"],
+                                                 "backward_primal": r["k1_backward_primal"],
+                                                 "replay": r["k1_replay"]}
+                       for name, r in (("aos_prb", aos_prb), ("atmo_prb", atmo_prb),
+                                       ("hetvol_prb", hetvol_prb))},
+                    **{f"{name}_{k}": r[f"k1_{k}"]
+                       for name, r in (("aos_prb", aos_prb), ("atmo_prb", atmo_prb),
+                                       ("hetvol_prb", hetvol_prb))
+                       for k in ("step_ms", "step_back_to_back_ms", "step_bound_ms")},
+                    **{f"{name}_bitwise_vs_plain": r["k1_bitwise_vs_plain"]
+                       for name, r in (("aos_prb", aos_prb), ("atmo_prb", atmo_prb),
+                                       ("hetvol_prb", hetvol_prb))})
     k3_entry.update(step_k3)
     k3_entry["launches"] = l_mma["K3"]
     k3_entry["launches_by_path"] = {f"cbox prb, K3 route, {per_path}": l_mma["K3"],
@@ -1589,7 +1938,10 @@ def main():
     ], "prb": {k: v for k, v in prb.items()},
         "hetvol": hetvol,
         "vol32": vol32,
-        "atmo": atmo}
+        "atmo": atmo,
+        "aos_prb": aos_prb,
+        "atmo_prb": atmo_prb,
+        "hetvol_prb": hetvol_prb}
     log(f"== chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(report))

@@ -18,7 +18,14 @@ The polarized Rayleigh + Mie atmosphere (BASELINE config 4) as a radiometer:
     stokes = mi.render_1(mi.load_dict(mi.atmo_scene()), spp=64)   # [4, 1]
 
 Gradients: write a parameter that requires grad and call backward, through
-the path integrator's tape or the PRB integrators' replay:
+the path integrator's tape or the PRB integrators' replay; BASELINE config
+5's retrieval gradient, the atmosphere's extinction seen through a rough
+ocean surface:
+
+    mi.set_variant("mono_polarized")
+    params = mi.traverse(mi.load_dict(mi.aos_scene()))       # prb_volpathaos
+    v = params["atmo_medium.sigma_t.value.value"].clone().requires_grad_()
+    mi.render_1(params.update({"atmo_medium.sigma_t.value.value": v}), spp=64).sum().backward()
 
     params = mi.traverse(scene)
     v = params["white.reflectance.value"].clone().requires_grad_()
@@ -27,7 +34,7 @@ the path integrator's tape or the PRB integrators' replay:
 from .variant import set_variant, variant, variants, current_variant, Variant
 from .core.rng import RNG
 from .core.transform import Transform, build_transform
-from .render.scene_loader import load_dict, cornell_box, atmo_scene
+from .render.scene_loader import load_dict, cornell_box, atmo_scene, aos_scene
 from .render.params import traverse, SceneParameters
 from .render_api import render, render_1, render_forward
 from . import ad

@@ -21,8 +21,9 @@ not a tape through the bounce loop. The path itself (intersections, NEE
 shadow rays, BSDF sampling, Russian roulette) advances detached, exactly as
 the primal does.
 
-Not ported yet: ``regen_backward`` (path regeneration, with the volume
-slice).
+The volumetric replays (prbvolpath, prb_polarized, prb_volpathaos) are
+ad/prbvolpath.py's. Not ported yet: ``regen_backward``, the regenerative
+replay of path regeneration, for this integrator and the volumetric ones.
 """
 from __future__ import annotations
 
@@ -74,6 +75,15 @@ def attach_scene(scene, leaves):
     fresh = {id(x): x.detach().requires_grad_() for x in leaves}
     scene_att = map_tensors(scene, lambda x: fresh.get(id(x), x.detach()))
     return scene_att, [fresh[id(x)] for x in leaves]
+
+
+def vjp_into(grads, objective, att):
+    """grads += d objective / d att, one autograd.grad (nothing where the
+    objective does not depend on att)."""
+    if objective.requires_grad:
+        for g, ct in zip(grads, torch.autograd.grad(objective, att, allow_unused=True)):
+            if ct is not None:
+                g += ct
 
 
 @dataclass
@@ -199,11 +209,7 @@ class PRBIntegrator(PathIntegrator):
                 )
             bsdf_val_a, _ = scene_att.bsdf_eval_pdf(si, bs.wo, active_next)
             Lo = Lo + torch.where(active_next[..., None], L_next * bsdf_val_a * inv_det, 0.0)
-            objective = (dL * Lo).sum()
-            if objective.requires_grad:
-                for g, ct in zip(grads, torch.autograd.grad(objective, att, allow_unused=True)):
-                    if ct is not None:
-                        g += ct
+            vjp_into(grads, (dL * Lo).sum(), att)
 
         # ---- advance the detached path exactly as the primal does ----
         new_ray = spawn_ray(si.p, si.n, si.to_world(bs.wo))

@@ -1,11 +1,18 @@
 """The PRB render pass as an autograd node (counterpart of
-mitsuba_tpu/ad/render_ad.py, RGB only).
+mitsuba_tpu/ad/render_ad.py).
 
 The per-lane render pass is the boundary: its inputs are the scene's float
 parameter tensors that require grad. Its backward runs its own primal pass
 and the replay, both seeded with ``seed_grad``, which must differ from the
 primal's seed: correlated primal and gradient samples bias the gradient of
 any loss that is not linear in the image.
+
+The measurement conversion lives inside the node: in a polarized variant
+each lane's Stokes vector is rotated into the sensor frame
+(to_sensor_mueller, the ray direction detached), so the incoming cotangent
+is the sensor-frame Stokes adjoint, and the backward pulls it back through
+the same rotation at the backward pass's own lanes before the replay. The
+spectral contraction waits for the spectral variants.
 
 Under filter importance sampling a lane's pixel is lane // spp, so the
 incoming cotangent dL is a per-pixel film adjoint that does not depend on
@@ -14,9 +21,8 @@ pass's fresh lanes. With ``spp_grad`` the backward pass takes its own sample
 count: the per-lane adjoint is refolded to it, which is exact for these
 mean-develop films.
 
-Not ported: the spectral and polarized measurement conversions of
-``_postprocess`` and the regenerative ``prb_regen_px`` (with the volume and
-polarized slices).
+Not ported: the regenerative ``prb_regen_px`` (with the regenerative
+replay).
 """
 from __future__ import annotations
 
@@ -26,9 +32,34 @@ from ..core.rng import MASK32, sample_tea_32
 from .prb import detach_scene, grad_leaves
 
 
+def _postprocess(scene, L, ray_d, raw=False):
+    """The per-lane measurement: polarized, the Stokes vectors [n, C, 4] in
+    the sensor frame; otherwise L. With raw (render_1) a spectral
+    contraction would be skipped; none is ported yet."""
+    if scene.polarized and L.ndim == 3:
+        from ..render_api import to_sensor_mueller
+
+        return to_sensor_mueller(ray_d.detach(), L)
+    if scene.n_channels not in (1, 3):
+        raise NotImplementedError("the spectral measurement (the spectral variants) is not "
+                                  "yet ported")
+    return L
+
+
+def _postprocess_adjoint(scene, dL, ray_d):
+    """The adjoint of _postprocess at the lanes of ray_d: the rotation's
+    transpose (it is orthogonal per lane), or dL itself."""
+    if scene.polarized and dL.ndim == 3:
+        from ..render_api import sensor_stokes_rotation
+
+        return torch.einsum("nij,nci->ncj", sensor_stokes_rotation(ray_d), dL)
+    return dL
+
+
 def _primal(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx):
-    """(rng, ray, L [n, 3], aux) of one detached primal pass over lanes
-    [lane0, lane0 + n)."""
+    """(rng, ray, L, aux) of one detached primal pass over lanes
+    [lane0, lane0 + n): L is [n, C], or Stokes [n, C, 4] in the frame of
+    each lane's path."""
     from ..render_api import make_wavefront
 
     with torch.no_grad():
@@ -40,17 +71,18 @@ def _primal(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx):
 
 
 class PRBPassLanes(torch.autograd.Function):
-    """Radiance [n, 3] of a pass's lanes, with PRB gradients for the scene
-    tensors given as inputs. `args` holds everything else."""
+    """Measurement [n, C] (polarized: sensor-frame Stokes [n, C, 4]) of a
+    pass's lanes, with PRB gradients for the scene tensors given as inputs.
+    `args` holds everything else."""
 
     @staticmethod
     def forward(ctx, args, *leaves):
-        _, _, L, aux = _primal(args["scene"], args["seed"], args["lane0"], args["n"],
-                               args["pass_base"], args["spp_pass"], args["spp_total"],
-                               args["sensor_idx"])
+        _, ray, L, aux = _primal(args["scene"], args["seed"], args["lane0"], args["n"],
+                                 args["pass_base"], args["spp_pass"], args["spp_total"],
+                                 args["sensor_idx"])
         args["aux"] = aux
         ctx.args, ctx.leaves = args, leaves
-        return L
+        return _postprocess(args["scene"], L, ray.d, args["raw"])
 
     @staticmethod
     def backward(ctx, dL):
@@ -64,7 +96,7 @@ class PRBPassLanes(torch.autograd.Function):
             # its lanes' sum and each of its spp_grad fresh lanes takes
             # A_px / spp_grad
             pixels = n // spp_pass
-            dL_px = dL.reshape(pixels, spp_pass, dL.shape[-1]).sum(dim=1)
+            dL_px = dL.reshape((pixels, spp_pass) + dL.shape[1:]).sum(dim=1)
             dL = torch.repeat_interleave(dL_px * (spp_total / (spp_pass * spp_grad)), spp_grad, 0)
             n = pixels * spp_grad
             lane0 = (lane0 // spp_pass) * spp_grad
@@ -73,7 +105,7 @@ class PRBPassLanes(torch.autograd.Function):
                                    spp_total, a["sensor_idx"])
         active = torch.ones(n, dtype=torch.bool, device=scene.device)
         grads, n_replay = a["scene"].integrator.sample_backward(
-            a["scene"], ctx.leaves, rng, ray, dL, L, active
+            a["scene"], ctx.leaves, rng, ray, _postprocess_adjoint(scene, dL, ray.d), L, active
         )
         stats = a["stats"]
         if stats is not None:
@@ -83,16 +115,18 @@ class PRBPassLanes(torch.autograd.Function):
 
 
 def prb_pass_lanes(scene, seed, seed_grad, lane0, n, pass_base, spp_pass, spp_total,
-                   sensor_idx=0, spp_grad=None, stats=None):
-    """(radiance [n, 3] of lanes [lane0, lane0 + n), {"n_rays": rays cast})
-    with PRB gradients for the scene's parameter tensors that require grad.
+                   sensor_idx=0, spp_grad=None, stats=None, raw=False):
+    """(measurement [n, C] (polarized: [n, C, 4]) of lanes [lane0, lane0 +
+    n), {"n_rays": rays cast}) with PRB gradients for the scene's parameter
+    tensors that require grad. `raw` is render_1's form (no spectral
+    contraction).
     `seed_grad` seeds the backward pass's primal and replay; `spp_grad` sets
     its sample count (None or spp_pass: the forward's lanes). When `stats`
     is a dict, the backward pass adds the rays it casts (its primal and the
     replay) to stats["n_rays_grad"]."""
     args = dict(scene=scene, seed=seed, seed_grad=seed_grad, lane0=lane0, n=n,
                 pass_base=pass_base, spp_pass=spp_pass, spp_total=spp_total,
-                sensor_idx=sensor_idx, spp_grad=spp_grad, stats=stats)
+                sensor_idx=sensor_idx, spp_grad=spp_grad, stats=stats, raw=raw)
     L = PRBPassLanes.apply(args, *grad_leaves(scene))
     return L, args["aux"]
 
@@ -112,7 +146,7 @@ def derive_seed_grad(seed, seed_grad=None):
 
 
 def prb_pass(scene, seed, seed_grad, pass_base, spp_pass, spp_total, sensor_idx=0,
-             spp_grad=None, stats=None):
+             spp_grad=None, stats=None, raw=False):
     """prb_pass_lanes over every lane of one pass of the film."""
     return prb_pass_lanes(scene, seed, seed_grad, 0, scene.film.n_pixels * spp_pass,
-                          pass_base, spp_pass, spp_total, sensor_idx, spp_grad, stats)
+                          pass_base, spp_pass, spp_total, sensor_idx, spp_grad, stats, raw)

@@ -1,35 +1,50 @@
 """Integrator construction from a scene-dict spec (counterpart of
-mitsuba_tpu/integrators/__init__.py): ``path``, ``prb``, ``prb_basic`` and
-``volpath``. Any other type raises ``NotImplementedError``: it is not yet
-ported. ``regenerate`` is taken by ``path`` and ``volpath`` (forward
-renders); the PRB integrators refuse it until their regenerative backward
-replay is ported.
+mitsuba_tpu/integrators/__init__.py): ``path``, ``prb``, ``prb_basic``,
+``volpath``, ``prbvolpath`` (alias ``prb_unpolarized``), ``prb_polarized``,
+``volpathaos`` and ``prb_volpathaos``. Any other type raises
+``NotImplementedError``: it is not yet ported.
 
-In a polarized variant, ``path`` is ``volpath`` (as in the reference, the
+As in the reference, in a polarized variant ``path`` is ``volpath`` (the
 volumetric integrator carries the Mueller transport of surface scenes
-too); the polarized PRB integrators and polarized path regeneration are
-not yet ported."""
+too), and ``prb``, ``prb_basic`` and ``prbvolpath`` are the Mueller replay
+``prb_polarized``, which an unpolarized variant refuses with a
+``ValueError``. The volumetric PRB integrators take only ``max_depth``,
+``rr_depth`` and ``hide_emitters`` from the spec, as the reference's do.
+
+``regenerate`` is taken by the forward integrators ``path``, ``volpath``
+and ``volpathaos`` in the unpolarized variants. The PRB integrators refuse
+it until their regenerative backward replay is ported, and a polarized
+variant refuses it until the Stokes rotation at each path's flush is."""
 from __future__ import annotations
 
 from ..variant import current_variant
+
+TYPES = ("path", "prb", "prb_basic", "volpath", "prbvolpath", "prb_unpolarized",
+         "prb_polarized", "volpathaos", "prb_volpathaos")
 
 
 def make_integrator(spec):
     if not isinstance(spec, dict):
         raise ValueError("integrator spec must be a dict")
     t = spec.get("type", "path")
-    if t not in ("path", "prb", "prb_basic", "volpath"):
+    if t not in TYPES:
         raise NotImplementedError(f"integrator {t!r} is not yet ported")
     regenerate = bool(spec.get("regenerate", False))
-    if current_variant().polarized:
-        if t != "path" and t != "volpath":
-            raise NotImplementedError(
-                f"{t!r} in a polarized variant (the reference's prb_polarized) is not yet ported")
-        if regenerate:
-            raise NotImplementedError(
-                "regenerate in a polarized variant (the Stokes rotation at each path's "
-                "flush) is not yet ported; it is queued after the polarized forward slice")
+    polarized = current_variant().polarized
+    if polarized and t == "path":
         t = "volpath"
+    if polarized and t in ("prb", "prb_basic", "prbvolpath"):
+        t = "prb_polarized"
+    if t == "prb_polarized" and not polarized:
+        raise ValueError("prb_polarized requires a *_polarized variant")
+    if regenerate and polarized:
+        raise NotImplementedError(
+            "regenerate in a polarized variant (the Stokes rotation at each path's "
+            "flush) is not yet ported")
+    if regenerate and t not in ("path", "volpath", "volpathaos"):
+        raise NotImplementedError(
+            "regenerate with a PRB integrator (its regenerative backward replay) "
+            "is not yet ported")
     kw = dict(
         max_depth=int(spec.get("max_depth", 8)),
         rr_depth=int(spec.get("rr_depth", 5)),
@@ -46,15 +61,27 @@ def make_integrator(spec):
             nee_steps=int(spec.get("nee_steps", 32)),
             regenerate=regenerate,
         )
+    if t == "volpathaos":
+        from .volpathaos import VolPathAOSIntegrator
+
+        return VolPathAOSIntegrator(**kw, regenerate=regenerate)
+    if t in ("prbvolpath", "prb_unpolarized"):
+        from ..ad.prbvolpath import PRBVolpathIntegrator
+
+        return PRBVolpathIntegrator(**kw)
+    if t == "prb_polarized":
+        from ..ad.prb_polarized import PRBPolarizedVolpathIntegrator
+
+        return PRBPolarizedVolpathIntegrator(**kw)
+    if t == "prb_volpathaos":
+        from ..ad.prb_volpathaos import PRBVolpathAOSIntegrator
+
+        return PRBVolpathAOSIntegrator(**kw)
     kw["defer_nee"] = bool(spec.get("defer_nee", True))
     if t == "path":
         from .path import PathIntegrator
 
         return PathIntegrator(**kw, regenerate=regenerate)
-    if regenerate:
-        raise NotImplementedError(
-            "regenerate with a PRB integrator (its regenerative backward replay) "
-            "is not yet ported")
     from ..ad.prb import PRBIntegrator
 
     # prb_basic is the pure BSDF-sampling estimator: no NEE, no MIS

@@ -211,6 +211,129 @@ def estimate_transmittance(scene, p0, ds, medium_idx0, channel, rng, active,
     return torch.where(active[..., None], T, 0.0), rng
 
 
+def segment_events(scene, s, si, reached_end, real, t_real, max_depth):
+    """What ended each lane's tracked segment: a dict of the surface
+    interaction, the medium interaction at a real collision (mei, p_med,
+    phase_idx) and the event masks."""
+    active, ray_o, ray_d, medium = s["active"], s["ray_o"], s["ray_d"], s["medium"]
+    surface_event = active & reached_end & si.is_valid
+    p_med = ray_o + t_real[..., None] * ray_d
+    depth_ok = s["depth"] + 1 < max_depth
+    is_null_surf = scene.is_null_bsdf(si)
+    return dict(
+        si=si, real=real, p_med=p_med, depth_ok=depth_ok, is_null_surf=is_null_surf,
+        mei=MediumInteraction.make(torch.where(real, t_real, float("inf")), p_med, ray_d, medium),
+        phase_idx=scene.medium_phase_of(medium),
+        surface_event=surface_event,
+        escaped=active & reached_end & ~si.is_valid,
+        null_cross=surface_event & is_null_surf,        # no depth count
+        scatter_surf=surface_event & ~is_null_surf & depth_ok,
+        scatter_med=real & depth_ok,
+    )
+
+
+def nee_setup(scene, s, ev, u0, u2a):
+    """A segment's NEE up to its shadow ray: (nee_active, the reference
+    point, the emitter's direction sample and weight, the shadow ray's
+    medium and origin), off the surface on the emitter's side."""
+    si, scatter_med, scatter_surf = ev["si"], ev["scatter_med"], ev["scatter_surf"]
+    medium = s["medium"]
+    nee_active = scatter_med | scatter_surf
+    ref_p = torch.where(scatter_med[..., None], ev["p_med"], si.p)
+    ds, em_weight = scene.sample_emitter_direction(ref_p, u0, u2a, nee_active,
+                                                   test_visibility=False)
+    nee_medium = torch.where(scatter_surf, scene.medium_transition(si, ds.d, medium), medium)
+    side = torch.sign(torch.sum(si.n * ds.d, dim=-1))
+    p_nee = torch.where(scatter_surf[..., None], si.p + side[..., None] * 1e-4 * si.n,
+                        ev["p_med"])
+    return nee_active, ref_p, ds, em_weight, nee_medium, p_nee
+
+
+def nee_eval(scene, ops, ev, d, surf_active):
+    """(value, pdf) toward the world direction d of each lane's phase
+    (where it scattered in a medium) or BSDF (where surf_active): [N, C],
+    or the world-frame Mueller matrix [N, C, 4, 4] in a polarized
+    variant."""
+    si, mei, phase_idx, scatter_med = ev["si"], ev["mei"], ev["phase_idx"], ev["scatter_med"]
+    wo_med, wo_surf = mei.to_local(d), si.to_local(d)
+    if ops.polarized:
+        ph_val, ph_pdf = scene.phase_eval_pdf_pol(phase_idx, mei, wo_med, scatter_med)
+        b_val, b_pdf = scene.bsdf_eval_pdf_pol(si, wo_surf, surf_active)
+        f = torch.where(scatter_med[..., None, None, None], ph_val, b_val)
+    else:
+        ph_val, ph_pdf = scene.phase_eval_pdf(phase_idx, mei, wo_med, scatter_med)
+        b_val, b_pdf = scene.bsdf_eval_pdf(si, wo_surf, surf_active)
+        f = torch.where(scatter_med[..., None], ph_val, b_val)
+    return f, torch.where(scatter_med, ph_pdf, b_pdf)
+
+
+def emission(scene_mis, scene_val, ops, s, ev, beta):
+    """Radiance of the escaped rays and of the emitters hit, through beta,
+    MIS-weighted against the previous vertex's pdf: the weights from
+    scene_mis, the emitted radiance from scene_val (the PRB replay's
+    attached copy, or the same scene)."""
+    ray_d, si = s["ray_d"], ev["si"]
+    zero_L = torch.zeros_like(s["L"])
+    env_pdf = torch.where(s["prev_delta"], 0.0, scene_mis.pdf_emitter_direction_escaped(ray_d))
+    w_env = mis_weight(s["prev_pdf"], env_pdf)
+    em_pdf = torch.where(s["prev_delta"], 0.0,
+                         scene_mis.pdf_emitter_direction_hit(s["prev_p"], si))
+    w_hit = mis_weight(s["prev_pdf"], em_pdf)
+    return (ops.where_rad(ev["escaped"], ops.emit(beta, scene_val.eval_environment(ray_d)
+                                                  * w_env[..., None]), zero_L)
+            + ops.where_rad(ev["surface_event"], ops.emit(beta, scene_val.eval_emitter_hit(si)
+                                                          * w_hit[..., None]), zero_L))
+
+
+def advance(integrator, scene, ops, s, ev, beta, wo_ph, w_ph, pdf_ph, bs, bw, nee_active, ref_p,
+            u_rr):
+    """The path's state after its segment: the sampled direction taken,
+    the throughput weighted, the medium crossed, the depth counted, the
+    path ended where it escaped, exhausted its depth or lost its weight,
+    and Russian roulette played. Returns the dict of the updated fields."""
+    si, mei, p_med = ev["si"], ev["mei"], ev["p_med"]
+    scatter_med, scatter_surf = ev["scatter_med"], ev["scatter_surf"]
+    surface_event = ev["surface_event"]
+    ray_o, ray_d, medium, active = s["ray_o"], s["ray_d"], s["medium"], s["active"]
+    new_d = torch.where(scatter_med[..., None], mei.to_world(wo_ph),
+                        torch.where(scatter_surf[..., None], si.to_world(bs.wo), ray_d))
+    o_surf = spawn_ray(si.p, si.n, new_d).o
+    new_o = torch.where(scatter_med[..., None], p_med,
+                        torch.where(surface_event[..., None], o_surf, ray_o))
+    beta = ops.where_beta(scatter_med, ops.apply(beta, w_ph), beta)
+    beta = ops.where_beta(scatter_surf, ops.apply(beta, bw), beta)
+    new_medium = torch.where(ev["null_cross"] | scatter_surf,
+                             scene.medium_transition(si, new_d, medium), medium)
+    scattered = scatter_med | scatter_surf
+    new_depth = s["depth"] + scattered.to(torch.int64)
+    new_prev_pdf = torch.where(scatter_med, pdf_ph,
+                               torch.where(scatter_surf, bs.pdf, s["prev_pdf"]))
+    new_prev_delta = torch.where(scatter_med, False,
+                                 torch.where(scatter_surf, bs.delta, s["prev_delta"]))
+    new_prev_p = torch.where(nee_active[..., None], ref_p, s["prev_p"])
+
+    is_null_surf, depth_ok = ev["is_null_surf"], ev["depth_ok"]
+    alive = active & ~ev["escaped"]
+    alive = alive & ~(scatter_surf & (bs.pdf <= 0))
+    alive = alive & ~(scatter_med & (pdf_ph <= 0))
+    beta_int = ops.intensity_beta(beta)
+    alive = alive & ~(surface_event & ~is_null_surf & ~depth_ok)
+    alive = alive & ~(ev["real"] & ~depth_ok)
+    alive = alive & (torch.amax(beta_int, dim=-1) > 0)
+
+    # ---- Russian roulette ----
+    beta_max = torch.amax(beta_int, dim=-1)
+    rr_active = (new_depth >= integrator.rr_depth) & scattered
+    q = torch.clamp(beta_max, max=0.95)
+    beta = ops.where_beta(rr_active & alive,
+                          ops.mul_scalar(beta, 1.0 / torch.clamp(q, min=1e-6)[..., None]), beta)
+    alive = alive & (~rr_active | (u_rr < q))
+    return dict(depth=new_depth, beta=beta, ray_o=new_o, ray_d=new_d, medium=new_medium,
+                active=alive, prev_pdf=new_prev_pdf, prev_delta=new_prev_delta,
+                prev_p=new_prev_p,
+                **integrator._advance_extra(scene, si, s, new_d, scatter_surf))
+
+
 @dataclass(frozen=True)
 class VolPathIntegrator:
     max_depth: int = 8
@@ -232,16 +355,27 @@ class VolPathIntegrator:
         """Radiance [N, C] along each ray and {"n_rays": rays cast}: per
         segment one closest hit per active lane and one shadow ray per
         NEE-active lane, counted in int64."""
+        ops = get_ops(scene.polarized)
+        max_depth, max_segments = self._budgets()
+        s = self._start(scene, ops, rng, ray, active,
+                        ops.zero_radiance(ray.o.shape[0], scene.n_channels, ray.o.device))
+        s["n_rays"] = torch.zeros((), dtype=torch.int64, device=ray.o.device)
+        for _ in range(max_segments):
+            if not _any(s["active"]):
+                break       # nothing changes L or n_rays any more
+            s = self._bounce(scene, ops, max_depth, s)
+        return s["L"], {"n_rays": s["n_rays"]}
+
+    def _start(self, scene, ops, rng, ray, active, L):
+        """Each lane's path state before its first segment (after the hero
+        channel's draw), with radiance L."""
         n = ray.o.shape[0]
         nc = scene.n_channels
         dev = ray.o.device
-        ops = get_ops(scene.polarized)
-        max_depth, max_segments = self._budgets()
         u_ch, _, rng = rng.next_2d()
-        s = dict(
+        return dict(
             depth=torch.zeros(n, dtype=torch.int64, device=dev),
-            n_rays=torch.zeros((), dtype=torch.int64, device=dev),
-            L=ops.zero_radiance(n, nc, dev),
+            L=L,
             beta=ops.one(n, nc, dev),
             ray_o=ray.o,
             ray_d=ray.d,
@@ -252,19 +386,42 @@ class VolPathIntegrator:
             prev_pdf=torch.ones(n, dtype=torch.float32, device=dev),
             prev_delta=torch.ones(n, dtype=torch.bool, device=dev),
             prev_p=ray.o,
+            **self._regen_extra(n, scene),
         )
-        for _ in range(max_segments):
-            if not _any(s["active"]):
-                break       # nothing changes L or n_rays any more
-            s = self._bounce(scene, ops, max_depth, s)
-        return s["L"], {"n_rays": s["n_rays"]}
+
+    def _draws(self, rng):
+        """A segment's fixed-order draws after its tracking: (u0, u2a,
+        u_lobe, u2b, u2r, u_rr, rng); u2r is the atmosphere-ocean
+        integrators' refraction proposal (None here)."""
+        u0, u2a_x, rng = rng.next_2d()
+        u2a_y, u_lobe, rng = rng.next_2d()
+        u2b_x, u2b_y, rng = rng.next_2d()
+        u_rr, _, rng = rng.next_2d()
+        return (u0, torch.stack([u2a_x, u2a_y], dim=-1), u_lobe,
+                torch.stack([u2b_x, u2b_y], dim=-1), None, u_rr, rng)
+
+    def _nee(self, scene, ops, s, ev, beta, u0, u2a, u2r, rng):
+        """The segment's NEE, with MIS against the phase or BSDF pdf:
+        (its radiance, nee_active, the reference point, rng)."""
+        nee_active, ref_p, ds, em_weight, nee_medium, p_nee = nee_setup(scene, s, ev, u0, u2a)
+        T_nee, rng = estimate_transmittance(
+            scene, p_nee, ds, nee_medium, s["channel"], rng, nee_active,
+            max_crossings=self.nee_crossings, steps_per_segment=self.nee_steps)
+        f_nee, pdf_fwd = nee_eval(scene, ops, ev, ds.d, ev["scatter_surf"])
+        w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, pdf_fwd))
+        nee_contrib = ops.contrib_nee(beta, f_nee, em_weight * T_nee * w_nee[..., None])
+        return (ops.where_rad(nee_active, nee_contrib, torch.zeros_like(s["L"])), nee_active,
+                ref_p, rng)
+
+    def _advance_extra(self, scene, si, s, new_d, scatter_surf):
+        """State beyond volpath's that a segment advances: none."""
+        return {}
 
     def _bounce(self, scene, ops, max_depth, s):
         """One volumetric step of every lane: the scene intersection, the
         tracking of the segment, emission, NEE and the next direction.
         `s["channel"]` is each lane's hero channel."""
         channel = s["channel"]
-        rng = s["rng"]
         active = s["active"]
         ray_o, ray_d, medium = s["ray_o"], s["ray_d"], s["medium"]
         si = scene.ray_intersect(Ray.make(ray_o, ray_d), active)
@@ -272,117 +429,32 @@ class VolPathIntegrator:
 
         # ---- delta-track the segment up to the surface ----
         reached_end, real, t_real, beta_f, rng = track_segment(
-            scene, ray_o, ray_d, t_surf, medium, channel, rng, active, self.track_steps)
+            scene, ray_o, ray_d, t_surf, medium, channel, s["rng"], active, self.track_steps)
         # tracking ratios are per-channel scalars: they keep the polarization
         beta = ops.mul_scalar(s["beta"], torch.where(active[..., None], beta_f, 1.0))
-        surface_event = active & reached_end & si.is_valid
-        escaped = active & reached_end & ~si.is_valid
-
-        p_med = ray_o + t_real[..., None] * ray_d
-        mei = MediumInteraction.make(
-            torch.where(real, t_real, float("inf")), p_med, ray_d, medium)
-        phase_idx = scene.medium_phase_of(medium)
-
-        # fixed-order outer draws
-        u0, u2a_x, rng = rng.next_2d()
-        u2a_y, u_lobe, rng = rng.next_2d()
-        u2b_x, u2b_y, rng = rng.next_2d()
-        u_rr, _, rng = rng.next_2d()
+        ev = segment_events(scene, s, si, reached_end, real, t_real, max_depth)
+        u0, u2a, u_lobe, u2b, u2r, u_rr, rng = self._draws(rng)
 
         # ---- emitter hit / escape, MIS against the previous pdf ----
-        L = s["L"]
-        zero_L = torch.zeros_like(L)
-        env_val = scene.eval_environment(ray_d)
-        env_pdf = torch.where(s["prev_delta"], 0.0, scene.pdf_emitter_direction_escaped(ray_d))
-        w_env = mis_weight(s["prev_pdf"], env_pdf)
-        L = L + ops.where_rad(escaped, ops.emit(beta, env_val * w_env[..., None]), zero_L)
-        em_val = scene.eval_emitter_hit(si)
-        em_pdf = torch.where(s["prev_delta"], 0.0,
-                             scene.pdf_emitter_direction_hit(s["prev_p"], si))
-        w_hit = mis_weight(s["prev_pdf"], em_pdf)
-        L = L + ops.where_rad(surface_event, ops.emit(beta, em_val * w_hit[..., None]), zero_L)
-
-        depth_ok = s["depth"] + 1 < max_depth
-        is_null_surf = scene.is_null_bsdf(si)
-        null_cross = surface_event & is_null_surf      # no depth count
-        scatter_surf = surface_event & ~is_null_surf & depth_ok
-        scatter_med = real & depth_ok
+        L = s["L"] + emission(scene, scene, ops, s, ev, beta)
 
         # ---- NEE ----
-        nee_active = scatter_med | scatter_surf
-        ref_p = torch.where(scatter_med[..., None], p_med, si.p)
-        ds, em_weight = scene.sample_emitter_direction(
-            ref_p, u0, torch.stack([u2a_x, u2a_y], dim=-1), nee_active, test_visibility=False)
-        nee_medium = torch.where(
-            scatter_surf, scene.medium_transition(si, ds.d, medium), medium)
-        side = torch.sign(torch.sum(si.n * ds.d, dim=-1))
-        p_nee = torch.where(scatter_surf[..., None], si.p + side[..., None] * 1e-4 * si.n, p_med)
-        T_nee, rng = estimate_transmittance(
-            scene, p_nee, ds, nee_medium, channel, rng, nee_active,
-            max_crossings=self.nee_crossings, steps_per_segment=self.nee_steps)
-
-        wo_med, wo_surf = mei.to_local(ds.d), si.to_local(ds.d)
-        if ops.polarized:
-            ph_val, ph_pdf = scene.phase_eval_pdf_pol(phase_idx, mei, wo_med, scatter_med)
-            b_val, b_pdf = scene.bsdf_eval_pdf_pol(si, wo_surf, scatter_surf)
-            f_nee = torch.where(scatter_med[..., None, None, None], ph_val, b_val)
-        else:
-            ph_val, ph_pdf = scene.phase_eval_pdf(phase_idx, mei, wo_med, scatter_med)
-            b_val, b_pdf = scene.bsdf_eval_pdf(si, wo_surf, scatter_surf)
-            f_nee = torch.where(scatter_med[..., None], ph_val, b_val)
-        pdf_fwd = torch.where(scatter_med, ph_pdf, b_pdf)
-        w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, pdf_fwd))
-        nee_contrib = ops.contrib_nee(beta, f_nee, em_weight * T_nee * w_nee[..., None])
-        L = L + ops.where_rad(nee_active, nee_contrib, zero_L)
+        nee_L, nee_active, ref_p, rng = self._nee(scene, ops, s, ev, beta, u0, u2a, u2r, rng)
+        L = L + nee_L
 
         # ---- direction sampling ----
-        u2b = torch.stack([u2b_x, u2b_y], dim=-1)
+        mei, phase_idx, scatter_med, scatter_surf = (ev["mei"], ev["phase_idx"],
+                                                     ev["scatter_med"], ev["scatter_surf"])
         if ops.polarized:
             wo_ph, w_ph, pdf_ph = scene.phase_sample_pol(phase_idx, mei, u_lobe, u2b, scatter_med)
             bs, bw = scene.bsdf_sample_pol(si, u_lobe, u2b, scatter_surf)
         else:
             wo_ph, w_ph, pdf_ph = scene.phase_sample(phase_idx, mei, u_lobe, u2b, scatter_med)
             bs, bw = scene.bsdf_sample(si, u_lobe, u2b, scatter_surf)
-        d_med = mei.to_world(wo_ph)
-        d_surf = si.to_world(bs.wo)
-        new_d = torch.where(scatter_med[..., None], d_med,
-                            torch.where(scatter_surf[..., None], d_surf, ray_d))
-        o_surf = spawn_ray(si.p, si.n, new_d).o
-        new_o = torch.where(scatter_med[..., None], p_med,
-                            torch.where(surface_event[..., None], o_surf, ray_o))
-        beta = ops.where_beta(scatter_med, ops.apply(beta, w_ph), beta)
-        beta = ops.where_beta(scatter_surf, ops.apply(beta, bw), beta)
-        new_medium = torch.where(null_cross | scatter_surf,
-                                 scene.medium_transition(si, new_d, medium), medium)
-
-        new_depth = s["depth"] + (scatter_med | scatter_surf).to(torch.int64)
-        new_prev_pdf = torch.where(scatter_med, pdf_ph,
-                                   torch.where(scatter_surf, bs.pdf, s["prev_pdf"]))
-        new_prev_delta = torch.where(scatter_med, False,
-                                     torch.where(scatter_surf, bs.delta, s["prev_delta"]))
-        new_prev_p = torch.where(nee_active[..., None], ref_p, s["prev_p"])
-
-        alive = active & ~escaped
-        alive = alive & ~(scatter_surf & (bs.pdf <= 0))
-        alive = alive & ~(scatter_med & (pdf_ph <= 0))
-        beta_int = ops.intensity_beta(beta)
-        alive = alive & ~(surface_event & ~is_null_surf & ~depth_ok)
-        alive = alive & ~(real & ~depth_ok)
-        alive = alive & (torch.amax(beta_int, dim=-1) > 0)
-
-        # ---- Russian roulette ----
-        beta_max = torch.amax(beta_int, dim=-1)
-        rr_active = (new_depth >= self.rr_depth) & (scatter_med | scatter_surf)
-        q = torch.clamp(beta_max, max=0.95)
-        beta = ops.where_beta(rr_active & alive,
-                              ops.mul_scalar(beta, 1.0 / torch.clamp(q, min=1e-6)[..., None]),
-                              beta)
-        alive = alive & (~rr_active | (u_rr < q))
-
         n_rays = s["n_rays"] + active.sum() + nee_active.sum()
-        return dict(s, depth=new_depth, n_rays=n_rays, L=L, beta=beta, ray_o=new_o,
-                    ray_d=new_d, medium=new_medium, rng=rng, active=alive,
-                    prev_pdf=new_prev_pdf, prev_delta=new_prev_delta, prev_p=new_prev_p)
+        return dict(s, L=L, rng=rng, n_rays=n_rays,
+                    **advance(self, scene, ops, s, ev, beta, wo_ph, w_ph, pdf_ph, bs, bw,
+                              nee_active, ref_p, u_rr))
 
     def _regen_extra(self, n, scene):
         """Per-lane state beyond the common fields that the regenerative

@@ -1,13 +1,44 @@
-"""Polarized Fresnel equations (counterpart of mitsuba_tpu/render/fresnel.py,
-its ``fresnel_polarized`` only: the Mueller matrices of specular reflection
-and transmission need it; the unpolarized forms wait for the smooth
-dielectric and conductor BSDFs).
+"""Fresnel equations (counterpart of mitsuba_tpu/render/fresnel.py): the
+unpolarized reflectance of a real dielectric interface (the rough
+dielectric's) and the polarized complex amplitudes (the Mueller matrices
+of specular reflection and transmission). The conductor's unpolarized form
+waits for the conductor BSDFs.
 
 Complex amplitudes are ``torch.complex64``, as the reference's jnp.complex64.
 """
 from __future__ import annotations
 
 import torch
+
+from ..core.math import safe_sqrt
+
+
+def fresnel(cos_theta_i, eta):
+    """Unpolarized Fresnel reflectance at a real dielectric interface of
+    relative IOR eta (inside over outside); cos_theta_i is signed
+    (positive outside). Returns (F, cos_theta_t, eta_it, eta_ti)."""
+    eta = torch.as_tensor(eta, dtype=torch.float32, device=cos_theta_i.device)
+    outside = cos_theta_i >= 0.0
+    rcp_eta = 1.0 / eta
+    eta_it = torch.where(outside, eta, rcp_eta)
+    eta_ti = torch.where(outside, rcp_eta, eta)
+
+    cos_theta_t_sqr = 1.0 - eta_ti * eta_ti * (1.0 - cos_theta_i * cos_theta_i)
+    cos_theta_i_abs = torch.abs(cos_theta_i)
+    cos_theta_t_abs = safe_sqrt(cos_theta_t_sqr)
+
+    index_matched = eta == 1.0
+    tir = cos_theta_t_sqr <= 0.0
+
+    a_s = (cos_theta_i_abs - eta_it * cos_theta_t_abs) / torch.clamp(
+        cos_theta_i_abs + eta_it * cos_theta_t_abs, min=1e-12)
+    a_p = (eta_it * cos_theta_i_abs - cos_theta_t_abs) / torch.clamp(
+        eta_it * cos_theta_i_abs + cos_theta_t_abs, min=1e-12)
+
+    r = 0.5 * (a_s * a_s + a_p * a_p)
+    r = torch.where(index_matched, 0.0, torch.where(tir, 1.0, r))
+    cos_theta_t = torch.where(tir, 0.0, -torch.sign(cos_theta_i) * cos_theta_t_abs)
+    return r, cos_theta_t, eta_it, eta_ti
 
 
 def _mulsign_c(z, s):

@@ -260,7 +260,7 @@ class Scene:
             )
             pdf = torch.where(m & ok, warp.square_to_cosine_hemisphere_pdf(wo), pdf)
         for i, b in enumerate(self.bsdfs):
-            if i in fused:
+            if i in fused or not b.flags_smooth:
                 continue
             m = (b_idx == i) & active
             val = torch.where(m[..., None], b.eval(si, wo, self.n_channels), val)
@@ -318,15 +318,19 @@ class Scene:
             if not b.flags_smooth:
                 continue
             m = (b_idx == i) & active
-            M = torch.where(m[..., None, None, None],
-                            depolarizer_weight(b.eval(si, wo, nc)), M)
-            pdf = torch.where(m, b.pdf(si, wo), pdf)
+            if hasattr(b, "eval_pdf_mueller"):
+                M_i, p_i = b.eval_pdf_mueller(si, wo, nc)
+            else:
+                M_i, p_i = depolarizer_weight(b.eval(si, wo, nc)), b.pdf(si, wo)
+            M = torch.where(m[..., None, None, None], M_i, M)
+            pdf = torch.where(m, p_i, pdf)
         M = mu.to_world_mueller(M, -wo, si.wi, si.sh_s, si.sh_t, si.sh_n)
         return M, pdf
 
     def bsdf_sample_pol(self, si, u_lobe, u2, active):
         """Polarized sample: (BSDFSample, world-frame weight [N, C, 4, 4]).
-        A null BSDF passes the polarization on; the others depolarize."""
+        A BSDF without a polarized sample depolarizes, except the null BSDF,
+        which passes the polarization on."""
         n_lanes, nc, dev = si.p.shape[0], self.n_channels, si.p.device
         b_idx = self.bsdf_index_at(si)
         bs = BSDFSample(
@@ -338,8 +342,11 @@ class Scene:
         M = torch.zeros(n_lanes, nc, 4, 4, dtype=torch.float32, device=dev)
         for i, b in enumerate(self.bsdfs):
             m = (b_idx == i) & active
-            bs_i, w_i = b.sample(u_lobe, u2, si, nc)
-            M_i = identity_weight(w_i) if isinstance(b, NullBSDF) else depolarizer_weight(w_i)
+            if hasattr(b, "sample_pol"):
+                bs_i, M_i = b.sample_pol(u_lobe, u2, si, nc)
+            else:
+                bs_i, w_i = b.sample(u_lobe, u2, si, nc)
+                M_i = identity_weight(w_i) if isinstance(b, NullBSDF) else depolarizer_weight(w_i)
             bs = BSDFSample(
                 wo=torch.where(m[..., None], bs_i.wo, bs.wo),
                 pdf=torch.where(m, bs_i.pdf, bs.pdf),

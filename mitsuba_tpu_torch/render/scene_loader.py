@@ -1,12 +1,14 @@
 """Scene-dict loader for the Cornell-box and mesh vocabulary (counterpart
 of mitsuba_tpu/render/scene_loader.py).
 
-Accepted plugin types: ``scene``; the ``path``, ``prb``, ``prb_basic``
-and ``volpath`` integrators; the ``perspective`` and ``radiancemeter``
+Accepted plugin types: ``scene``; the ``path``, ``prb``, ``prb_basic``,
+``volpath``, ``prbvolpath`` (``prb_unpolarized``), ``prb_polarized``,
+``volpathaos`` and ``prb_volpathaos`` integrators; the ``perspective`` and ``radiancemeter``
 (with an optional ``wavelength``) sensors with an ``independent`` sampler
 and an ``hdrfilm`` with a ``gaussian``, ``box`` or ``tent`` filter;
-``diffuse`` BSDFs with ``rgb`` or scalar reflectance and the ``null`` BSDF
-of medium boundaries; ``rectangle``, ``cube``, ``obj``, ``ply`` and
+``diffuse`` BSDFs with ``rgb`` or scalar reflectance, the ``null`` BSDF
+of medium boundaries and the ``roughdielectric`` (GGX, the ocean
+surface); ``rectangle``, ``cube``, ``obj``, ``ply`` and
 raw-array ``mesh`` shapes, with an ``interior`` and ``exterior`` medium;
 ``homogeneous`` and ``heterogeneous`` media (``constvolume``/``gridvolume``
 fields, the ``isotropic``, ``hg``, ``sggx``, ``rayleigh``, ``mie`` (with a
@@ -36,7 +38,7 @@ import torch
 
 from .. import native
 from ..core.transform import Transform, build_transform
-from .bsdfs import DiffuseBSDF, NullBSDF
+from .bsdfs import DiffuseBSDF, NullBSDF, RoughDielectricBSDF
 from ..variant import current_variant
 from .emitters import AreaEmitter, ConstantEmitter, DirectionalEmitter
 from .film import Film
@@ -47,7 +49,7 @@ from . import shapes as SH
 from .textures import ConstantTexture
 
 SHAPE_TYPES = ("rectangle", "cube", "obj", "ply", "mesh")
-BSDF_TYPES = ("diffuse", "null")
+BSDF_TYPES = ("diffuse", "null", "roughdielectric")
 # the reference's environment and delta emitters; "constant" and
 # "directional" are ported
 EMITTER_TYPES = ("constant", "point", "directional", "envmap", "spot", "projector")
@@ -125,10 +127,38 @@ def parse_texture(spec, device, default=1.0):
     return ConstantTexture(value=torch.from_numpy(value).to(device)), "value"
 
 
+_IOR_PRESETS = {"bk7": 1.5046, "water": 1.3330, "diamond": 2.419, "air": 1.000277}
+
+
+def _ior(v, default=1.5046):
+    """An index of refraction: a number, or a preset's name."""
+    if v is None:
+        return default
+    if isinstance(v, str):
+        return _IOR_PRESETS[v.lower()]
+    return float(v)
+
+
 def parse_bsdf(spec, name, paths, device):
     t = spec["type"]
     if t == "null":
         return NullBSDF()
+    if t == "roughdielectric":
+        int_ior = _ior(spec.get("int_ior"), 1.5046)
+        ext_ior = _ior(spec.get("ext_ior"), 1.000277)
+        eta = float(spec["eta"]) if "eta" in spec else int_ior / ext_ior
+        alpha = spec.get("alpha", 0.1)
+        if isinstance(alpha, dict):
+            alpha = float(alpha.get("value", 0.1))
+        sr, _ = parse_texture(spec.get("specular_reflectance", 1.0), device)
+        st, _ = parse_texture(spec.get("specular_transmittance", 1.0), device)
+        paths.append((f"{name}.eta", ("eta",)))
+        paths.append((f"{name}.alpha.value", ("alpha",)))
+        return RoughDielectricBSDF(
+            eta=torch.tensor(eta, dtype=torch.float32, device=device),
+            alpha=torch.tensor(float(alpha), dtype=torch.float32, device=device),
+            specular_reflectance=sr, specular_transmittance=st,
+        )
     if t != "diffuse":
         raise _not_ported(f"BSDF type {t!r}")
     tex, leaf = parse_texture(spec.get("reflectance", 0.5), device)
@@ -177,7 +207,8 @@ def parse_sensor(spec, device):
     return cam, film, spp
 
 
-INTEGRATOR_TYPES = ("path", "prb", "prb_basic", "volpath")
+INTEGRATOR_TYPES = ("path", "prb", "prb_basic", "volpath", "prbvolpath", "prb_unpolarized",
+                    "prb_polarized", "volpathaos", "prb_volpathaos")
 
 
 def load_dict(d, device=None, intersector="smem"):
@@ -640,5 +671,52 @@ def atmo_scene(res=64, spp=64, max_depth=8):
             "film": {"type": "hdrfilm", "width": res, "height": res,
                      "rfilter": {"type": "box"}},
             "sampler": {"type": "independent", "sample_count": spp},
+        },
+    }
+
+
+def aos_scene(res=32, max_depth=4, integrator="prb_volpathaos"):
+    """bench.py's atmosphere-ocean retrieval scene (BASELINE config 5, the
+    aos cell), for the mono_polarized variant: a rough-dielectric ocean
+    surface (int_ior 1.33, ext_ior 1, alpha 0.2) over a diffuse sea floor
+    (reflectance 0.5) 2 below, a directional sun (irradiance 5, propagating
+    along (-0.3, 0, -0.954)), a Rayleigh atmosphere (sigma_t 0.2, albedo
+    0.8) in a null slab 0.8 thick centred at z = 1, and a radiancemeter at
+    (0, 0, 4) looking down with a res x res box film; `integrator`
+    (bench.py: prb_volpathaos) at max_depth. bench.py renders it with
+    render_1 at 64 spp and differentiates the sum for the atmosphere's
+    sigma_t."""
+    return {
+        "type": "scene",
+        "integrator": {"type": integrator, "max_depth": max_depth},
+        "ocean_surface": {
+            "type": "rectangle",
+            "to_world": [{"type": "scale", "value": [1000.0, 1000.0, 1.0]}],
+            "bsdf": {"type": "roughdielectric", "int_ior": 1.33, "ext_ior": 1.0, "alpha": 0.2},
+        },
+        "sea_floor": {
+            "type": "rectangle",
+            "to_world": [
+                {"type": "scale", "value": [1000.0, 1000.0, 1.0]},
+                {"type": "translate", "value": [0.0, 0.0, -2.0]},
+            ],
+            "bsdf": {"type": "diffuse", "reflectance": 0.5},
+        },
+        "sun": {"type": "directional", "direction": [-0.3, 0, -0.954], "irradiance": 5.0},
+        "atmo_medium": {"type": "homogeneous", "phase": {"type": "rayleigh"},
+                        "albedo": 0.8, "sigma_t": 0.2},
+        "atmo": {
+            "type": "cube", "bsdf": {"type": "null"},
+            "to_world": [
+                {"type": "scale", "value": [1000.0, 1000.0, 0.4]},
+                {"type": "translate", "value": [0.0, 0.0, 1.0]},
+            ],
+            "interior": {"type": "ref", "id": "atmo_medium"},
+        },
+        "sensor": {
+            "type": "radiancemeter",
+            "to_world": [{"type": "look_at", "origin": [0, 0, 4], "target": [0, 0, 0],
+                          "up": [0, 1, 0]}],
+            "film": {"type": "hdrfilm", "rfilter": {"type": "box"}, "width": res, "height": res},
         },
     }

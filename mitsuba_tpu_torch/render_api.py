@@ -17,9 +17,11 @@ lanes are summed. ``render`` returns [H, W, 4, C] for them and
 
 Gradients: with the ``path`` integrator, ``render`` is differentiable by
 ordinary autograd through the bounce loop (tape mode: every bounce's
-tensors stay alive until the backward pass). With ``prb`` or
-``prb_basic``, each pass is one autograd node whose backward replays the
-paths (ad/render_ad.py), in O(wavefront + parameters) memory.
+tensors stay alive until the backward pass). With a PRB integrator
+(``prb``, ``prb_basic``, ``prbvolpath``, ``prb_polarized``,
+``prb_volpathaos``), each pass of ``render`` and ``render_1`` is one
+autograd node whose backward replays the paths (ad/render_ad.py), in
+O(wavefront + parameters) memory.
 """
 from __future__ import annotations
 
@@ -190,13 +192,19 @@ def render_1(scene, params=None, sensor=0, seed=0, spp=None, stats=None):
     """Radiometer render (mirrors mi.render_1): the mean of all film
     samples of one pass of spp samples per pixel, [C], or the Stokes vector
     [4, C] in a polarized variant. `stats` receives the pass's counters as
-    render's does."""
+    render's does. With a PRB integrator the pass is one PRB node, whose
+    backward is seeded with derive_seed_grad(seed) and adds its rays to
+    stats["n_rays_grad"]."""
     if params is not None and hasattr(params, "scene"):
         scene = params.scene
-    if getattr(scene.integrator, "is_prb", False):
-        raise NotImplementedError("render_1 with a PRB integrator is not yet ported")
     spp = spp or scene.spp
-    L, aux = render_lanes(scene, seed, 0, scene.film.n_pixels * spp, 0, spp, spp, sensor)
+    if getattr(scene.integrator, "is_prb", False):
+        # one PRB pass: its backward seeded with derive_seed_grad(seed)
+        scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
+        L, aux = prb_pass(scene, seed, derive_seed_grad(seed), 0, spp, spp, sensor,
+                          stats=stats, raw=True)
+    else:
+        L, aux = render_lanes(scene, seed, 0, scene.film.n_pixels * spp, 0, spp, spp, sensor)
     if stats is not None:
         stats.update({k: int(v) for k, v in aux.items()})
     m = torch.mean(L, dim=0)

@@ -219,7 +219,9 @@ def test_integrator_types():
     assert not getattr(mt.load_dict(_cbox("path"), device="cpu").integrator, "is_prb", False)
     assert type(mt.load_dict(_cbox("volpath"), device="cpu").integrator).__name__ == \
         "VolPathIntegrator"
-    for t in ("prbvolpath", "direct", "volpathmis"):
+    assert type(mt.load_dict(_cbox("prbvolpath"), device="cpu").integrator).__name__ == \
+        "PRBVolpathIntegrator"
+    for t in ("direct", "volpathmis"):
         with pytest.raises(NotImplementedError):
             mt.load_dict(_cbox(t), device="cpu")
 
