@@ -156,7 +156,8 @@ class VolumeReplay:
                 ph_dir_a, _ = sc.phase_eval_pdf_pol(phase_idx, mei, wo_ph, scatter_med)
                 b_dir_a, _ = sc.bsdf_eval_pdf_pol(si, bs.wo, scatter_surf)
                 # Scene.phase_sample_pol's weight: the eval over the pdf
-                w_ph_det = ph_dir_a.detach() / torch.clamp(pdf_ph, min=1e-12)[..., None, None, None]
+                w_ph_det = (ph_dir_a.detach()
+                            / torch.clamp(pdf_ph, min=1e-12)[..., None, None, None])
                 w_dir_det = torch.where(scatter_med[..., None, None, None], w_ph_det,
                                         bw_det)[..., 0, 0]
                 f_dir_a = torch.where(scatter_med[..., None, None, None], ph_dir_a,
@@ -187,7 +188,6 @@ class VolumeReplay:
         return dict(s, L=L_next, rng=rng,
                     **advance(self, scene_d, ops, s, ev, beta, wo_ph, w_ph_det, pdf_ph, bs,
                               bw_det, nee_active, ref_p, u_rr)), cast
-
 
 
 @dataclass(frozen=True)
