@@ -32,10 +32,10 @@ from ..core.rng import MASK32, sample_tea_32
 from .prb import detach_scene, grad_leaves
 
 
-def _postprocess(scene, L, ray_d, raw=False):
+def _postprocess(scene, L, ray_d):
     """The per-lane measurement: polarized, the Stokes vectors [n, C, 4] in
-    the sensor frame; otherwise L. With raw (render_1) a spectral
-    contraction would be skipped; none is ported yet."""
+    the sensor frame; otherwise L. The spectral contraction (and render_1's
+    raw form, which skips it) waits for the spectral variants."""
     if scene.polarized and L.ndim == 3:
         from ..render_api import to_sensor_mueller
 
@@ -82,7 +82,7 @@ class PRBPassLanes(torch.autograd.Function):
                                  args["sensor_idx"])
         args["aux"] = aux
         ctx.args, ctx.leaves = args, leaves
-        return _postprocess(args["scene"], L, ray.d, args["raw"])
+        return _postprocess(args["scene"], L, ray.d)
 
     @staticmethod
     def backward(ctx, dL):
@@ -115,18 +115,17 @@ class PRBPassLanes(torch.autograd.Function):
 
 
 def prb_pass_lanes(scene, seed, seed_grad, lane0, n, pass_base, spp_pass, spp_total,
-                   sensor_idx=0, spp_grad=None, stats=None, raw=False):
+                   sensor_idx=0, spp_grad=None, stats=None):
     """(measurement [n, C] (polarized: [n, C, 4]) of lanes [lane0, lane0 +
     n), {"n_rays": rays cast}) with PRB gradients for the scene's parameter
-    tensors that require grad. `raw` is render_1's form (no spectral
-    contraction).
+    tensors that require grad.
     `seed_grad` seeds the backward pass's primal and replay; `spp_grad` sets
     its sample count (None or spp_pass: the forward's lanes). When `stats`
     is a dict, the backward pass adds the rays it casts (its primal and the
     replay) to stats["n_rays_grad"]."""
     args = dict(scene=scene, seed=seed, seed_grad=seed_grad, lane0=lane0, n=n,
                 pass_base=pass_base, spp_pass=spp_pass, spp_total=spp_total,
-                sensor_idx=sensor_idx, spp_grad=spp_grad, stats=stats, raw=raw)
+                sensor_idx=sensor_idx, spp_grad=spp_grad, stats=stats)
     L = PRBPassLanes.apply(args, *grad_leaves(scene))
     return L, args["aux"]
 
@@ -146,7 +145,7 @@ def derive_seed_grad(seed, seed_grad=None):
 
 
 def prb_pass(scene, seed, seed_grad, pass_base, spp_pass, spp_total, sensor_idx=0,
-             spp_grad=None, stats=None, raw=False):
+             spp_grad=None, stats=None):
     """prb_pass_lanes over every lane of one pass of the film."""
     return prb_pass_lanes(scene, seed, seed_grad, 0, scene.film.n_pixels * spp_pass,
-                          pass_base, spp_pass, spp_total, sensor_idx, spp_grad, stats, raw)
+                          pass_base, spp_pass, spp_total, sensor_idx, spp_grad, stats)

@@ -30,7 +30,6 @@ from dataclasses import dataclass
 
 import torch
 
-from ..render.bsdfs import NullBSDF
 from ..render.records import spawn_ray
 from .volpath import VolPathIntegrator, _any, nee_eval, track_segment_ratio
 
@@ -44,7 +43,7 @@ def _refractive_nee_direction(scene, refr_idx, emitter_d, u2, active):
     inv_pdf = torch.ones(n, dtype=torch.float32, device=emitter_d.device)
     valid = torch.ones(n, dtype=torch.bool, device=emitter_d.device)
     for i, b in enumerate(scene.bsdfs):
-        if not hasattr(b, "sample_transmission"):
+        if not getattr(b, "is_refractive_interface", False):
             continue
         m = (refr_idx == i) & active
         wo, pdf = b.sample_transmission(u2, emitter_d)
@@ -106,11 +105,11 @@ def estimate_transmittance_aos(scene, p0, d0, emitter_d, dist, medium0, channel,
 
 
 def refractive_bsdf_mask(scene, b_idx):
-    """Lanes whose BSDF index is that of a refractive interface: a
-    transmitting BSDF other than the null one."""
+    """Lanes whose BSDF index is that of a refractive interface (the BSDFs
+    that _refractive_nee_direction proposes through)."""
     out = torch.zeros(b_idx.shape, dtype=torch.bool, device=b_idx.device)
     for i, b in enumerate(scene.bsdfs):
-        if b.flags_transmission and not isinstance(b, NullBSDF):
+        if getattr(b, "is_refractive_interface", False):
             out = out | (b_idx == i)
     return out
 

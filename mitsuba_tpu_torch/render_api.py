@@ -202,7 +202,7 @@ def render_1(scene, params=None, sensor=0, seed=0, spp=None, stats=None):
         # one PRB pass: its backward seeded with derive_seed_grad(seed)
         scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
         L, aux = prb_pass(scene, seed, derive_seed_grad(seed), 0, spp, spp, sensor,
-                          stats=stats, raw=True)
+                          stats=stats)
     else:
         L, aux = render_lanes(scene, seed, 0, scene.film.n_pixels * spp, 0, spp, spp, sensor)
     if stats is not None:

@@ -9,17 +9,11 @@ integrator): its primal, and its gradients for the sea floor's reflectance
 through the interface, the sun's irradiance, the atmosphere's albedo and
 sigma_t, in the mono and the mono_polarized variants.
 
-The functions and the underwater render are held against the JAX package
-live (jax.jit). The JAX package's gradients and Stokes vectors of the
-ocean under its atmosphere, and its Stokes vector of the slab without an
-interface, are constants (JAX_OCEAN, JAX_SLAB below): tracing its
-atmosphere-ocean replay takes 45 s in mono and 80 s in mono_polarized on
-the CPU. They are computed once with the JAX package (jax.value_and_grad
-of the same loss at the same seed; render_1 for the slab) by running this
-file:
-
-    PYTHONPATH=. JAX_PLATFORMS=cpu XLA_FLAGS=--xla_backend_optimization_level=1 \
-        python tests/test_torch_aos.py
+Every JAX value is computed live, through jax.jit: the gradients of
+sum(render_1) of the ocean under its atmosphere by one
+jax.value_and_grad per variant, shared by the tests of this module
+(tracing and compiling the JAX package's atmosphere-ocean replay takes
+35-65 s a variant on the CPU).
 
 Tolerances are stated at each check.
 """
@@ -46,25 +40,6 @@ from mitsuba_tpu_torch.render.bsdfs import RoughDielectricBSDF
 SPP, SEED = 8, 3
 KEYS = ("sea_floor.bsdf.reflectance.value", "sun.irradiance.value",
         "atmo_medium.albedo.value.value", "atmo_medium.sigma_t.value.value")
-# The JAX package's render_1 ([C] or Stokes [4, C], flattened) and its
-# gradients of sum(render_1) for KEYS, of ocean("prb_volpathaos") at
-# spp=SPP, seed=SEED, per variant (this file's __main__).
-JAX_OCEAN = {
-    "mono": {
-        "value": [0.43320533633232117],
-        "grads": [0.6143028736114502, 0.08804463595151901, 0.1276843547821045,
-                  -0.17400069534778595],
-    },
-    "mono_polarized": {
-        "value": [0.43782711029052734, -0.004770693834871054, -0.004407044965773821, 0.0],
-        "grads": [0.6087275743484497, 0.08654877543449402, 0.12174421548843384,
-                  -0.1888020783662796],
-    },
-}
-# The JAX package's volpathaos render_1 (Stokes [4, 1], flattened) of
-# medium_slab() in mono_polarized at spp=SPP, seed=0 (this file's
-# __main__).
-JAX_SLAB = [0.0035284399054944515, 0.0, 0.0, 0.0]
 GRAD_RTOL = 1e-4
 
 
@@ -82,6 +57,34 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def jax_ocean():
+    """variant -> (the JAX package's render_1 of ocean("prb_volpathaos"),
+    [C] or Stokes [4, C] flattened; its gradients of sum(render_1) for
+    KEYS), at spp=SPP, seed=SEED: jax.jit(jax.value_and_grad) of the loss,
+    traced once per variant for the module."""
+    cache = {}
+
+    def get(variant):
+        if variant not in cache:
+            mj.set_variant(variant)
+            js = mj.load_dict(ocean("prb_volpathaos"))
+
+            def loss(vals):
+                v = mj.render_1(mj.traverse(js).update(dict(zip(KEYS, vals))), spp=SPP,
+                                seed=SEED)
+                return jnp.sum(v), v
+
+            p = mj.traverse(js)
+            (_, v), g = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+                tuple(p[k] for k in KEYS))
+            cache[variant] = (np.asarray(v, np.float32).reshape(-1),
+                              [float(np.asarray(x).reshape(-1)[0]) for x in g])
+        return cache[variant]
+
+    return get
 
 
 def _variant(name):
@@ -330,31 +333,21 @@ def test_volpathaos_underwater_refractive_nee_matches_jax():
     assert float(got[0]) > 1e-3 and stats["n_rays"] > 0
 
 
-@pytest.mark.parametrize("variant", ["mono", "mono_polarized"])
-def test_volpathaos_ocean_matches_jax(variant):
-    """volpathaos render_1 of the ocean under its atmosphere against the JAX
-    package's (the primal of its prb_volpathaos gradient, JAX_OCEAN): I to
-    rtol 1e-5, Q/U/V to 1e-5 of I."""
-    _variant(variant)
-    got = mt.render_1(mt.load_dict(ocean(), device="cpu"), spp=SPP, seed=SEED)
-    want = np.asarray(JAX_OCEAN[variant]["value"], np.float32)
-    got = got.reshape(-1).numpy()
-    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
-    np.testing.assert_allclose(got[1:], want[1:], atol=1e-5 * want[0])
-
-
 def test_volpathaos_without_interface_is_volpath():
     """Without a refractive interface: volpathaos render_1 of the slab
-    against the JAX package's (JAX_SLAB: I to rtol 1e-5, Q/U/V to 1e-5 of
-    I); and volpathaos and volpath estimate the same integral (their samples
+    against the JAX package's (I to rtol 1e-5, Q/U/V to 1e-5 of I); and
+    volpathaos and volpath estimate the same integral (their samples
     differ: volpathaos draws the refraction proposal's numbers and takes no
     MIS): the slab's intensity at 16,384 lanes each, within 3%
     (tests/test_volpathaos.py's test03)."""
     _variant("mono_polarized")
     d = medium_slab()
     got = mt.render_1(mt.load_dict(d, device="cpu"), spp=SPP, seed=0).reshape(-1).numpy()
-    np.testing.assert_allclose(got[0], JAX_SLAB[0], rtol=1e-5)
-    np.testing.assert_allclose(got[1:], JAX_SLAB[1:], atol=1e-5 * JAX_SLAB[0])
+    want = np.asarray(jax.jit(lambda s: mj.render_1(s, spp=SPP, seed=0))(mj.load_dict(d)))
+    want = want.reshape(-1)
+    assert want[0] > 0
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got[1:], want[1:], atol=1e-5 * want[0])
     a = mt.render_1(mt.load_dict(d, device="cpu"), spp=1024, seed=1)
     d["integrator"]["type"] = "volpath"
     b = mt.render_1(mt.load_dict(d, device="cpu"), spp=1024, seed=2)
@@ -393,16 +386,33 @@ def port_grads(d, keys, stats=None):
 
 
 @pytest.mark.parametrize("variant", ["mono", "mono_polarized"])
-def test_prb_volpathaos_gradients_match_jax(variant):
+def test_volpathaos_ocean_matches_jax(variant, jax_ocean):
+    """volpathaos render_1 of the ocean under its atmosphere against the JAX
+    package's (the primal of its prb_volpathaos gradient): I to rtol 1e-5,
+    Q/U/V to 1e-5 of I."""
+    _variant(variant)
+    want, _ = jax_ocean(variant)
+    got = mt.render_1(mt.load_dict(ocean(), device="cpu"), spp=SPP, seed=SEED)
+    got = got.reshape(-1).numpy()
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got[1:], want[1:], atol=1e-5 * want[0])
+
+
+@pytest.mark.parametrize("variant", ["mono", "mono_polarized"])
+def test_prb_volpathaos_gradients_match_jax(variant, jax_ocean):
     """The replay's gradients of sum(render_1) against the JAX package's
-    (JAX_OCEAN): the floor's reflectance seen through the interface (the
-    attached BSDF of the bent shadow walk and of the sampled direction), the
-    sun's irradiance, the atmosphere's albedo and sigma_t (rtol 1e-4)."""
+    (jax.value_and_grad of the same loss at the same seed): the floor's
+    reflectance seen through the interface (the attached BSDF of the bent
+    shadow walk and of the sampled direction), the sun's irradiance, the
+    atmosphere's albedo and sigma_t (rtol 1e-4); the primal's I to rtol
+    1e-5."""
     _variant(variant)
     stats = {}
     out, got = port_grads(ocean("prb_volpathaos"), KEYS, stats)
     assert stats["n_rays_grad"] > stats["n_rays"] > 0
-    for k, g, want in zip(KEYS, got, JAX_OCEAN[variant]["grads"]):
+    want_v, want_g = jax_ocean(variant)
+    np.testing.assert_allclose(out.reshape(-1).numpy()[0], want_v[0], rtol=1e-5)
+    for k, g, want in zip(KEYS, got, want_g):
         assert g.shape == (1,) and want != 0.0, k
         np.testing.assert_allclose(g.numpy(), [want], rtol=GRAD_RTOL, err_msg=k)
 
@@ -422,30 +432,3 @@ def test_prb_volpathaos_primal_and_linear_gradient(variant):
     _, (g,) = port_grads(ocean("prb_volpathaos"), ["sun.irradiance.value"])
     lin = mt.render_1(s_fwd, spp=SPP, seed=derive_seed_grad(SEED)).sum() / 5.0
     np.testing.assert_allclose(g.numpy(), [float(lin)], rtol=1e-5)
-
-
-def _jax_constants():
-    """JAX_OCEAN and JAX_SLAB, recomputed with the JAX package."""
-    mj.set_variant("mono_polarized")
-    slab = jax.jit(lambda s: mj.render_1(s, spp=SPP, seed=0))(mj.load_dict(medium_slab()))
-    out = {"JAX_SLAB": np.asarray(slab).reshape(-1).tolist()}
-    for variant in ("mono", "mono_polarized"):
-        mj.set_variant(variant)
-        js = mj.load_dict(ocean("prb_volpathaos"))
-
-        def loss(vals):
-            s = mj.traverse(js).update(dict(zip(KEYS, vals)))
-            v = mj.render_1(s, spp=SPP, seed=SEED)
-            return jnp.sum(v), v
-
-        p = mj.traverse(js)
-        (_, v), g = jax.jit(jax.value_and_grad(loss, has_aux=True))(tuple(p[k] for k in KEYS))
-        out[variant] = {"value": np.asarray(v).reshape(-1).tolist(),
-                        "grads": [float(np.asarray(x).reshape(-1)[0]) for x in g]}
-    return out
-
-
-if __name__ == "__main__":
-    import json
-
-    print(json.dumps(_jax_constants(), indent=1))

@@ -7,14 +7,10 @@ and a Q-weighted loss; the routing of prb, prb_basic and prbvolpath to it
 in a polarized variant; its primal against the polarized volpath; and the
 PRB node's sensor-frame rotation.
 
-The JAX package's Stokes vector and gradients are constants (JAX_BLEND
-below): tracing its Mueller replay takes ~35 s on the CPU. They are
-computed once with the JAX package, jax.grad of the same weighted losses
-at the same seed (one compile, the Stokes weights an argument), by
-running this file:
-
-    PYTHONPATH=. JAX_PLATFORMS=cpu XLA_FLAGS=--xla_backend_optimization_level=1 \
-        python tests/test_torch_prb_polarized.py
+The JAX package's Stokes vector and gradients are computed live:
+jax.jit(jax.grad) of the same weighted losses at the same seed, traced
+once for the module (the Stokes weights an argument; tracing and
+compiling its Mueller replay takes ~30 s on the CPU).
 
 Parameters are set through traverse().update() in both packages; the
 routing of the names is held against the JAX package live. The gradients
@@ -39,18 +35,6 @@ GRAD_RTOL = 1e-4
 KEYS = ("atmo.sigma_t.value.value", "atmo.albedo.value.value", "atmo.phase_function.b.g",
         "sun.irradiance.value")
 WEIGHTS = {"I": [1.0, 0.0, 0.0, 0.0], "Q": [0.0, 1.0, 0.0, 0.0]}
-# The JAX package's render_1 Stokes vector of blend_slab() with
-# prb_polarized at spp=SPP, seed=SEED, and its gradients of
-# sum(w . render_1) for KEYS, w the I and the Q weight (this file's
-# __main__).
-JAX_BLEND = {
-    "stokes": [0.28054457902908325, -0.11069223284721375, -0.0005751934368163347, 0.0],
-    "I": [0.11908124387264252, 0.5784513354301453, -0.15707625448703766, 0.06211197003722191],
-    "Q": [0.0020683908369392157, -0.16462336480617523, -0.019943788647651672,
-          -0.022881140932440758],
-}
-
-
 @pytest.fixture(autouse=True)
 def _polarized():
     mj.set_variant("mono_polarized")
@@ -94,6 +78,30 @@ def blend_slab(integrator="prb_polarized", max_depth=4):
     }
 
 
+@pytest.fixture(scope="module")
+def jax_blend():
+    """w -> (the JAX package's render_1 Stokes vector of blend_slab() with
+    prb_polarized at spp=SPP, seed=SEED, [4]; its gradients of
+    sum(w . render_1) for KEYS): one jax.jit(jax.grad) for the module."""
+    mj.set_variant("mono_polarized")
+    js = mj.load_dict(blend_slab())
+
+    def loss(vals, w):
+        out = mj.render_1(mj.traverse(js).update(dict(zip(KEYS, vals))), spp=SPP, seed=SEED)
+        return jnp.sum(out * w[:, None]), out
+
+    grad = jax.jit(jax.grad(loss, has_aux=True))
+    p = mj.traverse(js)
+    vals = tuple(p[k] for k in KEYS)
+
+    def get(w):
+        g, stokes = grad(vals, jnp.asarray(w, jnp.float32))
+        return (np.asarray(stokes)[:, 0],
+                [float(np.asarray(x).reshape(-1)[0]) for x in g])
+
+    return get
+
+
 def port_grads(d, keys, w, spp=SPP, seed=SEED, stats=None):
     """(Stokes [4, C], {key: gradient of sum(w . Stokes)}) of the port."""
     p = mt.traverse(mt.load_dict(d, device="cpu"))
@@ -103,13 +111,13 @@ def port_grads(d, keys, w, spp=SPP, seed=SEED, stats=None):
     return out.detach().numpy(), {k: v.grad.numpy() for k, v in leaves.items()}
 
 
-def test_prb_polarized_gradients_match_jax():
+def test_prb_polarized_gradients_match_jax(jax_blend):
     """The Mueller replay's gradients of the I- and the Q-weighted losses
-    against the JAX package's (JAX_BLEND; the Q ones need the sensor-frame
-    adjoint and the Stokes-preserving suffix), and its Stokes vector."""
+    against the JAX package's (the Q ones need the sensor-frame adjoint and
+    the Stokes-preserving suffix), and its Stokes vector."""
     d = blend_slab()
     for name, w in WEIGHTS.items():
-        want_stokes, want_g = JAX_BLEND["stokes"], JAX_BLEND[name]
+        want_stokes, want_g = jax_blend(w)
         stats = {}
         got_stokes, got = port_grads(d, KEYS, w, stats=stats)
         np.testing.assert_allclose(got_stokes[:, 0], want_stokes, rtol=1e-5, atol=1e-6)
@@ -185,29 +193,3 @@ def test_sensor_frame_adjoint():
     lhs = (_postprocess(scene, L, d) * dL).sum((1, 2))
     rhs = (L * _postprocess_adjoint(scene, dL, d)).sum((1, 2))
     np.testing.assert_allclose(lhs.numpy(), rhs.numpy(), rtol=1e-5, atol=1e-6)
-
-
-def _jax_blend_constants():
-    """JAX_BLEND, recomputed with the JAX package."""
-    mj.set_variant("mono_polarized")
-    js = mj.load_dict(blend_slab())
-
-    def loss(vals, w):
-        out = mj.render_1(mj.traverse(js).update(dict(zip(KEYS, vals))), spp=SPP, seed=SEED)
-        return jnp.sum(out * w[:, None]), out
-
-    grad = jax.jit(jax.grad(loss, has_aux=True))
-    p = mj.traverse(js)
-    vals = tuple(p[k] for k in KEYS)
-    out = {}
-    for name, w in WEIGHTS.items():
-        g, stokes = grad(vals, jnp.asarray(w))
-        out["stokes"] = np.asarray(stokes)[:, 0].tolist()
-        out[name] = [float(np.asarray(x).reshape(-1)[0]) for x in g]
-    return out
-
-
-if __name__ == "__main__":
-    import json
-
-    print(json.dumps(_jax_blend_constants(), indent=1))
