@@ -42,7 +42,20 @@ user entry points, and checks that each went through its kernels:
   prb_volpathaos in mono_polarized, with volpathaos's Stokes vector of the
   same dict; the polarized atmosphere above through prb_polarized
   (sigma_t and albedo); and the het-vol scene through prbvolpath (the
-  32^3 grid's sigma_t and the albedo of the image mean).
+  32^3 grid's sigma_t and the albedo of the image mean);
+- regenerative inverse rendering: bench.py's vol32 dict with prbvolpath
+  and regenerate (128x128 @ 16 spp, max_depth 32), the gradient of the
+  image mean for the slab's sigma_t and albedo (one warm-up step with
+  every K1 launch held bit for bit against the plain version, one timed
+  step: the iterations and K1 launches of the forward, the backward primal
+  and the replay), its gradients within 1e-3 of the same dict's wavefront
+  prbvolpath step and its image within the regeneration tolerance; reduced
+  regenerative steps against their wavefront steps (the cbox with prb, the
+  polarized Rayleigh slab with volpath and prb_polarized, config 5's
+  ocean with prb_volpathaos);
+- the rest of render() on the cbox at 256x256 @ 64 spp: the integrator
+  override, CancelToken, timeout and render_progressive, each bitwise
+  against the render it must equal.
 
 Any failure raises and exits non-zero.
 
@@ -167,6 +180,10 @@ BAKE_RTOL, BAKE_ATOL_REL = 1e-4, 1e-6
 # the regenerative image against the wavefront image (tests/test_regen.py's
 # volpath tolerance: the same samples, summed in another order)
 REGEN_RTOL, REGEN_ATOL = 3e-4, 3e-5
+# a regenerative PRB gradient against the wavefront PRB gradient at the same
+# seeds, relative to its largest element (the reference's bound between the
+# two schedules, tests/test_regen.py:93-117, :393-414)
+REGEN_GRAD_RTOL = 1e-3
 # the K3 route's gradient against the K1 route's, same seed, per channel
 MMA_GRAD_RTOL = 1e-3
 MEAN_RTOL = 0.03
@@ -1568,11 +1585,12 @@ def phase_atmo(mi, K1, K2, K3):
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def backward_marks(cls, K1, marks):
+def backward_marks(cls, K1, marks, method="sample_backward"):
     """Inside, K1's launch count is appended to `marks` as each call of
-    cls.sample_backward (the replay) begins and as it ends; the backward
-    pass's own primal launches before it."""
-    fn = cls.sample_backward
+    cls.<method> (the replay: sample_backward, or regen_backward under
+    path regeneration) begins and as it ends; the backward pass's own
+    primal launches before it."""
+    fn = getattr(cls, method)
 
     def wrapper(self, *args, **kw):
         marks.append(K1.smem_intersect.launches)
@@ -1580,11 +1598,11 @@ def backward_marks(cls, K1, marks):
         marks.append(K1.smem_intersect.launches)
         return out
 
-    cls.sample_backward = wrapper
+    setattr(cls, method, wrapper)
     try:
         yield
     finally:
-        cls.sample_backward = fn
+        setattr(cls, method, fn)
 
 
 def prb_vol_step(mi, scene, keys, loss, seed, K1=None):
@@ -1599,7 +1617,9 @@ def prb_vol_step(mi, scene, keys, loss, seed, K1=None):
     l0 = K1.smem_intersect.launches if K1 else 0
     out = loss(mi, params.update(leaves), seed, stats)
     l1 = K1.smem_intersect.launches if K1 else 0
-    with backward_marks(type(scene.integrator), K1, marks) if K1 else contextlib.nullcontext():
+    replay = "regen_backward" if scene.integrator.regenerate else "sample_backward"
+    with (backward_marks(type(scene.integrator), K1, marks, replay) if K1
+          else contextlib.nullcontext()):
         out.backward()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1834,6 +1854,271 @@ def phase_hetvol_prb(mi, K1, K2, K3):
     return out
 
 
+# ---------------------------------------------------------------------------
+# regenerative inverse rendering: the regenerative PRB replays through K1
+# ---------------------------------------------------------------------------
+
+def regen_check(name, got, want, rtol):
+    """Each gradient of `got` within rtol (relative to its largest
+    element) of `want`'s, the wavefront step's at the same seeds (the
+    reference's bound between the two schedules); returns the worst
+    relative difference."""
+    worst = 0.0
+    for k in want:
+        diff = float((got[k] - want[k]).abs().max() / want[k].abs().max())
+        log(f"  {name} d/d {k}: regenerate {got[k].reshape(-1)[:3].tolist()} against the "
+            f"wavefront step's {want[k].reshape(-1)[:3].tolist()}: {diff:.3e} relative "
+            f"(rtol {rtol})")
+        if not bool(torch.isfinite(got[k]).all()) or not diff <= rtol:
+            raise AssertionError(f"{name}: the regenerative gradient of {k} is {diff:.3e} "
+                                 "from the wavefront step's")
+        worst = max(worst, diff)
+    return worst
+
+
+def image_loss(images, spp):
+    """loss(mi, scene, seed, stats) = the mean of the render, which it keeps
+    in `images`."""
+    def loss(mi, sc, seed, stats):
+        img = mi.render(sc, spp=spp, seed=seed, stats=stats)
+        images.append(img.detach())
+        return img.mean()
+    return loss
+
+
+def phase_vol32_regen_prb(mi, K1, K2, K3):
+    """This slice's main path: bench.py's vol32 dict (a homogeneous slab,
+    128x128 @ 16 spp, max_depth 32) with prbvolpath and regenerate: the
+    gradient of the image mean for the slab's sigma_t and albedo. One
+    warm-up step with events around each K1 launch and every launch held
+    bit for bit against the plain version (outside the events), one timed
+    step (wall, the three loops' iterations, K1 launches in each, rays,
+    fwd+bwd Mrays/s, peak memory); the gradients and the image against the
+    same dict's wavefront prbvolpath step at the same seeds."""
+    from mitsuba_tpu_torch.render.scene_loader import vol32_scene
+
+    spp = 16
+    keys = ["slab.interior_medium.sigma_t.value.value", "slab.interior_medium.albedo.value.value"]
+
+    def scene_for(regen):
+        d = vol32_scene(spp=spp, regenerate=regen)
+        d["integrator"]["type"] = "prbvolpath"
+        return mi.load_dict(d)
+
+    scene = scene_for(True)
+    name = (f"vol32-regen-prb {scene.film.width}x{scene.film.height} @ {spp} spp, prbvolpath "
+            f"max_depth {scene.integrator.max_depth}, regenerate")
+    images = []
+    loss = image_loss(images, spp)
+
+    def work(*args):
+        return k1_work(*args)
+
+    held, timed = [], []
+    # the held wrapper calls the timed one, so the events hold K1 alone
+    with timed_launches(K1, "smem_intersect", work, timed), k1_held_to_plain(K1, held):
+        _, _, _, warm_wall, _ = prb_vol_step(mi, scene, keys, loss, 0)
+    bitwise = k1_held_summary(f"{name} (warm-up step)", held)
+    per = [(start.elapsed_time(end), k1_bound_ms(w)) for start, end, w in timed]
+    k_ms = sum(m for m, _ in per)
+    b_ms = sum(b["ms"] for _, b in per)
+    del held, timed, per
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(K1, K2, K3)
+    with no_plain_closest_hit(K1, name):
+        out, grads, stats, wall, counts = prb_vol_step(mi, scene, keys, loss, 0, K1)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(K1=K1.smem_intersect.launches, K3=K3.mxu_intersect.launches,
+                    K2=K2.bvh_sweep_intersect.launches + K2.bvh_sweep_occluded.launches)
+    img = images[-1]
+    iters = (stats["wavefront_iters"], stats["wavefront_iters_grad"],
+             stats["wavefront_iters_replay"])
+    rays = stats["n_rays"] + stats["n_rays_grad"]
+    log(f"== main path: {name}: warm-up step (K1 held to plain) {warm_wall:.3f} s, timed step "
+        f"{wall:.4f} s wall; wavefront iterations forward / backward primal / replay {iters}; "
+        f"K1 launches forward / backward primal / replay {counts}; rays forward "
+        f"{stats['n_rays']} + backward {stats['n_rays_grad']} = {rays} "
+        f"({rays / wall / 1e6:.4f} Mrays/s fwd+bwd); peak memory {peak / 2**30:.3f} GiB; "
+        f"launches {launches}; loss {out.item()!r}")
+    if (launches["K2"] or launches["K3"] or min(counts) == 0 or iters[1] != iters[2]
+            or not bool(torch.isfinite(img).all())):
+        raise AssertionError(f"{name}: launches {launches}, K1 {counts}, iterations {iters}")
+    log(f"  {name}: the warm-up step's K1 launches with events around each: {k_ms:.3f} ms in "
+        f"K1 in place ({k_ms / (wall * 1e3):.3%} of the timed step's wall); summed bound "
+        f"{b_ms:.4f} ms")
+
+    wave = scene_for(False)
+    wave_images = []
+    wave_loss = image_loss(wave_images, spp)
+    prb_vol_step(mi, wave, keys, wave_loss, 1)           # warm-up, not counted
+    with no_plain_closest_hit(K1, "vol32 wavefront prbvolpath"):
+        out_w, grads_w, stats_w, wall_w, counts_w = prb_vol_step(mi, wave, keys, wave_loss, 0,
+                                                                 K1)
+    img_w = wave_images[-1]
+    close = torch.isclose(img, img_w, rtol=REGEN_RTOL, atol=REGEN_ATOL)
+    log(f"  vol32 wavefront prbvolpath step at the same seeds: {wall_w:.4f} s wall, K1 "
+        f"{counts_w}, rays {stats_w['n_rays']} + {stats_w['n_rays_grad']}; the regenerative "
+        f"step takes {wall / wall_w:.2f}x its wall; images: {close.float().mean().item():.5%} "
+        f"of values within rtol {REGEN_RTOL} / atol {REGEN_ATOL}")
+    if not bool(close.all()) or (stats["n_rays"], stats["n_rays_grad"]) != (
+            stats_w["n_rays"], stats_w["n_rays_grad"]):
+        raise AssertionError(f"{name}: the primal image or the rays differ from the wavefront "
+                             "step's")
+    worst = regen_check(name, grads, grads_w, REGEN_GRAD_RTOL)
+    return dict(wall=wall, warm_wall=warm_wall, iters=iters, k1=counts, k1_per_step=sum(counts),
+                n_rays=stats["n_rays"], n_rays_grad=stats["n_rays_grad"],
+                mrays=rays / wall / 1e6, peak=peak, loss=out.item(),
+                grads={k: g.reshape(-1)[0].item() for k, g in grads.items()},
+                grad_rel_to_wavefront=worst, wavefront_wall=wall_w, wavefront_k1=counts_w,
+                k1_bitwise_vs_plain=bitwise, k1_step_ms=k_ms, k1_step_bound_ms=b_ms)
+
+
+def rayleigh_slab(mi, integrator, regenerate, res, spp):
+    """tests/test_regen.py:221-245's polarized scene: a thin Rayleigh slab
+    (sigma_t 1, albedo 0.9) under a constant environment, max_depth 4."""
+    return mi.load_dict({
+        "type": "scene",
+        "integrator": {"type": integrator, "max_depth": 4, "regenerate": regenerate},
+        "sensor": {"type": "perspective", "fov": 45,
+                   "to_world": [{"type": "look_at", "origin": [0, 0, 4], "target": [0, 0, 0],
+                                 "up": [0, 1, 0]}],
+                   "film": {"type": "hdrfilm", "width": res, "height": res,
+                            "rfilter": {"type": "box"}},
+                   "sampler": {"type": "independent", "sample_count": spp}},
+        "light": {"type": "constant", "radiance": 1.0},
+        "slab": {"type": "cube", "to_world": [{"type": "scale", "value": [1.0, 1.0, 0.3]}],
+                 "bsdf": {"type": "null"},
+                 "interior": {"type": "homogeneous", "sigma_t": 1.0, "albedo": 0.9,
+                              "phase": {"type": "rayleigh"}}},
+    })
+
+
+def regen_vs_wavefront_step(mi, K1, name, make, keys, spp):
+    """One regenerative PRB step of make(True) and one wavefront step of
+    make(False) at the same seeds, each through K1 alone: the gradients
+    against each other (REGEN_GRAD_RTOL); K1's launches of the
+    regenerative step."""
+    images = []
+    loss = image_loss(images, spp)
+    before = K1.smem_intersect.launches
+    with no_plain_closest_hit(K1, name):
+        _, grads, stats, wall, _ = prb_vol_step(mi, make(True), keys, loss, 0)
+    k1 = K1.smem_intersect.launches - before
+    _, grads_w, _, wall_w, _ = prb_vol_step(mi, make(False), keys, loss, 0)
+    log(f"== {name}: regenerative step {wall:.3f} s (first call), wavefront {wall_w:.3f} s; "
+        f"iterations forward / backward primal / replay ({stats['wavefront_iters']}, "
+        f"{stats['wavefront_iters_grad']}, {stats['wavefront_iters_replay']}); K1 launches {k1}")
+    if k1 == 0:
+        raise AssertionError(f"{name}: no K1 launch")
+    return dict(wall=wall, wavefront_wall=wall_w, k1=k1, iters=stats["wavefront_iters"],
+                grad_rel_to_wavefront=regen_check(name, grads, grads_w, REGEN_GRAD_RTOL))
+
+
+def phase_regen_prb(mi, K1, K2, K3):
+    """Reduced regenerative steps, each against the same dict's wavefront
+    step at the same seeds: the Cornell box with prb (64x64 @ 16 spp,
+    max_depth 8, shadow rays in their own bounce); in mono_polarized the
+    Rayleigh slab (64x64 @ 16 spp) with volpath (the Stokes image against
+    the wavefront image, Q nonzero) and with prb_polarized (the albedo),
+    and config 5's ocean (aos_scene(res=16), 4 spp: the loop's steps grow
+    with the spp, not the lanes) with prb_volpathaos (the atmosphere's
+    sigma_t)."""
+    from mitsuba_tpu_torch.render.scene_loader import aos_scene
+
+    out = {}
+
+    def cbox(regen):
+        d = prb_dict(mi, 64, 16, 8)
+        d["integrator"].update(regenerate=regen, defer_nee=False)
+        return mi.load_dict(d)
+
+    out["cbox_prb"] = regen_vs_wavefront_step(mi, K1, "regen-prb cbox 64x64 @ 16 spp, prb "
+                                              "max_depth 8", cbox, [KEY], 16)
+    mi.set_variant("mono_polarized")
+    try:
+        before = K1.smem_intersect.launches
+        with no_plain_closest_hit(K1, "regen-prb polarized volpath"):
+            img_r, wall_r = render_timed(mi, rayleigh_slab(mi, "volpath", True, 64, 16), 16, 0)
+        k1 = K1.smem_intersect.launches - before
+        img_w, _ = render_timed(mi, rayleigh_slab(mi, "volpath", False, 64, 16), 16, 0)
+        close = torch.isclose(img_r, img_w, rtol=REGEN_RTOL, atol=REGEN_ATOL)
+        q = float(img_w[..., 1, :].abs().max())
+        log(f"== regen-prb polarized Rayleigh slab, volpath 64x64 @ 16 spp: regenerative "
+            f"{wall_r:.3f} s, K1 launches {k1}, Stokes image {tuple(img_r.shape)}: "
+            f"{close.float().mean().item():.5%} of values within rtol {REGEN_RTOL} / atol "
+            f"{REGEN_ATOL} of the wavefront image; max |Q| {q:.4e}")
+        if k1 == 0 or not bool(close.all()) or img_r.shape[-2:] != (4, 1) or q < 1e-4:
+            raise AssertionError("regen-prb polarized volpath: the Stokes image differs")
+        out["slab_volpath"] = dict(wall=wall_r, k1=k1, max_abs_q=q)
+        out["slab_prb_polarized"] = regen_vs_wavefront_step(
+            mi, K1, "regen-prb Rayleigh slab 64x64 @ 16 spp, prb_polarized",
+            lambda r: rayleigh_slab(mi, "prb_polarized", r, 64, 16),
+            ["slab.interior_medium.albedo.value.value"], 16)
+
+        def ocean(regen):
+            d = aos_scene(res=16)
+            d["integrator"]["regenerate"] = regen
+            return mi.load_dict(d)
+
+        out["aos_prb"] = regen_vs_wavefront_step(
+            mi, K1, "regen-prb aos 16x16 @ 4 spp, prb_volpathaos", ocean,
+            ["atmo_medium.sigma_t.value.value"], 4)
+    finally:
+        mi.set_variant("rgb")
+    return out
+
+
+def phase_api(mi, K1, K2, K3):
+    """The rest of render() on the cbox at 256x256 @ 64 spp: the integrator
+    override against a scene loaded with that integrator, a cancelled
+    CancelToken and timeout=0 against the first pass of spp_per_pass 8, and
+    render_progressive's last image against render(spp_per_pass=8), each
+    bitwise; prints the walls."""
+    spp = 64
+    d = prb_dict(mi, 256, spp, 8)
+    d["integrator"] = {"type": "path", "max_depth": 8}
+    scene = mi.load_dict(d)
+    spec = {"type": "path", "max_depth": 4}
+    walls = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = fn()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        return img
+
+    with no_plain_closest_hit(K1, "api"):
+        over = timed("integrator override", lambda: mi.render(scene, spp=spp, seed=0,
+                                                              integrator=spec))
+        loaded = timed("loaded with it", lambda: mi.render(mi.load_dict(dict(d, integrator=spec)),
+                                                           spp=spp, seed=0))
+        steps = []
+        for step in mi.render_progressive(scene, spp=spp, spp_per_pass=8, seed=0):
+            steps.append(step)
+        full = timed("spp_per_pass 8", lambda: mi.render(scene, spp=spp, spp_per_pass=8, seed=0))
+        tok = mi.CancelToken()
+        tok.cancel()
+        cancelled = timed("cancelled", lambda: mi.render(scene, spp=spp, spp_per_pass=8, seed=0,
+                                                         cancel=tok))
+        timeout0 = timed("timeout 0", lambda: mi.render(scene, spp=spp, seed=0, timeout=0.0))
+    checks = {
+        "override == loaded": torch.equal(over, loaded),
+        "progressive passes": [s for s, _ in steps] == list(range(8, spp + 1, 8)),
+        "progressive last == spp_per_pass 8": torch.equal(steps[-1][1], full),
+        "cancelled == first pass": torch.equal(cancelled, steps[0][1]),
+        "timeout 0 == first pass": torch.equal(timeout0, steps[0][1]),
+        "first pass != full": not torch.equal(steps[0][1], full),
+    }
+    log(f"== api cbox 256x256 @ {spp} spp: walls {json.dumps({k: round(v, 4) for k, v in walls.items()})}; "
+        f"checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"api: {checks}")
+    return dict(walls=walls, checks=checks)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one card", file=sys.stderr)
@@ -1883,6 +2168,12 @@ def main():
     atmo_prb = phase_atmo_prb(mi, K1, K2, K3)
     torch.cuda.empty_cache()
     hetvol_prb = phase_hetvol_prb(mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    vol32_regen_prb = phase_vol32_regen_prb(mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    regen_prb = phase_regen_prb(mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    api = phase_api(mi, K1, K2, K3)
 
     per_path = f"{PRB_ITERS} iterations"
     k1_entry["launches"] = cbox_launches
@@ -1897,7 +2188,17 @@ def main():
                                     "atmo pass 64x64 @ 64 spp": atmo["k1_per_pass"][0],
                                     "aos-prb step 32x32 @ 64 spp": aos_prb["k1_per_step"],
                                     "atmo-prb step 64x64 @ 64 spp": atmo_prb["k1_per_step"],
-                                    "hetvol-prb step 96x96 @ 16 spp": hetvol_prb["k1_per_step"]}
+                                    "hetvol-prb step 96x96 @ 16 spp": hetvol_prb["k1_per_step"],
+                                    "vol32-regen-prb step 128x128 @ 16 spp":
+                                        vol32_regen_prb["k1_per_step"],
+                                    "regen-prb cbox prb step 64x64 @ 16 spp":
+                                        regen_prb["cbox_prb"]["k1"],
+                                    "regen-prb slab volpath render 64x64 @ 16 spp":
+                                        regen_prb["slab_volpath"]["k1"],
+                                    "regen-prb slab prb_polarized step 64x64 @ 16 spp":
+                                        regen_prb["slab_prb_polarized"]["k1"],
+                                    "regen-prb aos prb_volpathaos step 16x16 @ 4 spp":
+                                        regen_prb["aos_prb"]["k1"]}
     k1_entry.update(step_k1)
     k1_entry.update(hetvol_pass_launches=hetvol["k1_pass_launches"],
                     hetvol_pass_ms=hetvol["k1_pass_ms"],
@@ -1921,7 +2222,12 @@ def main():
                        for k in ("step_ms", "step_back_to_back_ms", "step_bound_ms")},
                     **{f"{name}_bitwise_vs_plain": r["k1_bitwise_vs_plain"]
                        for name, r in (("aos_prb", aos_prb), ("atmo_prb", atmo_prb),
-                                       ("hetvol_prb", hetvol_prb))})
+                                       ("hetvol_prb", hetvol_prb),
+                                       ("vol32_regen_prb", vol32_regen_prb))},
+                    vol32_regen_prb_step_launches=dict(zip(
+                        ("forward", "backward_primal", "replay"), vol32_regen_prb["k1"])),
+                    vol32_regen_prb_step_ms=vol32_regen_prb["k1_step_ms"],
+                    vol32_regen_prb_step_bound_ms=vol32_regen_prb["k1_step_bound_ms"])
     k3_entry.update(step_k3)
     k3_entry["launches"] = l_mma["K3"]
     k3_entry["launches_by_path"] = {f"cbox prb, K3 route, {per_path}": l_mma["K3"],
@@ -1945,7 +2251,10 @@ def main():
         "atmo": atmo,
         "aos_prb": aos_prb,
         "atmo_prb": atmo_prb,
-        "hetvol_prb": hetvol_prb}
+        "hetvol_prb": hetvol_prb,
+        "vol32_regen_prb": vol32_regen_prb,
+        "regen_prb": regen_prb,
+        "api": api}
     log(f"== chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(report))

@@ -36,7 +36,8 @@ from .core.rng import RNG
 from .core.transform import Transform, build_transform
 from .render.scene_loader import load_dict, cornell_box, atmo_scene, aos_scene
 from .render.params import traverse, SceneParameters
-from .render_api import render, render_1, render_forward
+from .render_api import (CancelToken, render, render_1, render_forward, render_progressive,
+                         render_test)
 from . import ad
 
 __version__ = "0.1.0"

@@ -21,9 +21,13 @@ not a tape through the bounce loop. The path itself (intersections, NEE
 shadow rays, BSDF sampling, Russian roulette) advances detached, exactly as
 the primal does.
 
+``regen_backward`` replays path regeneration (integrators/path.py:
+path_regen_render): one lane per pixel, each restarted on its pixel's next
+sample with that sample's recorded primal radiance, every bounce's tests
+on the lane's own depth.
+
 The volumetric replays (prbvolpath, prb_polarized, prb_volpathaos) are
-ad/prbvolpath.py's. Not ported yet: ``regen_backward``, the regenerative
-replay of path regeneration, for this integrator and the volumetric ones.
+ad/prbvolpath.py's.
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ from dataclasses import dataclass
 
 import torch
 
-from ..integrators.path import PathIntegrator, emitter_mis_weights, mis_weight
+from ..core.rng import lanes_rng
+from ..integrators.path import PathIntegrator, _lanes, emitter_mis_weights, mis_weight, restart
 from ..render.records import Ray, spawn_ray
 
 
@@ -134,17 +139,63 @@ class PRBIntegrator(PathIntegrator):
             n_rays = n_rays + cast
         return grads, n_rays
 
+    def regen_backward(self, scene, leaves, seed, spp, sensor_idx, dL_px, L_samples):
+        """Replay path_regen_render at `seed` and return (the gradients of
+        sum(dL_px * L_px) for each tensor of `leaves`, {"n_rays": rays
+        cast, "wavefront_iters": steps}). Each lane restarts on its pixel's
+        next sample with L = that sample's primal radiance from L_samples
+        [n_pixels, spp, C], a unit throughput and a fresh stream, drawn as
+        the primal drew them; every sample of a pixel takes the pixel's
+        adjoint dL_px [n_pixels, C]. The loop reads from the card once per
+        step whether any lane has work left, as the primal's does."""
+        from ..render_api import wavefront_for
+
+        n = scene.film.n_pixels
+        dev = scene.device
+        max_depth = self.max_depth if self.max_depth > 0 else 1024
+        pix = torch.arange(n, dtype=torch.int64, device=dev)
+        scene_d = detach_scene(scene)
+        scene_att, att = attach_scene(scene, leaves)
+        grads = [torch.zeros_like(x) for x in leaves]
+        dL, L_samples = dL_px.detach(), L_samples.detach()
+        rng0, ray0, _ = wavefront_for(scene_d, seed, pix, torch.zeros_like(pix), spp, sensor_idx)
+        s = _Path(
+            L=torch.zeros_like(L_samples[:, 0]), beta=torch.ones_like(L_samples[:, 0]),
+            eta=torch.ones(n, device=dev), ray_o=ray0.o, ray_d=ray0.d, rng=lanes_rng(rng0, n),
+            active=torch.zeros(n, dtype=torch.bool, device=dev),
+            prev_pdf=torch.ones(n, device=dev),
+            prev_delta=torch.ones(n, dtype=torch.bool, device=dev), prev_p=ray0.o,
+        )
+        s_next = torch.zeros(n, dtype=torch.int64, device=dev)
+        depth = torch.zeros(n, dtype=torch.int64, device=dev)
+        n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+        iters = 0
+        while iters < spp * max_depth + 1 and bool((s.active | (s_next < spp)).any()):
+            regen = ~s.active & (s_next < spp)
+            rng_new, ray_new, _ = wavefront_for(scene_d, seed, pix, s_next, spp, sensor_idx)
+            L_fresh = L_samples[pix, torch.clamp(s_next, max=spp - 1)]
+            s = _Path(**restart(vars(s), regen, rng_new, ray_new, L_fresh))
+            depth = torch.where(regen, 0, depth)
+            s_next = torch.where(regen, s_next + 1, s_next)
+            s, cast = self._bwd_bounce(scene_d, scene_att, att, grads, dL, max_depth, depth, s)
+            depth = depth + 1
+            n_rays = n_rays + cast
+            iters += 1
+        return grads, {"n_rays": n_rays, "wavefront_iters": iters}
+
     def _bwd_bounce(self, scene_d, scene_att, att, grads, dL, max_depth, depth, s):
         """One replay bounce: adds the bounce's VJP into `grads` and returns
-        (the next state, the rays this bounce cast)."""
+        (the next state, the rays this bounce cast). `depth` is the bounce's
+        index, one int for every lane (the wavefront) or an int64 tensor per
+        lane (the regenerative replay)."""
         nee = self.use_nee
         rng = s.rng
         si = scene_d.ray_intersect(Ray.make(s.ray_o, s.ray_d), s.active)
-        hide = self.hide_emitters and depth == 0
+        shown = (depth != 0) | (not self.hide_emitters)
 
         # ---- detached MIS weights of emitter hits and escaped rays ----
-        escaped = s.active & ~si.is_valid & (not hide)
-        hit_em = s.active & si.is_valid & (not hide)
+        escaped = _lanes(shown, s.active & ~si.is_valid)
+        hit_em = _lanes(shown, s.active & si.is_valid)
         w_env, w_em = emitter_mis_weights(scene_d, nee, si, s.ray_d, s.prev_pdf,
                                           s.prev_delta, s.prev_p)
 
@@ -216,10 +267,12 @@ class PRBIntegrator(PathIntegrator):
         beta = s.beta * bsdf_weight_d
         eta = s.eta * bs.eta
         alive = active_next & (bs.pdf > 0) & torch.any(beta > 0, dim=-1)
-        if depth + 1 >= self.rr_depth:
+        rr = depth + 1 >= self.rr_depth
+        if rr is not False:
             q = torch.clamp(torch.amax(beta, dim=-1) * eta * eta, max=0.95)
-            beta = torch.where(alive[..., None], beta / torch.clamp(q, min=1e-6)[..., None], beta)
-            alive = alive & (u_rr < q)
+            beta = torch.where(_lanes(rr, alive)[..., None],
+                               beta / torch.clamp(q, min=1e-6)[..., None], beta)
+            alive = alive & (u_rr < q if rr is True else ~rr | (u_rr < q))
         cast = s.active.sum() + (active_next.sum() if nee else 0)
         return _Path(
             L=L_next, beta=beta, eta=eta, ray_o=new_ray.o, ray_d=new_ray.d, rng=rng,

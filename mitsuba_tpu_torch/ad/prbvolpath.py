@@ -31,7 +31,10 @@ In a polarized variant (prb_polarized) the throughput is a Mueller chain
 every Stokes component, and w_dir takes the per-event intensity ratio of
 the Mueller eval (ad/prb_polarized.py).
 
-Not ported yet: ``regen_backward``, the regenerative replay.
+``regen_backward`` (volumetric_regen_backward) replays path regeneration
+(integrators/volpath.py:volpath_regen_render) for all three: each lane
+restarts on its pixel's next sample with that sample's primal radiance
+and the pixel's adjoint pulled back through the flush, the lane's own.
 """
 from __future__ import annotations
 
@@ -46,10 +49,14 @@ from ..integrators.volpath import (
     advance,
     emission,
     estimate_transmittance,
+    lanes_where,
     nee_eval,
     nee_setup,
+    regen_fresh,
+    regen_start,
     segment_events,
     track_segment,
+    volpath_restart,
 )
 from ..render.records import Ray
 from ..render.spectrum_ops import get_ops
@@ -87,8 +94,9 @@ class VolumeReplay:
             n_rays = n_rays + cast
         return grads, n_rays
 
-    def regen_backward(self, *args, **kw):
-        raise NotImplementedError("the regenerative PRB replay is not yet ported")
+    def regen_backward(self, scene, leaves, seed, spp, sensor_idx, dL_px, L_samples):
+        return volumetric_regen_backward(self, scene, leaves, seed, spp, sensor_idx, dL_px,
+                                         L_samples)
 
     def _replay_nee(self, scene_d, sc, ops, s, ev, beta, u0, u2a, u2r, rng):
         """volpath's NEE, detached and attached: (its detached radiance, its
@@ -188,6 +196,62 @@ class VolumeReplay:
         return dict(s, L=L_next, rng=rng,
                     **advance(self, scene_d, ops, s, ev, beta, wo_ph, w_ph_det, pdf_ph, bs,
                               bw_det, nee_active, ref_p, u_rr)), cast
+
+
+def volumetric_regen_backward(integrator, scene, leaves, seed, spp, sensor_idx, dL_px,
+                              L_samples):
+    """Replay volpath_regen_render at `seed` and return (the gradients of
+    sum(dL_px * L_px) for each tensor of `leaves`, {"n_rays": rays cast,
+    "wavefront_iters": steps}). A lane restarts as the primal's does (the
+    same fresh draws, the integrator's extra state reset) with L = its
+    sample's primal radiance from L_samples and dL = the pixel's adjoint
+    dL_px pulled back through the flush: the identity, or in a polarized
+    variant the transpose of the flush's rotation at the sample's camera
+    ray. The loop reads from the card once per step whether any lane has
+    work left, as the primal's does."""
+    from ..render_api import sensor_stokes_rotation
+
+    n = scene.film.n_pixels
+    nc = scene.n_channels
+    if nc not in (1, 3) and not scene.polarized:
+        raise NotImplementedError("the regenerative replay in a spectral variant (the adjoint "
+                                  "of the sRGB conversion at each flush) is not yet ported")
+    ops = get_ops(scene.polarized)
+    max_depth, max_segments = integrator._budgets()
+    dev = scene.device
+    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    scene_d = detach_scene(scene)
+    scene_att, att = attach_scene(scene, leaves)
+    grads = [torch.zeros_like(x) for x in leaves]
+    dL_px, L_samples = dL_px.detach(), L_samples.detach()
+    fresh = regen_fresh(scene_d, seed, spp, sensor_idx)
+    extra0 = integrator._regen_extra(n, scene)
+
+    def lane_dL(cam_d):
+        """The film adjoint pulled back through a flush at cam_d."""
+        if scene.polarized:
+            return torch.einsum("nji,ncj->nci", sensor_stokes_rotation(cam_d), dL_px)
+        return dL_px
+
+    rng0, ray0, ch0 = fresh(torch.zeros(n, dtype=torch.int64, device=dev))
+    L0 = torch.zeros_like(L_samples[:, 0])
+    s = dict(regen_start(scene_d, ops, ray0, ch0, rng0, L0, extra0), dL=L0)
+    n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    iters = 0
+    while iters < spp * max_segments + 1 and _any(s["active"] | (s["s_next"] < spp)):
+        regen = ~s["active"] & (s["s_next"] < spp)
+        rng_new, ray_new, ch_new = fresh(s["s_next"])
+        L_fresh = L_samples[pix, torch.clamp(s["s_next"], max=spp - 1)]
+        s = dict(
+            volpath_restart(scene_d, ops, s, regen, rng_new, ray_new, ch_new, L_fresh, extra0),
+            dL=lanes_where(regen, lane_dL(ray_new.d), s["dL"]),
+            s_next=torch.where(regen, s["s_next"] + 1, s["s_next"]),
+        )
+        s, cast = integrator._bwd_bounce(scene_d, scene_att, att, grads, ops, s["dL"], max_depth,
+                                         s)
+        n_rays = n_rays + cast
+        iters += 1
+    return grads, {"n_rays": n_rays, "wavefront_iters": iters}
 
 
 @dataclass(frozen=True)

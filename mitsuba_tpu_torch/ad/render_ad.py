@@ -21,8 +21,12 @@ pass's fresh lanes. With ``spp_grad`` the backward pass takes its own sample
 count: the per-lane adjoint is refolded to it, which is exact for these
 mean-develop films.
 
-Not ported: the regenerative ``prb_regen_px`` (with the regenerative
-replay).
+Under path regeneration (``regenerate``) the boundary is the per-pixel
+sample sum instead (``prb_regen_px``): the forward is the integrator's
+regenerative render, the backward a fresh regenerative render at
+``seed_grad`` that records each sample's radiance, and the regenerative
+replay from those radiances. The measurement conversion happens at each
+path's flush inside both loops, so the node's cotangent is the film's.
 """
 from __future__ import annotations
 
@@ -128,6 +132,52 @@ def prb_pass_lanes(scene, seed, seed_grad, lane0, n, pass_base, spp_pass, spp_to
                 sensor_idx=sensor_idx, spp_grad=spp_grad, stats=stats)
     L = PRBPassLanes.apply(args, *grad_leaves(scene))
     return L, args["aux"]
+
+
+class PRBRegenPixels(torch.autograd.Function):
+    """The per-pixel sample sums L_px [n_pixels, C] (polarized: sensor-frame
+    Stokes [n_pixels, C, 4]) of a regenerative render, with PRB gradients
+    for the scene tensors given as inputs. `args` holds everything else."""
+
+    @staticmethod
+    def forward(ctx, args, *leaves):
+        scene = args["scene"]
+        with torch.no_grad():
+            L_px, args["aux"] = scene.integrator.regen_render(scene, args["seed"], args["spp"],
+                                                              args["sensor_idx"])
+        ctx.args, ctx.leaves = args, leaves
+        return L_px
+
+    @staticmethod
+    def backward(ctx, dL_px):
+        a = ctx.args
+        scene = a["scene"]
+        with torch.no_grad():
+            _, aux = scene.integrator.regen_render(detach_scene(scene), a["seed_grad"], a["spp"],
+                                                   a["sensor_idx"], record_samples=True)
+        grads, rep = scene.integrator.regen_backward(scene, ctx.leaves, a["seed_grad"], a["spp"],
+                                                     a["sensor_idx"], dL_px, aux["L_samples"])
+        stats = a["stats"]
+        if stats is not None:
+            stats["n_rays_grad"] = (stats.get("n_rays_grad", 0) + int(aux["n_rays"])
+                                    + int(rep["n_rays"]))
+            stats["wavefront_iters_grad"] = aux["wavefront_iters"]
+            stats["wavefront_iters_replay"] = rep["wavefront_iters"]
+        return (None, *grads)
+
+
+def prb_regen_px(scene, seed, seed_grad, spp, sensor_idx=0, stats=None):
+    """(L_px, the per-pixel sample sums of the integrator's regenerative
+    render at `seed`, its {"n_rays", "wavefront_iters"}) with PRB gradients
+    for the scene's tensors that require grad, replayed at `seed_grad`.
+    When `stats` is a dict, the backward pass adds the rays it casts (its
+    primal and the replay) to stats["n_rays_grad"] and sets the steps of
+    its primal and replay loops (wavefront_iters_grad,
+    wavefront_iters_replay)."""
+    args = dict(scene=scene, seed=seed, seed_grad=seed_grad, spp=spp, sensor_idx=sensor_idx,
+                stats=stats)
+    L_px = PRBRegenPixels.apply(args, *grad_leaves(scene))
+    return L_px, args["aux"]
 
 
 def derive_seed_grad(seed, seed_grad=None):

@@ -11,10 +11,10 @@ too), and ``prb``, ``prb_basic`` and ``prbvolpath`` are the Mueller replay
 ``ValueError``. The volumetric PRB integrators take only ``max_depth``,
 ``rr_depth`` and ``hide_emitters`` from the spec, as the reference's do.
 
-``regenerate`` is taken by the forward integrators ``path``, ``volpath``
-and ``volpathaos`` in the unpolarized variants. The PRB integrators refuse
-it until their regenerative backward replay is ported, and a polarized
-variant refuses it until the Stokes rotation at each path's flush is."""
+``regenerate`` (path regeneration: one lane per pixel, a finished path
+restarts on its pixel's next sample) is taken by every integrator here,
+in every ported variant: the forward ones render with the regenerative
+loop, and the PRB ones also replay it in their backward pass."""
 from __future__ import annotations
 
 from ..variant import current_variant
@@ -37,18 +37,11 @@ def make_integrator(spec):
         t = "prb_polarized"
     if t == "prb_polarized" and not polarized:
         raise ValueError("prb_polarized requires a *_polarized variant")
-    if regenerate and polarized:
-        raise NotImplementedError(
-            "regenerate in a polarized variant (the Stokes rotation at each path's "
-            "flush) is not yet ported")
-    if regenerate and t not in ("path", "volpath", "volpathaos"):
-        raise NotImplementedError(
-            "regenerate with a PRB integrator (its regenerative backward replay) "
-            "is not yet ported")
     kw = dict(
         max_depth=int(spec.get("max_depth", 8)),
         rr_depth=int(spec.get("rr_depth", 5)),
         hide_emitters=bool(spec.get("hide_emitters", False)),
+        regenerate=regenerate,
     )
     if t == "volpath":
         from .volpath import VolPathIntegrator
@@ -59,12 +52,11 @@ def make_integrator(spec):
             track_steps=int(spec.get("track_steps", 32)),
             nee_crossings=int(spec.get("nee_crossings", 4)),
             nee_steps=int(spec.get("nee_steps", 32)),
-            regenerate=regenerate,
         )
     if t == "volpathaos":
         from .volpathaos import VolPathAOSIntegrator
 
-        return VolPathAOSIntegrator(**kw, regenerate=regenerate)
+        return VolPathAOSIntegrator(**kw)
     if t in ("prbvolpath", "prb_unpolarized"):
         from ..ad.prbvolpath import PRBVolpathIntegrator
 
@@ -81,7 +73,7 @@ def make_integrator(spec):
     if t == "path":
         from .path import PathIntegrator
 
-        return PathIntegrator(**kw, regenerate=regenerate)
+        return PathIntegrator(**kw)
     from ..ad.prb import PRBIntegrator
 
     # prb_basic is the pure BSDF-sampling estimator: no NEE, no MIS

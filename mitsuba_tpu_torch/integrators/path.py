@@ -18,9 +18,9 @@ next-event estimation, no MIS: emitter hits count at full weight), the
 semantics of ``prb_basic``; the random numbers are drawn in the same order
 either way.
 
-``path_regen_render`` is the regenerative schedule of the same estimator
-(forward only): one lane per pixel, and a lane whose path ends starts its
-pixel's next sample.
+``path_regen_render`` is the regenerative schedule of the same estimator:
+one lane per pixel, and a lane whose path ends starts its pixel's next
+sample. ``PRBIntegrator.regen_backward`` (ad/prb.py) replays it.
 """
 from __future__ import annotations
 
@@ -50,11 +50,11 @@ class PathIntegrator:
     defer_nee: bool = True
     # next-event estimation with MIS; False gives prb_basic's estimator
     use_nee: bool = True
-    # path regeneration (path_regen_render), forward renders only
+    # path regeneration (path_regen_render; a PRB integrator replays it)
     regenerate: bool = False
 
-    def regen_render(self, scene, seed, spp, sensor_idx):
-        return path_regen_render(self, scene, seed, spp, sensor_idx)
+    def regen_render(self, scene, seed, spp, sensor_idx, record_samples=False):
+        return path_regen_render(self, scene, seed, spp, sensor_idx, record_samples)
 
     def sample(self, scene, rng, ray, active):
         """Radiance [N, 3] along each ray and {"n_rays": rays cast}: one
@@ -203,7 +203,37 @@ def emitter_mis_weights(scene, nee, si, ray_d, prev_pdf, prev_delta, prev_p):
     return mis_weight(prev_pdf, env_pdf), mis_weight(prev_pdf, em_pdf)
 
 
-def path_regen_render(integrator, scene, seed, spp, sensor_idx):
+def restart(s, regen, rng_new, ray_new, L_new):
+    """Path state `s` (a dict) with the lanes of `regen` restarted on the
+    camera ray ray_new and the stream rng_new: radiance L_new, unit
+    throughput and eta, and the previous vertex reset to the camera. The
+    regenerative render (L_new 0) and its PRB replay (L_new the sample's
+    primal radiance) share it."""
+    r1 = regen[..., None]
+    return dict(
+        s,
+        L=torch.where(r1, L_new, s["L"]),
+        beta=torch.where(r1, 1.0, s["beta"]),
+        eta=torch.where(regen, 1.0, s["eta"]),
+        ray_o=torch.where(r1, ray_new.o, s["ray_o"]),
+        ray_d=torch.where(r1, ray_new.d, s["ray_d"]),
+        rng=merge_rng(rng_new, s["rng"], regen),
+        prev_pdf=torch.where(regen, 1.0, s["prev_pdf"]),
+        prev_delta=torch.where(regen, True, s["prev_delta"]),
+        prev_p=torch.where(r1, ray_new.o, s["prev_p"]),
+        active=s["active"] | regen,
+    )
+
+
+def record_flush(L_samples, cur_sample, mask, L):
+    """L_samples[pixel, cur_sample] += L on the lanes of `mask` (one lane
+    per pixel, so no two lanes write one row)."""
+    pix = torch.arange(L.shape[0], dtype=torch.int64, device=L.device)
+    m = mask.reshape(mask.shape + (1,) * (L.ndim - 1))
+    L_samples[pix, cur_sample] += torch.where(m, L, 0.0)
+
+
+def path_regen_render(integrator, scene, seed, spp, sensor_idx, record_samples=False):
     """Regenerative wavefront of the surface path tracer: one lane per
     pixel, and a lane whose path ends starts its pixel's next sample, so
     iterations drop from spp * max_depth to about spp times the mean path
@@ -211,9 +241,10 @@ def path_regen_render(integrator, scene, seed, spp, sensor_idx):
     (RNG keyed by (pixel, sample), a dimension counter per lane); its shadow
     rays are traced in their own bounce (no deferred NEE). Returns (L_px
     [n_pixels, C], the sum of each pixel's samples, {"n_rays",
-    "wavefront_iters"}). The loop reads from the card, once per step,
-    whether any lane has work left; it stops there or after
-    spp * max_depth + 1 steps."""
+    "wavefront_iters"}); with `record_samples` also "L_samples" [n_pixels,
+    spp, C], each finished sample's radiance, which the PRB replay starts
+    from. The loop reads from the card, once per step, whether any lane has
+    work left; it stops there or after spp * max_depth + 1 steps."""
     from ..render_api import wavefront_for
 
     n = scene.film.n_pixels
@@ -226,6 +257,7 @@ def path_regen_render(integrator, scene, seed, spp, sensor_idx):
     s = dict(
         n_rays=torch.zeros((), dtype=torch.int64, device=dev),
         s_next=torch.zeros(n, dtype=torch.int64, device=dev),
+        cur_sample=torch.zeros(n, dtype=torch.int64, device=dev),
         depth=torch.zeros(n, dtype=torch.int64, device=dev),
         L_px=torch.zeros(n, nc, **f32),
         L=torch.zeros(n, nc, **f32),
@@ -239,26 +271,20 @@ def path_regen_render(integrator, scene, seed, spp, sensor_idx):
         prev_delta=torch.ones(n, dtype=torch.bool, device=dev),
         prev_p=ray0.o,
     )
+    L_samples = torch.zeros(n, spp, nc, **f32) if record_samples else None
     iters = 0
     while iters < spp * max_depth + 1 and bool((s["active"] | (s["s_next"] < spp)).any()):
         # ---- regenerate the lanes whose path ended ----
         regen = ~s["active"] & (s["s_next"] < spp)
         rng_new, ray_new, _ = wavefront_for(scene, seed, pix, s["s_next"], spp, sensor_idx)
-        r1 = regen[..., None]
+        if record_samples:
+            # the flushed radiance is the sample the lane held before
+            record_flush(L_samples, s["cur_sample"], regen & (s["s_next"] > 0), s["L"])
         s = dict(
-            s,
-            L_px=s["L_px"] + torch.where(r1, s["L"], 0.0),
-            L=torch.where(r1, 0.0, s["L"]),
-            beta=torch.where(r1, 1.0, s["beta"]),
-            eta=torch.where(regen, 1.0, s["eta"]),
-            ray_o=torch.where(r1, ray_new.o, s["ray_o"]),
-            ray_d=torch.where(r1, ray_new.d, s["ray_d"]),
-            rng=merge_rng(rng_new, s["rng"], regen),
+            restart(s, regen, rng_new, ray_new, 0.0),
+            L_px=s["L_px"] + torch.where(regen[..., None], s["L"], 0.0),
             depth=torch.where(regen, 0, s["depth"]),
-            prev_pdf=torch.where(regen, 1.0, s["prev_pdf"]),
-            prev_delta=torch.where(regen, True, s["prev_delta"]),
-            prev_p=torch.where(r1, ray_new.o, s["prev_p"]),
-            active=s["active"] | regen,
+            cur_sample=torch.where(regen, s["s_next"], s["cur_sample"]),
             s_next=torch.where(regen, s["s_next"] + 1, s["s_next"]),
         )
 
@@ -272,5 +298,9 @@ def path_regen_render(integrator, scene, seed, spp, sensor_idx):
                  prev_pdf=b.bs.pdf, prev_delta=b.bs.delta, prev_p=si.p)
         iters += 1
     # a lane leaves the loop inactive unless the step cap cut its path
-    L_px = s["L_px"] + torch.where(s["active"][..., None], 0.0, s["L"])
-    return L_px, {"n_rays": s["n_rays"], "wavefront_iters": iters}
+    final = torch.where(s["active"][..., None], 0.0, s["L"])
+    aux = {"n_rays": s["n_rays"], "wavefront_iters": iters}
+    if record_samples:
+        record_flush(L_samples, s["cur_sample"], s["s_next"] > 0, final)
+        aux["L_samples"] = L_samples
+    return s["L_px"] + final, aux

@@ -15,7 +15,8 @@ In a polarized variant the throughput is a Mueller matrix [N, C, 4, 4] and
 the radiance a Stokes vector [N, C, 4] (spectrum_ops.MuellerOps): the NEE
 and the sampled direction are weighted by the world-frame Mueller matrices
 of the phase or BSDF, and draw no random number more than the unpolarized
-path. The regenerative schedule is unpolarized only.
+path. The regenerative schedule rotates each finished path's Stokes
+vector into the sensor frame by that path's own camera ray.
 
 Random numbers are drawn unconditionally and in a fixed order, so each lane
 consumes the same (lane, dim) counters as in the JAX package. The loops are
@@ -37,7 +38,7 @@ import torch
 from ..core.rng import lanes_rng, merge_rng
 from ..render.records import MediumInteraction, Ray, spawn_ray
 from ..render.spectrum_ops import get_ops
-from .path import mis_weight
+from .path import mis_weight, record_flush
 
 
 def sample_channel(u, n_channels):
@@ -462,45 +463,68 @@ class VolPathIntegrator:
         volpathaos keeps its refractive-interface memory in it)."""
         return {}
 
-    def regen_render(self, scene, seed, spp, sensor_idx):
-        return volpath_regen_render(self, scene, seed, spp, sensor_idx)
+    def regen_render(self, scene, seed, spp, sensor_idx, record_samples=False):
+        return volpath_regen_render(self, scene, seed, spp, sensor_idx, record_samples)
 
 
-def volpath_regen_render(integrator, scene, seed, spp, sensor_idx):
-    """Regenerative volumetric wavefront: one lane per pixel, and a lane
-    whose path ends starts its pixel's next sample in the same step. Every
-    sample draws the numbers it draws in the plain wavefront (its RNG is
-    keyed by (pixel, sample) and its dimension counter is per lane), so
-    only the schedule changes. Returns (L_px [n_pixels, C], the sum of each
-    pixel's samples, {"n_rays", "wavefront_iters"}).
-
-    The loop reads from the card, once per step, whether any lane has work
-    left; it stops there or after spp * max_segments + 1 steps."""
+def regen_fresh(scene, seed, spp, sensor_idx):
+    """fresh(sidx) -> (rng, ray, channel): the stream, camera ray and hero
+    channel of each pixel's sample sidx, drawn as the wavefront draws them.
+    The regenerative render and its PRB replay share it."""
     from ..render_api import wavefront_for
 
-    film = scene.film
-    n = film.n_pixels
-    nc = scene.n_channels
-    ops = get_ops(scene.polarized)
-    max_depth, max_segments = integrator._budgets()
-    dev = scene.device
-    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    n = scene.film.n_pixels
+    pix = torch.arange(n, dtype=torch.int64, device=scene.device)
 
     def fresh(sidx):
         rng_f, ray_f, _ = wavefront_for(scene, seed, pix, sidx, spp, sensor_idx)
-        rng_f = lanes_rng(rng_f, n)
-        u_ch, _, rng_f = rng_f.next_2d()
-        return rng_f, ray_f, sample_channel(u_ch, nc)
+        u_ch, _, rng_f = lanes_rng(rng_f, n).next_2d()
+        return rng_f, ray_f, sample_channel(u_ch, scene.n_channels)
 
-    rng0, ray0, ch0 = fresh(torch.zeros(n, dtype=torch.int64, device=dev))
-    extra0 = integrator._regen_extra(n, scene)
-    s = dict(
-        n_rays=torch.zeros((), dtype=torch.int64, device=dev),
+    return fresh
+
+
+def lanes_where(m, a, b):
+    """torch.where with the per-lane mask m [N] broadcast over the lane's
+    trailing dimensions (a or b may be a Python number)."""
+    nd = max(x.ndim for x in (a, b) if torch.is_tensor(x))
+    return torch.where(m.reshape(m.shape + (1,) * (nd - 1)), a, b)
+
+
+def volpath_restart(scene, ops, s, regen, rng_new, ray_new, ch_new, L_new, extra0):
+    """Volumetric path state `s` with the lanes of `regen` restarted on a
+    fresh sample: radiance L_new, unit throughput, the camera's medium, the
+    new hero channel and stream, the previous vertex reset, and the
+    integrator's extra state (`extra0`) reset."""
+    n, nc = regen.shape[0], scene.n_channels
+    return dict(
+        s,
+        L=lanes_where(regen, L_new, s["L"]),
+        beta=lanes_where(regen, ops.one(n, nc, regen.device), s["beta"]),
+        ray_o=lanes_where(regen, ray_new.o, s["ray_o"]),
+        ray_d=lanes_where(regen, ray_new.d, s["ray_d"]),
+        medium=torch.where(regen, scene.camera_medium, s["medium"]),
+        channel=torch.where(regen, ch_new, s["channel"]),
+        rng=merge_rng(rng_new, s["rng"], regen),
+        depth=torch.where(regen, 0, s["depth"]),
+        prev_pdf=torch.where(regen, 1.0, s["prev_pdf"]),
+        prev_delta=torch.where(regen, True, s["prev_delta"]),
+        prev_p=lanes_where(regen, ray_new.o, s["prev_p"]),
+        active=s["active"] | regen,
+        **{k: lanes_where(regen, v, s[k]) for k, v in extra0.items()},
+    )
+
+
+def regen_start(scene, ops, ray0, ch0, rng0, L0, extra0):
+    """The regenerative loops' state before their first step: every lane
+    inactive, waiting for its pixel's sample 0."""
+    n = ray0.o.shape[0]
+    dev = scene.device
+    return dict(
         s_next=torch.zeros(n, dtype=torch.int64, device=dev),
-        L_px=torch.zeros(n, nc, dtype=torch.float32, device=dev),
         depth=torch.zeros(n, dtype=torch.int64, device=dev),
-        L=ops.zero_radiance(n, nc, dev),
-        beta=ops.one(n, nc, dev),
+        L=L0,
+        beta=ops.one(n, scene.n_channels, dev),
         ray_o=ray0.o,
         ray_d=ray0.d,
         medium=torch.full((n,), scene.camera_medium, dtype=torch.int64, device=dev),
@@ -512,33 +536,70 @@ def volpath_regen_render(integrator, scene, seed, spp, sensor_idx):
         prev_p=ray0.o,
         **extra0,
     )
+
+
+def volpath_regen_render(integrator, scene, seed, spp, sensor_idx, record_samples=False):
+    """Regenerative volumetric wavefront: one lane per pixel, and a lane
+    whose path ends starts its pixel's next sample in the same step. Every
+    sample draws the numbers it draws in the plain wavefront (its RNG is
+    keyed by (pixel, sample) and its dimension counter is per lane), so
+    only the schedule changes. Returns (L_px, the sum of each pixel's
+    samples, {"n_rays", "wavefront_iters"}): [n_pixels, C], or in a
+    polarized variant the Stokes vectors [n_pixels, C, 4] in the sensor
+    frame, each finished path rotated there by its own camera ray (cam_d)
+    as it is flushed. With `record_samples` the aux also holds "L_samples"
+    [n_pixels, spp, C] ([n_pixels, spp, C, 4]), each sample's radiance in
+    the integrator's frame, which the PRB replay starts from.
+
+    The loop reads from the card, once per step, whether any lane has work
+    left; it stops there or after spp * max_segments + 1 steps."""
+    from ..render_api import to_sensor_mueller
+
+    n = scene.film.n_pixels
+    nc = scene.n_channels
+    if nc not in (1, 3) and not scene.polarized:
+        raise NotImplementedError("regenerate in a spectral variant (the sRGB conversion at "
+                                  "each path's flush) is not yet ported")
+    ops = get_ops(scene.polarized)
+    max_depth, max_segments = integrator._budgets()
+    dev = scene.device
+    fresh = regen_fresh(scene, seed, spp, sensor_idx)
+    extra0 = integrator._regen_extra(n, scene)
+
+    def finish(L, cam_d):
+        """A finished path's value on the film."""
+        return to_sensor_mueller(cam_d, L) if scene.polarized else L
+
+    rng0, ray0, ch0 = fresh(torch.zeros(n, dtype=torch.int64, device=dev))
+    L0 = ops.zero_radiance(n, nc, dev)
+    s = dict(regen_start(scene, ops, ray0, ch0, rng0, L0, extra0),
+             n_rays=torch.zeros((), dtype=torch.int64, device=dev),
+             L_px=torch.zeros_like(L0), cam_d=ray0.d,
+             cur_sample=torch.zeros(n, dtype=torch.int64, device=dev))
+    L_samples = torch.zeros((n, spp) + L0.shape[1:], dtype=torch.float32,
+                            device=dev) if record_samples else None
     iters = 0
     while iters < spp * max_segments + 1 and _any(s["active"] | (s["s_next"] < spp)):
         regen = ~s["active"] & (s["s_next"] < spp)
         rng_new, ray_new, ch_new = fresh(s["s_next"])
-        r1 = regen[..., None]
+        if record_samples:
+            # the flushed radiance is the sample the lane held before
+            record_flush(L_samples, s["cur_sample"], regen & (s["s_next"] > 0), s["L"])
         s = dict(
-            s,
+            volpath_restart(scene, ops, s, regen, rng_new, ray_new, ch_new, 0.0, extra0),
             # flush the finished path into its pixel
-            L_px=s["L_px"] + torch.where(r1, s["L"], 0.0),
-            L=torch.where(r1, 0.0, s["L"]),
-            beta=torch.where(r1, 1.0, s["beta"]),
-            ray_o=torch.where(r1, ray_new.o, s["ray_o"]),
-            ray_d=torch.where(r1, ray_new.d, s["ray_d"]),
-            medium=torch.where(regen, scene.camera_medium, s["medium"]),
-            channel=torch.where(regen, ch_new, s["channel"]),
-            rng=merge_rng(rng_new, s["rng"], regen),
-            depth=torch.where(regen, 0, s["depth"]),
-            prev_pdf=torch.where(regen, 1.0, s["prev_pdf"]),
-            prev_delta=torch.where(regen, True, s["prev_delta"]),
-            prev_p=torch.where(r1, ray_new.o, s["prev_p"]),
-            active=s["active"] | regen,
+            L_px=s["L_px"] + lanes_where(regen, finish(s["L"], s["cam_d"]), 0.0),
+            cam_d=lanes_where(regen, ray_new.d, s["cam_d"]),
+            cur_sample=torch.where(regen, s["s_next"], s["cur_sample"]),
             s_next=torch.where(regen, s["s_next"] + 1, s["s_next"]),
-            **{k: torch.where(regen.reshape((n,) + (1,) * (v.ndim - 1)), v, s[k])
-               for k, v in extra0.items()},
         )
         s = integrator._bounce(scene, ops, max_depth, s)
         iters += 1
     # every lane ends inactive: flush each lane's last path
-    L_px = s["L_px"] + torch.where((s["s_next"] > 0)[..., None], s["L"], 0.0)
-    return L_px, {"n_rays": s["n_rays"], "wavefront_iters": iters}
+    started = s["s_next"] > 0
+    L_px = s["L_px"] + lanes_where(started, finish(s["L"], s["cam_d"]), 0.0)
+    aux = {"n_rays": s["n_rays"], "wavefront_iters": iters}
+    if record_samples:
+        record_flush(L_samples, s["cur_sample"], started, s["L"])
+        aux["L_samples"] = L_samples
+    return L_px, aux

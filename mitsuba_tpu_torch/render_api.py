@@ -12,8 +12,11 @@ with another device.
 
 Polarized variants carry Stokes radiance [N, C, 4] per lane; render_lanes
 rotates each lane's Stokes vector into the sensor's shared frame before
-lanes are summed. ``render`` returns [H, W, 4, C] for them and
-``render_1``, the radiometer render, [4, C].
+lanes are summed. ``render`` returns [H, W, 4, C] for them,
+``render_1``, the radiometer render, [4, C], and ``render_test``, the
+multi-view measurement, [views, 4, C]. ``render_progressive`` yields the
+image after every pass; ``render``'s ``timeout`` and ``cancel``
+(``CancelToken``) stop it at a pass boundary.
 
 Gradients: with the ``path`` integrator, ``render`` is differentiable by
 ordinary autograd through the bounce loop (tape mode: every bounce's
@@ -21,15 +24,17 @@ tensors stay alive until the backward pass). With a PRB integrator
 (``prb``, ``prb_basic``, ``prbvolpath``, ``prb_polarized``,
 ``prb_volpathaos``), each pass of ``render`` and ``render_1`` is one
 autograd node whose backward replays the paths (ad/render_ad.py), in
-O(wavefront + parameters) memory.
+O(wavefront + parameters) memory; with ``regenerate`` the node is the
+regenerative loop's per-pixel sums, and its backward replays that loop.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
-from .ad.render_ad import derive_seed_grad, prb_pass
+from .ad.render_ad import derive_seed_grad, prb_pass, prb_regen_px
 from .core.rng import MASK32, RNG
 from .core.frame import cross, normalize
 from .render import mueller as mu
@@ -129,63 +134,132 @@ def render_lanes(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_i
 WEIGHTED_FILTERS = ("mitchell", "catmullrom", "lanczos")
 
 
-def render(scene, params=None, sensor=0, seed=0, spp=None, spp_per_pass=None,
-           seed_grad=None, spp_grad=None, stats=None):
-    """Render to an image tensor [H, W, C] on scene.device ([H, W, 4, C]
-    Stokes in a polarized variant; mirrors mi.render). `params` may be a SceneParameters whose scene is rendered.
-    An integrator with ``regenerate`` takes the regenerative loop: one
-    lane per pixel, all spp in one pass (spp_per_pass has no effect), and
-    `stats` also gets wavefront_iters, the loop's steps.
+class CancelToken:
+    """Cooperative cancellation of a render: pass one as render(cancel=...)
+    and call cancel(), from a signal handler or another thread, to stop the
+    render at its next pass boundary with the mean of the passes done."""
 
-    With a PRB integrator, `seed_grad` seeds the backward pass (by default
-    the TEA hash of `seed`; a ValueError if it equals `seed`) and
-    `spp_grad` gives the backward pass its own sample count (single-pass
-    renders only). When `stats` is a dict, it receives the totals over all
-    passes of n_rays (closest-hit plus shadow rays cast) and, for the path
-    integrator, n_invalid and n_negative; a PRB render's backward pass adds
-    the rays it casts (its own primal and the replay) to n_rays_grad."""
-    if params is not None and hasattr(params, "scene"):
-        scene = params.scene
+    def __init__(self):
+        self.cancelled = False
+
+    def cancel(self):
+        self.cancelled = True
+
+
+def _passes(scene, sensor, seed, spp, spp_per_pass, seed_grad, spp_grad, stats):
+    """Generator over the passes of a render: after each pass, (samples
+    done, the per-pixel sums of every pass so far [H, W, C] or [H, W, C,
+    4], the pass's counters). A PRB integrator's pass is one PRB node
+    (ad/render_ad.py) whose backward adds its rays to `stats`."""
     film = scene.film
-    spp = spp or scene.spp
-    if getattr(scene.integrator, "regenerate", False):
-        # PRB integrators refuse regenerate when they are built
-        return _render_regen(scene, seed, spp, sensor, stats)
-    spp_per_pass = min(spp_per_pass or spp, spp)
-    n_passes = (spp + spp_per_pass - 1) // spp_per_pass
-    seed_grad = derive_seed_grad(seed, seed_grad)
     use_prb = getattr(scene.integrator, "is_prb", False)
-    if spp_grad is not None and spp_grad != spp:
-        if not use_prb:
-            raise ValueError("spp_grad needs a PRB integrator (the tape backward "
-                             "reuses the forward lanes)")
-        if n_passes != 1:
-            raise ValueError("spp_grad requires a single pass (spp_per_pass >= spp)")
-        if film.rfilter in WEIGHTED_FILTERS:
-            raise ValueError("spp_grad is exact only for filter-importance-sampled "
-                             f"films (box/tent/gaussian), not {film.rfilter!r}")
     if use_prb:
         # the triangle tables derived from the vertex buffer, so that a
         # vertex parameter's gradient flows into them
         scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
     acc = None
-    totals = {}
-    for p in range(n_passes):
-        this_spp = min(spp_per_pass, spp - p * spp_per_pass)
+    done = 0
+    while done < spp:
+        this_spp = min(spp_per_pass, spp - done)
         if use_prb:
-            L, aux = prb_pass(scene, seed, seed_grad, p * spp_per_pass, this_spp, spp,
-                              sensor, spp_grad, stats)
+            L, aux = prb_pass(scene, seed, seed_grad, done, this_spp, spp, sensor, spp_grad,
+                              stats)
         else:
-            L, aux = render_lanes(
-                scene, seed, 0, film.n_pixels * this_spp, p * spp_per_pass, this_spp, spp, sensor
-            )
+            L, aux = render_lanes(scene, seed, 0, film.n_pixels * this_spp, done, this_spp, spp,
+                                  sensor)
         acc = accumulate(film, L, this_spp, acc)
+        done += this_spp
+        yield done, acc, aux
+
+
+def render(scene, params=None, sensor=0, seed=0, spp=None, spp_per_pass=None,
+           seed_grad=None, integrator=None, spp_grad=None, timeout=None, cancel=None,
+           stats=None):
+    """Render to an image tensor [H, W, C] on scene.device ([H, W, 4, C]
+    Stokes in a polarized variant; mirrors mi.render). `params` may be a
+    SceneParameters whose scene is rendered; `integrator` (an instance or
+    a scene-dict spec) replaces the scene's integrator for this render.
+
+    An integrator with ``regenerate`` takes the regenerative loop: one
+    lane per pixel, all spp in one pass (spp_per_pass, spp_grad, timeout
+    and cancel have no effect), and `stats` also gets wavefront_iters, the
+    loop's steps; with a PRB integrator the loop is one PRB node whose
+    backward replays it (ad/render_ad.py:prb_regen_px).
+
+    `timeout` (seconds of wall clock) and `cancel` (a CancelToken) stop
+    the passes early, at a pass boundary after the first, and return the
+    mean of the samples done; when either is given without spp_per_pass,
+    spp is split into passes of max(1, spp // 8) samples, and each pass
+    ends in a synchronise of the device, so that the clock sees the work
+    done and not its dispatch.
+
+    With a PRB integrator, `seed_grad` seeds the backward pass (by default
+    the TEA hash of `seed`; a ValueError if it equals `seed`) and
+    `spp_grad` gives the backward pass its own sample count (single-pass
+    renders only). When `stats` is a dict, it receives the totals over all
+    passes of n_rays (closest-hit plus shadow rays cast) and, for the
+    forward integrators, n_invalid and n_negative; a PRB render's backward
+    pass adds the rays it casts (its own primal and the replay) to
+    n_rays_grad."""
+    if params is not None and hasattr(params, "scene"):
+        scene = params.scene
+    if isinstance(integrator, dict):
+        from .integrators import make_integrator
+
+        integrator = make_integrator(integrator)
+    if integrator is not None:
+        scene = dataclasses.replace(scene, integrator=integrator)
+    film = scene.film
+    spp = spp or scene.spp
+    seed_grad = derive_seed_grad(seed, seed_grad)
+    if getattr(scene.integrator, "regenerate", False):
+        if getattr(scene.integrator, "is_prb", False):
+            return _render_regen_prb(scene, seed, seed_grad, spp, sensor, stats)
+        return _render_regen(scene, seed, spp, sensor, stats)
+    timed = timeout is not None or cancel is not None
+    if spp_per_pass is None and timed:
+        spp_per_pass = max(1, spp // 8)
+    spp_per_pass = min(spp_per_pass or spp, spp)
+    if spp_grad is not None and spp_grad != spp:
+        if not getattr(scene.integrator, "is_prb", False):
+            raise ValueError("spp_grad needs a PRB integrator (the tape backward "
+                             "reuses the forward lanes)")
+        if spp_per_pass != spp:
+            raise ValueError("spp_grad requires a single pass (spp_per_pass >= spp)")
+        if film.rfilter in WEIGHTED_FILTERS:
+            raise ValueError("spp_grad is exact only for filter-importance-sampled "
+                             f"films (box/tent/gaussian), not {film.rfilter!r}")
+    t_start = time.monotonic()
+    totals = {}
+    for done, acc, aux in _passes(scene, sensor, seed, spp, spp_per_pass, seed_grad, spp_grad,
+                                  stats):
         for key in ("n_rays", "n_invalid", "n_negative"):
             if key in aux:
                 totals[key] = totals.get(key, 0) + aux[key]
+        if timed:
+            if scene.device.type == "cuda":
+                torch.cuda.synchronize(scene.device)
+            if ((cancel is not None and cancel.cancelled)
+                    or (timeout is not None and time.monotonic() - t_start > timeout)):
+                break
     if stats is not None:
         stats.update({k: int(v) for k, v in totals.items()})
-    return stokes_major(acc / spp)
+    return stokes_major(acc / done)
+
+
+def render_progressive(scene, sensor=0, seed=0, spp=None, spp_per_pass=None):
+    """Generator of (samples done, the image of the samples done) after
+    every pass of passes of spp_per_pass samples (by default max(1, spp //
+    8)): the last image is render(spp_per_pass=...)'s. A regenerative
+    integrator renders all its samples in one loop and yields once."""
+    spp = spp or scene.spp
+    if getattr(scene.integrator, "regenerate", False):
+        yield spp, render(scene, sensor=sensor, seed=seed, spp=spp)
+        return
+    spp_per_pass = min(spp_per_pass or max(1, spp // 8), spp)
+    for done, acc, _ in _passes(scene, sensor, seed, spp, spp_per_pass, derive_seed_grad(seed),
+                                None, None):
+        yield done, stokes_major(acc / done)
 
 
 def render_1(scene, params=None, sensor=0, seed=0, spp=None, stats=None):
@@ -198,38 +272,72 @@ def render_1(scene, params=None, sensor=0, seed=0, spp=None, stats=None):
     if params is not None and hasattr(params, "scene"):
         scene = params.scene
     spp = spp or scene.spp
-    if getattr(scene.integrator, "is_prb", False):
-        # one PRB pass: its backward seeded with derive_seed_grad(seed)
-        scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
-        L, aux = prb_pass(scene, seed, derive_seed_grad(seed), 0, spp, spp, sensor,
-                          stats=stats)
-    else:
-        L, aux = render_lanes(scene, seed, 0, scene.film.n_pixels * spp, 0, spp, spp, sensor)
+    L, aux = _one_pass_lanes(scene, seed, spp, sensor, stats)
     if stats is not None:
         stats.update({k: int(v) for k, v in aux.items()})
     m = torch.mean(L, dim=0)
     return m.T if scene.polarized else m
 
 
+def _one_pass_lanes(scene, seed, spp, sensor, stats=None):
+    """(lanes [n_pixels * spp, C] or [n_pixels * spp, C, 4], counters) of
+    one pass of spp samples per pixel: a PRB node, its backward seeded with
+    derive_seed_grad(seed), for a PRB integrator."""
+    if getattr(scene.integrator, "is_prb", False):
+        scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
+        return prb_pass(scene, seed, derive_seed_grad(seed), 0, spp, spp, sensor, stats=stats)
+    return render_lanes(scene, seed, 0, scene.film.n_pixels * spp, 0, spp, spp, sensor)
+
+
+def render_test(scene, params=None, sensor=0, seed=0, spp=None, sensor_count=1):
+    """Multi-view measurement (mirrors mi.render_test): one pass of spp
+    samples per pixel over a wide film split into sensor_count views of
+    equal width, each view's samples averaged: [sensor_count, C], or the
+    Stokes vectors [sensor_count, 4, C] in a polarized variant."""
+    if params is not None and hasattr(params, "scene"):
+        scene = params.scene
+    film = scene.film
+    spp = spp or scene.spp
+    L, _ = _one_pass_lanes(scene, seed, spp, sensor)
+    views = L.reshape((film.height, sensor_count, film.width // sensor_count, spp)
+                      + L.shape[1:])
+    out = views.mean(dim=(0, 2, 3))
+    return out.transpose(-1, -2) if scene.polarized else out
+
+
 def _render_regen_pass(scene, seed, spp, sensor_idx):
-    """The regenerative loop's per-pixel sample sums [n_pixels, C],
-    sanitized as a pass's lanes are, and its counters (n_rays,
-    wavefront_iters, n_invalid, n_negative)."""
+    """The regenerative loop's per-pixel sample sums [n_pixels, C] (or
+    [n_pixels, C, 4]), sanitized as a pass's lanes are, and its counters
+    (n_rays, wavefront_iters, n_invalid, n_negative)."""
     scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
     L_px, aux = scene.integrator.regen_render(scene, seed, spp, sensor_idx)
     L_px, inv = warn_invalid(L_px, scene.polarized)
     return L_px, {**aux, **inv}
 
 
+def _regen_image(film, L_px, spp):
+    """Per-pixel sample sums -> the image [H, W, C] or [H, W, 4, C]."""
+    return stokes_major(L_px.reshape((film.height, film.width) + L_px.shape[1:]) / float(spp))
+
+
 def _render_regen(scene, seed, spp, sensor_idx, stats=None):
     """Regenerative render (``regenerate: True``): one lane per pixel, the
     samples summed in the loop; the image is that of one pass of a
     filter-importance-sampled film."""
-    film = scene.film
     L_px, aux = _render_regen_pass(scene, seed, spp, sensor_idx)
     if stats is not None:
         stats.update({k: int(v) for k, v in aux.items()})
-    return L_px.reshape(film.height, film.width, -1) / float(spp)
+    return _regen_image(scene.film, L_px, spp)
+
+
+def _render_regen_prb(scene, seed, seed_grad, spp, sensor_idx, stats=None):
+    """Differentiable regenerative render: the PRB node sits at the
+    per-pixel sample sums (ad/render_ad.py:prb_regen_px)."""
+    scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
+    L_px, aux = prb_regen_px(scene, seed, seed_grad, spp, sensor_idx, stats)
+    if stats is not None:
+        stats.update({k: int(v) for k, v in aux.items()})
+    return _regen_image(scene.film, L_px, spp)
 
 
 def render_forward(scene, tangent=None, key=None, sensor=0, seed=0, spp=None):

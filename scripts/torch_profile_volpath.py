@@ -15,7 +15,10 @@ PRB integrator: prbvolpath for het and vol32, prb_polarized for atmo,
 prb_volpathaos for aos, as bench.py's config 5): the gradient of the
 render's sum (het, vol32: its mean) for the medium's sigma_t (aos: the
 atmosphere's), its forward pass and its backward pass (the PRB node's
-own primal pass, then the replay).
+own primal pass, then the replay). With --regenerate the render (and
+with --prb the step: its forward, the backward's primal and the replay)
+runs the regenerative loops; the polarized scenes then render the image,
+since the radiometer is one wavefront pass.
 
 The ranges are put around the layers from here, for this run only (the
 package carries no instrumentation): "ray_intersect" (every closest hit,
@@ -29,8 +32,8 @@ direction, rotated to the world), "phase_sample_pol" (the sampled
 direction's weight), "bsdf_eval_pdf_pol" and "bsdf_sample_pol" (the
 BSDFs' Mueller matrices), and "to_sensor_mueller" (the lanes' Stokes
 vectors into the sensor frame). With --prb also "primal" (each primal
-pass: the forward's, then the backward's), "replay" (the backward's
-replay), "replay_segment" (each of its segments), "autograd_grad" (each
+pass, or regenerative loop: the forward's, then the backward's), "replay"
+(the backward's replay), "replay_segment" (each of its segments), "autograd_grad" (each
 segment's vector-Jacobian product), and the phase and BSDF evaluations
 made with gradients enabled (the replay's attached terms) under their
 name with "_attached". Prints the wall time, the device kernel time and
@@ -109,20 +112,18 @@ def main():
                                                        vol32_scene)
 
     if args.scene in ("atmo", "aos"):
-        if args.regenerate:
-            sys.exit("torch_profile_volpath: a polarized scene has no regenerative path")
         mi.set_variant("mono_polarized")
         d = atmo_scene() if args.scene == "atmo" else aos_scene(integrator="volpathaos")
+        d["integrator"]["regenerate"] = args.regenerate
         spp = 64
-        render = mi.render_1
+        # the radiometer is one wavefront pass: regeneration renders the image
+        render = mi.render if args.regenerate else mi.render_1
     else:
         make = het_vol_scene if args.scene == "het" else vol32_scene
         d = make(regenerate=args.regenerate)
         spp = 16
         render = mi.render
     if args.prb:
-        if args.regenerate:
-            sys.exit("torch_profile_volpath: the regenerative PRB replay is not yet ported")
         d["integrator"]["type"] = PRB_TYPES[args.scene]
     scene = mi.load_dict(d)
     key = SIGMA_T[args.scene]
@@ -160,6 +161,11 @@ def main():
                  _ranged("replay", prbvolpath.VolumeReplay.sample_backward)),
                 (prbvolpath.VolumeReplay, "_bwd_bounce",
                  _ranged("replay_segment", prbvolpath.VolumeReplay._bwd_bounce))]
+    if args.prb and args.regenerate:
+        patches += [(volpath, "volpath_regen_render",
+                     _ranged("primal", volpath.volpath_regen_render)),
+                    (prbvolpath, "volumetric_regen_backward",
+                     _ranged("replay", prbvolpath.volumetric_regen_backward))]
     saved = [(owner, name, getattr(owner, name)) for owner, name, _ in patches]
     for owner, name, fn in patches:
         setattr(owner, name, fn)

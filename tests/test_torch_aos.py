@@ -355,22 +355,22 @@ def test_volpathaos_without_interface_is_volpath():
 
 
 def test_volpathaos_regenerate_is_the_wavefront_image():
-    """regenerate in the unpolarized variants: the same samples in another
-    schedule (the refractive-interface memory reset when a lane restarts),
-    so the same image up to the order of each pixel's sums (rtol 1e-5,
-    atol 1e-6); refused in a polarized variant."""
-    _variant("mono")
-    d = ocean()
-    img = mt.render(mt.load_dict(d, device="cpu"), spp=SPP, seed=1)
-    d["integrator"]["regenerate"] = True
-    scene = mt.load_dict(d, device="cpu")
-    stats = {}
-    img_r = mt.render(scene, spp=SPP, seed=1, stats=stats)
-    np.testing.assert_allclose(img_r.numpy(), img.numpy(), rtol=1e-5, atol=1e-6)
-    assert stats["wavefront_iters"] > 0
-    _variant("mono_polarized")
-    with pytest.raises(NotImplementedError):
-        mt.load_dict(d, device="cpu")
+    """regenerate, in mono and mono_polarized: the same samples in another
+    schedule (the refractive-interface memory reset when a lane restarts;
+    polarized, each path's Stokes vector rotated into the sensor frame by
+    its own camera ray as it is flushed), so the same image up to the order
+    of each pixel's sums (rtol 1e-5, atol 1e-6)."""
+    for variant, shape in (("mono", (4, 4, 1)), ("mono_polarized", (4, 4, 4, 1))):
+        _variant(variant)
+        d = ocean()
+        img = mt.render(mt.load_dict(d, device="cpu"), spp=SPP, seed=1)
+        d["integrator"]["regenerate"] = True
+        scene = mt.load_dict(d, device="cpu")
+        stats = {}
+        img_r = mt.render(scene, spp=SPP, seed=1, stats=stats)
+        assert img_r.shape == img.shape == shape
+        np.testing.assert_allclose(img_r.numpy(), img.numpy(), rtol=1e-5, atol=1e-6)
+        assert stats["wavefront_iters"] > 0
 
 
 # ---------------------------------------------------------------------------

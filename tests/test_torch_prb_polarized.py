@@ -147,16 +147,18 @@ def test_prb_polarized_primal_is_polarized_volpath():
 def test_prb_polarized_routing():
     """tests/test_prb_polarized.py:139's names: in a polarized variant prb,
     prb_basic, prbvolpath and prb_polarized are the Mueller replay (the
-    JAX package routes them the same way); regenerate is refused."""
+    JAX package routes them the same way), with ``regenerate`` too."""
     for name in ("prb", "prb_basic", "prbvolpath", "prb_polarized"):
         assert type(mt.load_dict(blend_slab(name), device="cpu").integrator) is \
             PRBPolarizedVolpathIntegrator, name
         assert type(mj.load_dict(blend_slab(name)).integrator).__name__ == \
             "PRBPolarizedVolpathIntegrator"
-    d = blend_slab()
-    d["integrator"]["regenerate"] = True
-    with pytest.raises(NotImplementedError):
-        mt.load_dict(d, device="cpu")
+    for name in ("prb", "prb_polarized"):
+        d = blend_slab(name)
+        d["integrator"]["regenerate"] = True
+        scene = mt.load_dict(d, device="cpu")
+        assert type(scene.integrator) is PRBPolarizedVolpathIntegrator, name
+        assert scene.integrator.regenerate
 
 
 def test_render_image_gradient_is_n_pixels_radiometer_gradient():

@@ -152,19 +152,18 @@ def test_prbvolpath_radiometer_gradient_is_linear_fd():
 
 
 def test_prbvolpath_names_and_refusals():
-    """prbvolpath and prb_unpolarized are the volumetric replay; the
-    reference's refusals stand: regenerate (its replay is not yet ported),
-    render_forward, and prb_polarized outside a polarized variant."""
+    """prbvolpath and prb_unpolarized are the volumetric replay, and take
+    ``regenerate`` (its regenerative replay: tests/test_torch_regen_prb.py);
+    the reference's refusals stand: render_forward, and prb_polarized
+    outside a polarized variant."""
     for name in ("prbvolpath", "prb_unpolarized"):
         scene = mt.load_dict(two_media(name), device="cpu")
         assert type(scene.integrator) is PRBVolpathIntegrator
         assert (scene.integrator.track_steps, scene.integrator.nee_steps) == (32, 32)
     d = two_media()
     d["integrator"]["regenerate"] = True
-    with pytest.raises(NotImplementedError):
-        mt.load_dict(d, device="cpu")
-    with pytest.raises(NotImplementedError):
-        mt.load_dict(two_media(), device="cpu").integrator.regen_backward()
+    scene = mt.load_dict(d, device="cpu")
+    assert type(scene.integrator) is PRBVolpathIntegrator and scene.integrator.regenerate
     with pytest.raises(NotImplementedError):
         mt.render_forward(mt.load_dict(two_media(), device="cpu"), key="env.radiance.value")
     with pytest.raises(ValueError, match="polarized"):

@@ -111,10 +111,24 @@ def test_regen_matches_standard_and_jax(name, jax_regen):
 
 
 def test_regen_refusals():
-    d = cbox(True)
-    d["integrator"]["type"] = "prb"
+    """What regeneration still refuses: the spectral variants, which are not
+    ported. The PRB integrators (prb, prb_basic) and the polarized variants
+    take ``regenerate`` and render with it (their gradients:
+    tests/test_torch_regen_prb.py)."""
     with pytest.raises(NotImplementedError):
-        mt.load_dict(d, device="cpu")
-    d["integrator"]["type"] = "prb_basic"
-    with pytest.raises(NotImplementedError):
-        mt.load_dict(d, device="cpu")
+        mt.set_variant("spectral")
+    for t in ("prb", "prb_basic"):
+        d = cbox(True)
+        d["integrator"]["type"] = t
+        scene = mt.load_dict(d, device="cpu")
+        assert scene.integrator.regenerate and scene.integrator.is_prb
+        img = mt.render(scene, spp=2, seed=0)
+        assert img.shape == (W, W, 3) and bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+    mt.set_variant("mono_polarized")
+    try:
+        scene = mt.load_dict(vol32_scene(res=W, spp=SPP, max_depth=4, steps=8, regenerate=True),
+                             device="cpu")
+        img = mt.render(scene, spp=2, seed=0)
+    finally:
+        mt.set_variant("rgb")
+    assert img.shape == (W, W, 4, 1) and bool(torch.isfinite(img).all())

@@ -406,7 +406,8 @@ def test_volume_scene_refusals():
     assert get_ops(True).polarized
     mt.set_variant("mono_polarized")
     try:
-        with pytest.raises(NotImplementedError):
-            mt.load_dict(het_vol_dict(res=W, spp=SPP, regenerate=True), device="cpu")
+        # polarized regeneration is ported (tests/test_torch_regen_prb.py)
+        scene = mt.load_dict(het_vol_dict(res=W, spp=SPP, regenerate=True), device="cpu")
+        assert scene.integrator.regenerate and scene.polarized
     finally:
         mt.set_variant("rgb")
