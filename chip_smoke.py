@@ -55,7 +55,23 @@ user entry points, and checks that each went through its kernels:
   ocean with prb_volpathaos);
 - the rest of render() on the cbox at 256x256 @ 64 spp: the integrator
   override, CancelToken, timeout and render_progressive, each bitwise
-  against the render it must equal.
+  against the render it must equal;
+- surface materials and polarization optics, through K1: the materials
+  scene (render/scene_loader.py:materials_scene: a gold rough conductor,
+  bk7 glass, a two-sided rough plastic, a diffuse/silver blend and a mask
+  in the Cornell box) at 256x256 @ 64 spp, path max_depth 8, with every K1
+  launch of one render held bit for bit against the plain version and its
+  64x64 @ 16 spp means against the JAX package's; its PRB step (prb,
+  256x256 @ 64 spp) for the conductor's alpha and the blend's weight, the
+  64x64 @ 16 spp gradients against the JAX package's; the polarimeter
+  (polarimeter_scene: polarized plastic and smooth gold seen through a
+  linear polarizer and a quarter-wave plate) in rgb_polarized, stokes over
+  volpath at 256x256 @ 64 spp, every K1 launch of one render held bit for
+  bit, its 64x64 @ 16 spp Stokes means against the JAX package's and its
+  optics checked (DoLP behind the polarizer, V behind the retarder); its
+  PRB step (prb_polarized, reduced to 64x64 @ 16 spp) for the plastic's
+  diffuse reflectance; and the direct, depth, aov and moment integrators
+  on the materials scene at 256x256 @ 64 spp.
 
 Any failure raises and exits non-zero.
 
@@ -184,6 +200,79 @@ REGEN_RTOL, REGEN_ATOL = 3e-4, 3e-5
 # seeds, relative to its largest element (the reference's bound between the
 # two schedules, tests/test_regen.py:93-117, :393-414)
 REGEN_GRAD_RTOL = 1e-3
+# Surface materials and polarization optics (render/scene_loader.py:
+# materials_scene, polarimeter_scene). From the fifth bounce on, a few lanes
+# take another path in the JAX package than in the port, by last-bit
+# differences (ROADMAP Queue 3): a ray from inside the glass box meets its
+# bottom face and the coplanar floor at the same t, and rounding picks the
+# one it hits; and XLA fuses products into sums in the jitted bounce loop,
+# whose last bits a chain of reflections inside the glass amplifies. One
+# firefly among them moves a 64x64 @ 16 spp mean by up to 2.4e-3. So the
+# JAX values below are the JAX package's run op by op on the CPU (under
+# jax.disable_jit(), where XLA fuses nothing across ops), over the pixels
+# where no lane's path parts from the port's on the CPU. The pixel lists
+# (row-major indices into the 64x64 film) were found by comparing every
+# lane's radiance of the two packages' render_lanes (rtol 1e-4, atol 1e-5),
+# four passes of 16 spp (pass_base 0, 16, 32, 48 of spp_total 64) in four
+# processes; on the other pixels the port's CPU means equal the JAX
+# package's to the last bit. Computed once with mitsuba_tpu on the CPU at
+# seed 0, for each pass p:
+#   with jax.disable_jit():
+#       L, _, _, _ = render_lanes(mi.load_dict(scene(64, 64)), jnp.uint32(0),
+#                                 0, 64 * 64 * 16, 16 * p, 16, 64, 0)
+#   then the per-pixel sums of the four passes over 64, and their mean over
+#   the pixels not listed
+# - the materials scene (rgb, path max_depth 8), per channel (~125 s a pass;
+#   the whole image's means are 0.1770867109298706, 0.1148795336484909,
+#   0.04903002083301544, the port's on the CPU 4.5e-4 from them in red):
+MATERIALS64_PARTING_PIXELS = (70, 74, 89, 91, 102, 103, 105, 123, 132, 135, 146, 154, 157, 163,
+    168, 169, 174, 181, 185, 198, 199, 200, 212, 218, 230, 236, 238, 244, 245, 246, 252, 261,
+    262, 263, 272, 281, 283, 289, 295, 298, 307, 337, 341, 352, 353, 355, 356, 362, 363, 365,
+    374, 392, 401, 410, 415, 416, 418, 419, 430, 436, 438, 440, 465, 466, 475, 479, 480, 487,
+    502, 534, 540, 544, 554, 555, 589, 603, 606, 619, 622, 650, 678, 679, 739, 740, 742, 754,
+    795, 812, 815, 835, 836, 837, 904, 934, 1032, 1050, 1054, 1063, 1081, 1083, 1116, 1158, 1186,
+    1214, 1218, 1227, 1285, 1340, 1401, 1477, 1538, 1632, 1659, 1668, 1706, 1711, 1751, 1801,
+    1812, 1813, 1851, 1951, 1956, 1986, 2010, 2013, 2044, 2061, 2116, 2142, 2168, 2196, 2206,
+    2246, 2324, 2331, 2333, 2335, 2362, 2393, 2394, 2397, 2438, 2461, 2463, 2527, 2537, 2582,
+    2591, 2642, 2648, 2656, 2657, 2659, 2660, 2661, 2662, 2663, 2719, 2720, 2721, 2722, 2723,
+    2724, 2725, 2726, 2727, 2728, 2729, 2730, 2733, 2788, 2791, 2793, 2796, 2797, 2823, 2870,
+    2871, 2901, 2966, 2970, 3035, 3069, 3099, 3100, 3102, 3161, 3164, 3202, 3223, 3230, 3293,
+    3325, 3356, 3387, 3416, 3453, 3593, 3615, 3616, 3621, 3679, 3683, 3684, 3688, 3737, 3740,
+    3744, 3797, 3821, 3882, 3883, 3954, 3956)
+JAX_MATERIALS64_KEPT_MEANS = (0.16329382359981537, 0.10464709252119064, 0.0441729910671711)
+# - the polarimeter (rgb_polarized, stokes over volpath max_depth 8), rows I,
+#   Q, U, V of 3 channels (~420 s a pass; the whole image's I is
+#   (0.1198125, 0.0825288, 0.0352961)):
+POLARIMETER64_PARTING_PIXELS = (94, 103, 116, 139, 163, 166, 187, 198, 216, 218, 226, 227, 243,
+    263, 279, 313, 394, 398, 410, 421, 423, 424, 427, 485, 491, 577, 613, 624, 644, 661, 671,
+    677, 728, 741, 749, 804, 862, 969, 1019, 1338, 1853, 1988, 1991, 2121, 2169, 2487, 2493,
+    2591, 2661, 2663, 2720, 2722, 2723, 2724, 2725, 2726, 2727, 2728, 2729, 2788, 2789, 2791,
+    2792, 2793, 2795, 2796, 3012, 3290, 3353, 3355, 3562, 3615, 3680, 3683, 3744, 3749, 3800,
+    3816, 3819, 3882, 3883)
+JAX_POLARIMETER64_KEPT_STOKES = (
+    (0.11956474930047989, 0.08242115378379822, 0.035243887454271317),
+    (-0.021096810698509216, -0.015579000115394592, -0.006997226737439632),
+    (-0.018266716971993446, -0.01667453534901142, -0.007708600722253323),
+    (-6.803748692618683e-05, -3.2073778129415587e-05, -2.8246968213352375e-06),
+)
+# - the materials scene's PRB gradients of the image mean for
+#   MATERIALS_PRB_KEYS at 64x64 @ 16 spp, prb max_depth 4, the whole image:
+#   with jax.disable_jit(): jax.value_and_grad(loss)(values), loss(values) =
+#   the mean of mi.render(mi.traverse(scene).update(dict(zip(keys,
+#   values))), spp=16, seed=0) (793 s; the port's CPU gradients within
+#   1.3e-6 and 0). Below the Russian roulette (rr_depth 5) no lane's path
+#   parts; at max_depth 8 the two packages' gradients part by 8.8% (alpha)
+#   and 0.9% (weight), and by 0.24% and 0.018% with rr_depth 100, while
+#   the images agree to 3.5e-5 (PERF.md section 7):
+JAX_MATERIALS_PRB64_DEPTH4_GRAD = (-0.0053257145918905735, -0.015754077583551407)
+# the 64x64 means (Q, U, V relative to I) and gradients against the JAX
+# package's
+MATERIALS_RTOL = 1e-3
+MATERIALS_RES, MATERIALS_SPP, MATERIALS_PASSES = 256, 64, 2
+MATERIALS_PRB_KEYS = ("large-box.bsdf.alpha", "floor.bsdf.weight.value")
+POLARIMETER_SPP_PER_PASS, POLARIMETER_RENDERS = 16, 1
+MEANS64_SPP = 64
+POLARIMETER_PRB_RES, POLARIMETER_PRB_SPP = 64, 16
 # the K3 route's gradient against the K1 route's, same seed, per channel
 MMA_GRAD_RTOL = 1e-3
 MEAN_RTOL = 0.03
@@ -2119,6 +2208,314 @@ def phase_api(mi, K1, K2, K3):
     return dict(walls=walls, checks=checks)
 
 
+# ---------------------------------------------------------------------------
+# surface materials and polarization optics
+# ---------------------------------------------------------------------------
+
+def k1_in_place_and_held(K1, name, fn, reps=5):
+    """fn() once with CUDA events around each K1 launch and every launch
+    held bit for bit against the plain version on its own inputs (the held
+    wrapper calls the timed one, so the events hold K1 alone). Returns
+    (launches, their summed ms in place, the same launches back to back
+    (reps), their summed bound, the bound's split {"operations": ms,
+    "bytes": ms}, k1_held_summary's dict)."""
+    def work_and_inputs(*args):
+        return k1_work(*args), [a.detach().clone() for a in args]
+
+    timed, held = [], []
+    with timed_launches(K1, "smem_intersect", work_and_inputs, timed), \
+            k1_held_to_plain(K1, held):
+        fn()
+    bitwise = k1_held_summary(name, held)
+    per = [(start.elapsed_time(end), k1_bound_ms(w)) for start, end, (w, _) in timed]
+    inputs = [x for _, _, (_, x) in timed]
+    b2b = time_cuda(lambda: [K1.smem_intersect(*x) for x in inputs], reps=reps)
+    by = {}
+    for _, b in per:
+        by[b["by"]] = by.get(b["by"], 0.0) + b["ms"]
+    return len(per), sum(m for m, _ in per), b2b, sum(b["ms"] for _, b in per), by, bitwise
+
+
+def timed_calls(K1, K2, K3, name, fn, n, warm_up=True):
+    """fn(seed 0, stats) n times after a warm-up fn(1, {}) (unless the
+    caller warmed up), each ending in a synchronise: (walls, K1 launches of
+    each call, the last stats, the last result, the peak memory); fails
+    unless K1 alone ran, the same number of times in each call, and never
+    its plain version."""
+    if warm_up:
+        fn(1, {})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(K1, K2, K3)
+    walls, per_call = [], []
+    for _ in range(n):
+        before, stats = K1.smem_intersect.launches, {}
+        with no_plain_closest_hit(K1, name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(0, stats)
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_call.append(K1.smem_intersect.launches - before)
+    others = K2.bvh_sweep_intersect.launches + K2.bvh_sweep_occluded.launches \
+        + K3.mxu_intersect.launches
+    if min(per_call) == 0 or len(set(per_call)) != 1 or others:
+        raise AssertionError(f"{name}: K1 launches per call {per_call}, K2 and K3 {others}")
+    return walls, per_call, stats, out, torch.cuda.max_memory_allocated()
+
+
+def kept_mean(img, parting):
+    """The mean over the pixels of a 64x64 image [64, 64, ...] that are not
+    in `parting` (row-major indices): [C], or [4, C] for a Stokes image."""
+    flat = img.reshape((-1,) + tuple(img.shape[2:]))
+    keep = torch.ones(flat.shape[0], dtype=torch.bool, device=img.device)
+    keep[list(parting)] = False
+    return flat[keep].mean(dim=0)
+
+
+def check_kept_means(name, img, parting, want, rtol):
+    """The 64x64 image's means over the pixels not in `parting` against the
+    JAX package's `want`: I (or each channel) within rtol relative, Q, U
+    and V within rtol of I; prints the full image's means too. Returns the
+    worst relative error."""
+    got = kept_mean(img, parting)
+    want = torch.tensor(want, dtype=torch.float32, device=img.device)
+    i_got, i_want = (got[0], want[0]) if got.ndim == 2 else (got, want)
+    rel = float(((i_got - i_want).abs() / i_want.abs()).max())
+    quv = float(((got[1:] - want[1:]).abs() / want[0].abs()).max()) if got.ndim == 2 else 0.0
+    log(f"  {name}: means over the {img.shape[0] * img.shape[1] - len(parting)} pixels whose "
+        f"paths part from the JAX package's nowhere {got.tolist()} against its {want.tolist()}: "
+        f"{rel:.3e} relative" + (f", Q/U/V within {quv:.3e} of I" if got.ndim == 2 else "")
+        + f" (tolerance {rtol}); the whole image's means {img.mean(dim=(0, 1)).tolist()}")
+    if not (rel <= rtol and quv <= rtol):
+        raise AssertionError(f"{name}: {got.tolist()} vs JAX {want.tolist()}")
+    return max(rel, quv)
+
+
+def phase_materials(mi, K1, K2, K3):
+    """The materials scene (render/scene_loader.py:materials_scene: gold
+    rough conductor, bk7 glass, two-sided rough plastic, diffuse/silver
+    blend, mask) at 256x256 @ 64 spp, path max_depth 8, in rgb: one render
+    (the warm-up) with CUDA events around each K1 launch and every launch
+    held bit for bit against the plain version, then MATERIALS_PASSES timed
+    renders (wall, Mrays/s, K1 launches, peak memory); the 64x64 @ 64 spp
+    means against the JAX package's."""
+    spp = MATERIALS_SPP
+    scene = mi.load_dict(mi.materials_scene(MATERIALS_RES, spp))
+    name = f"materials {MATERIALS_RES}x{MATERIALS_RES} @ {spp} spp, path max_depth 8"
+
+    def render(seed, stats):
+        return mi.render(scene, spp=spp, seed=seed, stats=stats)
+
+    n_k1, k_ms, b2b_ms, b_ms, by, bitwise = k1_in_place_and_held(K1, name,
+                                                                lambda: render(1, {}))
+    walls, per_pass, stats, img, peak = timed_calls(K1, K2, K3, name, render, MATERIALS_PASSES,
+                                                    warm_up=False)
+    if tuple(img.shape) != (MATERIALS_RES, MATERIALS_RES, 3) or not bool(
+            torch.isfinite(img).all()) or not float(img.mean()) > 0:
+        raise AssertionError(f"{name}: image {tuple(img.shape)} not finite or black")
+    mrays = [stats["n_rays"] / w / 1e6 for w in walls]
+    log(f"== main path: {name}: walls {[round(w, 4) for w in walls]} s, {stats['n_rays']} rays, "
+        f"{[round(m, 2) for m in mrays]} Mrays/s, K1 launches per render {per_pass}, peak "
+        f"memory {peak / 2**30:.3f} GiB, means {img.mean(dim=(0, 1)).tolist()}")
+    log(f"  {name}: the warm-up render with events around each K1 launch: {n_k1} launches, "
+        f"{k_ms:.3f} ms in K1 in place ({k_ms / (min(walls) * 1e3):.3%} of the fastest wall), "
+        f"{b2b_ms:.4f} ms back to back; summed bound {b_ms:.4f} ms {by}")
+    img64 = mi.render(mi.load_dict(mi.materials_scene(64, MEANS64_SPP)), spp=MEANS64_SPP,
+                      seed=0)
+    rel = check_kept_means(f"materials 64x64 @ {MEANS64_SPP} spp", img64,
+                           MATERIALS64_PARTING_PIXELS, JAX_MATERIALS64_KEPT_MEANS, MATERIALS_RTOL)
+    return dict(walls=walls, mrays=mrays, n_rays=stats["n_rays"], k1_per_render=per_pass[0],
+                peak=peak, means=img.mean(dim=(0, 1)).tolist(), k1_render_ms=k_ms,
+                k1_render_back_to_back_ms=b2b_ms, k1_render_bound_ms=b_ms, k1_bound_by=by,
+                k1_bitwise_vs_plain=bitwise, means64_rel_err=rel)
+
+
+def phase_materials_prb(mi, K1, K2, K3):
+    """The materials scene with prb at 256x256 @ 64 spp, max_depth 8: the
+    image mean's gradients for the rough conductor's alpha and the blend's
+    weight (run_prb_vol: warm-up, timed steps, K1 held and timed); the
+    64x64 @ 16 spp gradients at max_depth 4 against the JAX package's (see
+    JAX_MATERIALS_PRB64_DEPTH4_GRAD), and the max_depth 8 step at 64x64
+    through K1 against the same step through the plain version."""
+    spp = MATERIALS_SPP
+    keys = list(MATERIALS_PRB_KEYS)
+    integ = {"type": "prb", "max_depth": 8}
+
+    def loss(mi, sc, seed, stats, spp=spp):
+        return mi.render(sc, spp=spp, seed=seed, stats=stats).mean()
+
+    scene = mi.load_dict(mi.materials_scene(MATERIALS_RES, spp, integ))
+    out = run_prb_vol(mi, K1, K2, K3, f"materials-prb {MATERIALS_RES}x{MATERIALS_RES} @ {spp} "
+                      "spp, prb max_depth 8", scene, keys, loss,
+                      MATERIALS_RES * MATERIALS_RES * spp)
+    out["grads"] = {k: float(v) for k, v in out["grads"].items()}
+    def loss64(mi, sc, seed, stats):
+        return loss(mi, sc, seed, stats, 16)
+
+    depth4 = mi.load_dict(mi.materials_scene(64, 16, dict(integ, max_depth=4)))
+    _, g64, _, _, _ = prb_vol_step(mi, depth4, keys, loss64, 0)
+    out["grad64_depth4"] = {k: float(g64[k]) for k in keys}
+    out["grad64_depth4_rel_err"] = max(
+        check_rel(f"materials-prb 64x64 @ 16 spp, max_depth 4, d mean / d {k}", float(g64[k]),
+                  want, MATERIALS_RTOL)
+        for k, want in zip(keys, JAX_MATERIALS_PRB64_DEPTH4_GRAD))
+    small = mi.load_dict(mi.materials_scene(64, 16, integ))
+    out["plain"] = prb_vol_plain_check(mi, K1, K2, K3, "materials-prb 64x64 @ 16 spp", small,
+                                       keys, loss64)
+    return out
+
+
+def polarimeter_physics(img):
+    """The polarimeter image's optics, per channel: behind the linear
+    polarizer (image columns left of the centre, which sees x < 0) every
+    lit pixel has DoLP > 0.95 and |V| / I < 0.02; behind the quarter-wave
+    plate some pixel has |V| / I > 0.01. Two columns each side of the
+    sheets' shared edge are left out (the filter's footprint straddles
+    it)."""
+    I, Q, U, V = (img[:, :, k, :] for k in range(4))
+    w = img.shape[1]
+    lit = I > 0
+    safe = torch.where(lit, I, 1.0)
+    dolp = torch.sqrt(Q * Q + U * U) / safe
+    v_over_i = V.abs() / safe
+    left, right = slice(0, w // 2 - 2), slice(w // 2 + 2, w)
+    lit_l = lit[:, left]
+    out = dict(polarizer_min_dolp=float(dolp[:, left][lit_l].min()),
+               polarizer_max_v_over_i=float(v_over_i[:, left][lit_l].max()),
+               polarizer_lit_pixels=int(lit_l.sum()),
+               retarder_max_v_over_i=float(v_over_i[:, right][lit[:, right]].max()),
+               retarder_mean_dolp=float(dolp[:, right][lit[:, right]].mean()))
+    log(f"  polarimeter optics: {out} (polarizer: DoLP > 0.95, |V|/I < 0.02 on every lit "
+        f"pixel; retarder: |V|/I > 0.01 somewhere)")
+    if not (out["polarizer_min_dolp"] > 0.95 and out["polarizer_max_v_over_i"] < 0.02
+            and out["retarder_max_v_over_i"] > 0.01 and out["polarizer_lit_pixels"] > 0):
+        raise AssertionError(f"polarimeter optics: {out}")
+    return out
+
+
+def phase_polarimeter(mi, K1, K2, K3):
+    """The polarimeter (render/scene_loader.py:polarimeter_scene: the
+    materials scene with polarized plastic and smooth gold seen through a
+    linear polarizer and a quarter-wave plate) in rgb_polarized, stokes over
+    volpath max_depth 8, at 256x256 @ 64 spp in passes of
+    POLARIMETER_SPP_PER_PASS: one render (the warm-up) with CUDA events
+    around each K1 launch and every launch held bit for bit against the
+    plain version, then POLARIMETER_RENDERS timed renders (wall, Mrays/s, K1
+    launches, peak memory) and the optics' checks on the image; the 64x64
+    @ 64 spp Stokes means against the JAX package's."""
+    spp, res = MATERIALS_SPP, MATERIALS_RES
+    mi.set_variant("rgb_polarized")
+    try:
+        scene = mi.load_dict(mi.polarimeter_scene(res, spp))
+        name = (f"polarimeter {res}x{res} @ {spp} spp (passes of {POLARIMETER_SPP_PER_PASS}), "
+                "rgb_polarized, stokes over volpath max_depth 8")
+
+        def render(seed, stats):
+            return mi.render(scene, spp=spp, spp_per_pass=POLARIMETER_SPP_PER_PASS, seed=seed,
+                             stats=stats)
+
+        n_k1, k_ms, b2b_ms, b_ms, by, bitwise = k1_in_place_and_held(
+            K1, name, lambda: render(1, {}), reps=3)
+        walls, per_render, stats, img, peak = timed_calls(K1, K2, K3, name, render,
+                                                          POLARIMETER_RENDERS, warm_up=False)
+        if tuple(img.shape) != (res, res, 4, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{name}: Stokes image {tuple(img.shape)} not finite")
+        mrays = [stats["n_rays"] / w / 1e6 for w in walls]
+        log(f"== main path: {name}: walls {[round(w, 4) for w in walls]} s, {stats['n_rays']} "
+            f"rays, {[round(m, 3) for m in mrays]} Mrays/s, K1 launches per render "
+            f"{per_render}, peak memory {peak / 2**30:.3f} GiB, Stokes means "
+            f"{img.mean(dim=(0, 1)).tolist()}")
+        log(f"  {name}: the warm-up render with events around each K1 launch: {n_k1} launches, "
+            f"{k_ms:.3f} ms in K1 in place ({k_ms / (min(walls) * 1e3):.3%} of the fastest "
+            f"wall), {b2b_ms:.4f} ms back to back; summed bound {b_ms:.4f} ms {by}")
+        physics = polarimeter_physics(img)
+        img64 = mi.render(mi.load_dict(mi.polarimeter_scene(64, MEANS64_SPP)), spp=MEANS64_SPP,
+                          seed=0)
+        rel = check_kept_means(f"polarimeter 64x64 @ {MEANS64_SPP} spp", img64,
+                               POLARIMETER64_PARTING_PIXELS, JAX_POLARIMETER64_KEPT_STOKES,
+                               MATERIALS_RTOL)
+    finally:
+        mi.set_variant("rgb")
+    return dict(walls=walls, mrays=mrays, n_rays=stats["n_rays"], k1_per_render=per_render[0],
+                peak=peak, physics=physics, k1_render_ms=k_ms, k1_render_back_to_back_ms=b2b_ms,
+                k1_render_bound_ms=b_ms, k1_bound_by=by, k1_bitwise_vs_plain=bitwise,
+                stokes64_rel_err=rel)
+
+
+def phase_polarimeter_prb(mi, K1, K2, K3):
+    """The polarimeter with prb (so prb_polarized), reduced to 64x64 @ 16
+    spp: the gradient of the sum of I for the polarized plastic's diffuse
+    reflectance (run_prb_vol); a 32x32 @ 4 spp step through K1 against the
+    same step through the plain version."""
+    res, spp = POLARIMETER_PRB_RES, POLARIMETER_PRB_SPP
+    integ = {"type": "prb", "max_depth": 8}
+    key = "back.bsdf.diffuse_reflectance.value"
+
+    def loss(mi, sc, seed, stats, spp=spp):
+        return mi.render(sc, spp=spp, seed=seed, stats=stats)[:, :, 0, :].sum()
+
+    mi.set_variant("rgb_polarized")
+    try:
+        scene = mi.load_dict(mi.polarimeter_scene(res, spp, integ))
+        out = run_prb_vol(mi, K1, K2, K3, f"polarimeter-prb {res}x{res} @ {spp} spp, "
+                          "prb_polarized max_depth 8", scene, [key], loss, res * res * spp)
+        out["grads"] = {k: v.tolist() for k, v in out["grads"].items()}
+        out["plain"] = prb_vol_plain_check(
+            mi, K1, K2, K3, "polarimeter-prb 32x32 @ 4 spp",
+            mi.load_dict(mi.polarimeter_scene(32, 4, integ)), [key],
+            lambda mi, sc, seed, st: loss(mi, sc, seed, st, 4))
+    finally:
+        mi.set_variant("rgb")
+    return out
+
+
+def phase_integrators(mi, K1, K2, K3, path_means):
+    """The materials scene rendered once each at 256x256 @ 64 spp with
+    direct, depth, aov ("dd.y:depth,nn:sh_normal") and moment over path
+    (max_depth 8), each after a warm-up, through K1 alone: wall, rays,
+    K1 launches; finite images, the AOV's normals signed (the film keeps
+    them), its depth channel the depth integrator's bitwise, the moment's
+    means at least the squares of the path image's `path_means` (the
+    second moment of the same samples)."""
+    spp, res = MATERIALS_SPP, MATERIALS_RES
+    specs = {"direct": {"type": "direct"}, "depth": {"type": "depth"},
+             "aov": {"type": "aov", "aovs": "dd.y:depth,nn:sh_normal"},
+             "moment": {"type": "moment", "integrator": {"type": "path", "max_depth": 8}}}
+    out, images = {}, {}
+    for name, spec in specs.items():
+        scene = mi.load_dict(mi.materials_scene(res, spp, spec))
+        label = f"integrators: materials {res}x{res} @ {spp} spp, {name}"
+
+        def render(seed, stats):
+            return mi.render(scene, spp=spp, seed=seed, stats=stats)
+
+        walls, per, stats, img, peak = timed_calls(K1, K2, K3, label, render, 1)
+        if tuple(img.shape) != (res, res, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{label}: image {tuple(img.shape)} not finite")
+        images[name] = img
+        out[name] = dict(wall=walls[0], n_rays=stats["n_rays"], k1=per[0], peak=peak,
+                         mrays=stats["n_rays"] / walls[0] / 1e6,
+                         means=img.mean(dim=(0, 1)).tolist())
+        log(f"== {label}: {walls[0]:.4f} s wall, {stats['n_rays']} rays "
+            f"({out[name]['mrays']:.2f} Mrays/s), K1 launches {per[0]}, peak memory "
+            f"{peak / 2**30:.3f} GiB, means {out[name]['means']}")
+    checks = {
+        "aov signed": bool((images["aov"][..., 1:] < 0).any()),
+        "aov depth == depth": torch.equal(images["aov"][..., 0], images["depth"][..., 0]),
+        "moment >= 0": bool((images["moment"] >= 0).all()),
+        "moment means >= path means^2": all(
+            m >= p * p for m, p in zip(out["moment"]["means"], path_means)),
+        "depth >= 0, not all 0": (bool((images["depth"] >= 0).all())
+                                  and float(images["depth"].mean()) > 0),
+    }
+    log(f"  integrators: checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"integrators: {checks}")
+    out["checks"] = checks
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one card", file=sys.stderr)
@@ -2174,6 +2571,16 @@ def main():
     regen_prb = phase_regen_prb(mi, K1, K2, K3)
     torch.cuda.empty_cache()
     api = phase_api(mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    materials = phase_materials(mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    materials_prb = phase_materials_prb(mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    polarimeter = phase_polarimeter(mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    polarimeter_prb = phase_polarimeter_prb(mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    integrators = phase_integrators(mi, K1, K2, K3, materials["means"])
 
     per_path = f"{PRB_ITERS} iterations"
     k1_entry["launches"] = cbox_launches
@@ -2198,7 +2605,17 @@ def main():
                                     "regen-prb slab prb_polarized step 64x64 @ 16 spp":
                                         regen_prb["slab_prb_polarized"]["k1"],
                                     "regen-prb aos prb_volpathaos step 16x16 @ 4 spp":
-                                        regen_prb["aos_prb"]["k1"]}
+                                        regen_prb["aos_prb"]["k1"],
+                                    "materials render 256x256 @ 64 spp":
+                                        materials["k1_per_render"],
+                                    "materials-prb step 256x256 @ 64 spp":
+                                        materials_prb["k1_per_step"],
+                                    "polarimeter render 256x256 @ 64 spp":
+                                        polarimeter["k1_per_render"],
+                                    "polarimeter-prb step 64x64 @ 16 spp":
+                                        polarimeter_prb["k1_per_step"],
+                                    **{f"integrators {k} render 256x256 @ 64 spp": v["k1"]
+                                       for k, v in integrators.items() if k != "checks"}}
     k1_entry.update(step_k1)
     k1_entry.update(hetvol_pass_launches=hetvol["k1_pass_launches"],
                     hetvol_pass_ms=hetvol["k1_pass_ms"],
@@ -2227,7 +2644,21 @@ def main():
                     vol32_regen_prb_step_launches=dict(zip(
                         ("forward", "backward_primal", "replay"), vol32_regen_prb["k1"])),
                     vol32_regen_prb_step_ms=vol32_regen_prb["k1_step_ms"],
-                    vol32_regen_prb_step_bound_ms=vol32_regen_prb["k1_step_bound_ms"])
+                    vol32_regen_prb_step_bound_ms=vol32_regen_prb["k1_step_bound_ms"],
+                    **{f"{name}_render_{k}": r[f"k1_render_{k}"]
+                       for name, r in (("materials", materials), ("polarimeter", polarimeter))
+                       for k in ("ms", "back_to_back_ms", "bound_ms")},
+                    materials_bitwise_vs_plain=materials["k1_bitwise_vs_plain"],
+                    polarimeter_bitwise_vs_plain=polarimeter["k1_bitwise_vs_plain"],
+                    **{f"{name}_step_launches": {"forward": r["k1_forward"],
+                                                 "backward_primal": r["k1_backward_primal"],
+                                                 "replay": r["k1_replay"]}
+                       for name, r in (("materials_prb", materials_prb),
+                                       ("polarimeter_prb", polarimeter_prb))},
+                    **{f"{name}_{k}": r[f"k1_{k}"]
+                       for name, r in (("materials_prb", materials_prb),
+                                       ("polarimeter_prb", polarimeter_prb))
+                       for k in ("step_ms", "step_back_to_back_ms", "step_bound_ms")})
     k3_entry.update(step_k3)
     k3_entry["launches"] = l_mma["K3"]
     k3_entry["launches_by_path"] = {f"cbox prb, K3 route, {per_path}": l_mma["K3"],
@@ -2254,7 +2685,12 @@ def main():
         "hetvol_prb": hetvol_prb,
         "vol32_regen_prb": vol32_regen_prb,
         "regen_prb": regen_prb,
-        "api": api}
+        "api": api,
+        "materials": materials,
+        "materials_prb": materials_prb,
+        "polarimeter": polarimeter,
+        "polarimeter_prb": polarimeter_prb,
+        "integrators": integrators}
     log(f"== chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(report))

@@ -17,6 +17,12 @@ The polarized Rayleigh + Mie atmosphere (BASELINE config 4) as a radiometer:
     mi.set_variant("mono_polarized")
     stokes = mi.render_1(mi.load_dict(mi.atmo_scene()), spp=64)   # [4, 1]
 
+Glass, metal, plastic and polarization optics (a polarizer and a
+quarter-wave plate in front of the camera), seen as Stokes images:
+
+    mi.set_variant("rgb_polarized")
+    img = mi.render(mi.load_dict(mi.polarimeter_scene()), spp=64)   # [H, W, 4, 3]
+
 Gradients: write a parameter that requires grad and call backward, through
 the path integrator's tape or the PRB integrators' replay; BASELINE config
 5's retrieval gradient, the atmosphere's extinction seen through a rough
@@ -34,7 +40,8 @@ ocean surface:
 from .variant import set_variant, variant, variants, current_variant, Variant
 from .core.rng import RNG
 from .core.transform import Transform, build_transform
-from .render.scene_loader import load_dict, cornell_box, atmo_scene, aos_scene
+from .render.scene_loader import (load_dict, cornell_box, atmo_scene, aos_scene, materials_scene,
+                                  polarimeter_scene)
 from .render.params import traverse, SceneParameters
 from .render_api import (CancelToken, render, render_1, render_forward, render_progressive,
                          render_test)

@@ -72,3 +72,8 @@ def frame_to_local(n, s, t, v):
 
 def frame_to_world(n, s, t, v):
     return v[..., 0:1] * s + v[..., 1:2] * t + v[..., 2:3] * n
+
+
+def reflect(wi):
+    """Mirror reflection about the local normal (+z)."""
+    return torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)

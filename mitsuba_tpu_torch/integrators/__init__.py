@@ -1,8 +1,14 @@
 """Integrator construction from a scene-dict spec (counterpart of
 mitsuba_tpu/integrators/__init__.py): ``path``, ``prb``, ``prb_basic``,
 ``volpath``, ``prbvolpath`` (alias ``prb_unpolarized``), ``prb_polarized``,
-``volpathaos`` and ``prb_volpathaos``. Any other type raises
-``NotImplementedError``: it is not yet ported.
+``volpathaos``, ``prb_volpathaos``, ``direct``, ``depth``, ``aov``,
+``stokes`` and ``moment``. Any other type raises ``NotImplementedError``:
+it is not yet ported.
+
+``stokes`` and ``moment`` wrap the integrator of their child dict (the
+last child that has a ``type``), by default ``volpath`` at the wrapper's
+``max_depth``; ``stokes`` raises ValueError when it renders outside a
+polarized variant, as the reference's does.
 
 As in the reference, in a polarized variant ``path`` is ``volpath`` (the
 volumetric integrator carries the Mueller transport of surface scenes
@@ -20,7 +26,8 @@ from __future__ import annotations
 from ..variant import current_variant
 
 TYPES = ("path", "prb", "prb_basic", "volpath", "prbvolpath", "prb_unpolarized",
-         "prb_polarized", "volpathaos", "prb_volpathaos")
+         "prb_polarized", "volpathaos", "prb_volpathaos", "direct", "depth", "aov", "stokes",
+         "moment")
 
 
 def make_integrator(spec):
@@ -37,6 +44,30 @@ def make_integrator(spec):
         t = "prb_polarized"
     if t == "prb_polarized" and not polarized:
         raise ValueError("prb_polarized requires a *_polarized variant")
+    if t == "direct":
+        from .direct import DirectIntegrator
+
+        return DirectIntegrator(emitter_samples=int(spec.get("emitter_samples", 1)),
+                                bsdf_samples=int(spec.get("bsdf_samples", 1)))
+    if t == "depth":
+        from .direct import DepthIntegrator
+
+        return DepthIntegrator()
+    if t == "aov":
+        from .aov import AOVIntegrator
+
+        return AOVIntegrator(aovs=str(spec.get("aovs", "dd.y:depth")))
+    if t in ("stokes", "moment"):
+        from .aov import MomentIntegrator, StokesIntegrator
+
+        nested = None
+        for v in spec.values():
+            if isinstance(v, dict) and "type" in v:
+                nested = make_integrator(v)
+        if nested is None:
+            nested = make_integrator({"type": "volpath",
+                                      "max_depth": int(spec.get("max_depth", 8))})
+        return (StokesIntegrator if t == "stokes" else MomentIntegrator)(nested=nested)
     kw = dict(
         max_depth=int(spec.get("max_depth", 8)),
         rr_depth=int(spec.get("rr_depth", 5)),

@@ -12,6 +12,12 @@ that order (``accumulate``): a render split into several passes then adds
 the same numbers in the same order as one pass, and the image is bitwise
 independent of the split.
 
+Before a pass's values reach the film, render_api.warn_invalid drops the
+non-finite ones and clamps the negative ones to 0, except where the
+integrator's output is signed (``signed_output``, the AOV integrator's
+normals and positions): the reference's film warns of negative radiance
+only.
+
 Polarized variants put the raw Stokes components on the film: per-lane
 [N, C, 4] values develop to [H, W, 4, C], Stokes-major, as the reference's
 film does; no colour conversion is applied.

@@ -1,8 +1,8 @@
 """Fresnel equations (counterpart of mitsuba_tpu/render/fresnel.py): the
-unpolarized reflectance of a real dielectric interface (the rough
-dielectric's) and the polarized complex amplitudes (the Mueller matrices
-of specular reflection and transmission). The conductor's unpolarized form
-waits for the conductor BSDFs.
+unpolarized reflectance of a real dielectric interface and of a conductor
+of complex index eta - i k, the polarized complex amplitudes (the Mueller
+matrices of specular reflection and transmission), and the diffuse
+Fresnel reflectance's polynomial fit.
 
 Complex amplitudes are ``torch.complex64``, as the reference's jnp.complex64.
 """
@@ -39,6 +39,48 @@ def fresnel(cos_theta_i, eta):
     r = torch.where(index_matched, 0.0, torch.where(tir, 1.0, r))
     cos_theta_t = torch.where(tir, 0.0, -torch.sign(cos_theta_i) * cos_theta_t_abs)
     return r, cos_theta_t, eta_it, eta_ti
+
+
+def fresnel_conductor(cos_theta_i, eta, k):
+    """Unpolarized Fresnel reflectance of a conductor of complex relative
+    IOR eta - i k (cos_theta_i >= 0); eta and k broadcast against it (one
+    value per channel)."""
+    cos_theta_i_2 = cos_theta_i * cos_theta_i
+    sin_theta_i_2 = 1.0 - cos_theta_i_2
+    sin_theta_i_4 = sin_theta_i_2 * sin_theta_i_2
+
+    eta_2 = eta * eta
+    k_2 = k * k
+
+    temp_1 = eta_2 - k_2 - sin_theta_i_2
+    a_2_pb_2 = safe_sqrt(temp_1 * temp_1 + 4.0 * eta_2 * k_2)
+    a = safe_sqrt(0.5 * (a_2_pb_2 + temp_1))
+
+    term_1 = a_2_pb_2 + cos_theta_i_2
+    term_2 = 2.0 * a * cos_theta_i
+    r_s = (term_1 - term_2) / torch.clamp(term_1 + term_2, min=1e-12)
+
+    term_3 = a_2_pb_2 * cos_theta_i_2 + sin_theta_i_4
+    term_4 = term_2 * sin_theta_i_2
+    r_p = r_s * (term_3 - term_4) / torch.clamp(term_3 + term_4, min=1e-12)
+
+    return 0.5 * (r_s + r_p)
+
+
+def fresnel_diffuse_reflectance(eta):
+    """The hemispherical (diffuse) Fresnel reflectance at relative IOR
+    eta, as the reference's polynomial fits: Egan and Hilgeman's below
+    eta = 1, d'Eon and Irving's above."""
+    eta = torch.as_tensor(eta, dtype=torch.float32)
+    inv_eta = 1.0 / eta
+    approx_lo = -1.4399 * eta * eta + 0.7099 * eta + 0.6681 + 0.0636 * inv_eta
+    inv_eta_2 = inv_eta * inv_eta
+    inv_eta_3 = inv_eta_2 * inv_eta
+    inv_eta_4 = inv_eta_3 * inv_eta
+    inv_eta_5 = inv_eta_4 * inv_eta
+    approx_hi = (0.919317 - 3.4793 * inv_eta + 6.75335 * inv_eta_2 - 7.80989 * inv_eta_3
+                 + 4.98554 * inv_eta_4 - 1.36881 * inv_eta_5)
+    return torch.where(eta < 1.0, approx_lo, approx_hi)
 
 
 def _mulsign_c(z, s):

@@ -20,7 +20,7 @@ from . import mueller as mu
 from . import shapes as shapes_mod
 from .phase import local_wi, sggx_projected_area
 from .phase_polarized import phase_eval_pdf_mueller
-from .bsdfs import DiffuseBSDF, NullBSDF
+from .bsdfs import DiffuseBSDF, NullBSDF, _invalid_sample
 from .spectrum_ops import depolarizer_weight, identity_weight
 from .records import BSDFSample, DirectionSample, PreliminaryIntersection, Ray, spawn_ray
 from .textures import ConstantTexture
@@ -271,12 +271,7 @@ class Scene:
         n_lanes = si.p.shape[0]
         dev = si.p.device
         b_idx = self.bsdf_index_at(si)
-        bs = BSDFSample(
-            wo=_unit_z(n_lanes, dev),
-            pdf=torch.zeros(n_lanes, dtype=torch.float32, device=dev),
-            eta=torch.ones(n_lanes, dtype=torch.float32, device=dev),
-            delta=torch.zeros(n_lanes, dtype=torch.bool, device=dev),
-        )
+        bs = _invalid_sample(n_lanes, dev)
         weight = torch.zeros(n_lanes, self.n_channels, dtype=torch.float32, device=dev)
         fused = self._fused_diffuse_idxs()
         if fused:
@@ -333,12 +328,7 @@ class Scene:
         which passes the polarization on."""
         n_lanes, nc, dev = si.p.shape[0], self.n_channels, si.p.device
         b_idx = self.bsdf_index_at(si)
-        bs = BSDFSample(
-            wo=_unit_z(n_lanes, dev),
-            pdf=torch.zeros(n_lanes, dtype=torch.float32, device=dev),
-            eta=torch.ones(n_lanes, dtype=torch.float32, device=dev),
-            delta=torch.zeros(n_lanes, dtype=torch.bool, device=dev),
-        )
+        bs = _invalid_sample(n_lanes, dev)
         M = torch.zeros(n_lanes, nc, 4, 4, dtype=torch.float32, device=dev)
         for i, b in enumerate(self.bsdfs):
             m = (b_idx == i) & active

@@ -3,12 +3,17 @@ of mitsuba_tpu/render/scene_loader.py).
 
 Accepted plugin types: ``scene``; the ``path``, ``prb``, ``prb_basic``,
 ``volpath``, ``prbvolpath`` (``prb_unpolarized``), ``prb_polarized``,
-``volpathaos`` and ``prb_volpathaos`` integrators; the ``perspective`` and ``radiancemeter``
+``volpathaos``, ``prb_volpathaos``, ``direct``, ``depth``, ``aov``,
+``stokes`` and ``moment`` integrators; the ``perspective`` and ``radiancemeter``
 (with an optional ``wavelength``) sensors with an ``independent`` sampler
-and an ``hdrfilm`` with a ``gaussian``, ``box`` or ``tent`` filter;
-``diffuse`` BSDFs with ``rgb`` or scalar reflectance, the ``null`` BSDF
-of medium boundaries and the ``roughdielectric`` (GGX, the ocean
-surface); ``rectangle``, ``cube``, ``obj``, ``ply`` and
+and an ``hdrfilm`` with a ``gaussian``, ``box`` or ``tent`` filter; the
+``diffuse``, ``null``, ``dielectric``, ``thindielectric``, ``roughdielectric``,
+``conductor``, ``roughconductor`` (a ``material`` preset or ``eta`` and
+``k``), ``roughplastic``, ``pplastic``, ``polarizer``, ``circular``,
+``retarder``, ``twosided``, ``mask`` and ``blendbsdf`` BSDFs with ``rgb``
+or scalar textures (``normalmap``, ``bumpmap``, ``plastic`` and the
+principled, measured and hair BSDFs raise ``NotImplementedError``);
+``rectangle``, ``cube``, ``obj``, ``ply`` and
 raw-array ``mesh`` shapes, with an ``interior`` and ``exterior`` medium;
 ``homogeneous`` and ``heterogeneous`` media (``constvolume``/``gridvolume``
 fields, the ``isotropic``, ``hg``, ``sggx``, ``rayleigh``, ``mie`` (with a
@@ -38,7 +43,7 @@ import torch
 
 from .. import native
 from ..core.transform import Transform, build_transform
-from .bsdfs import DiffuseBSDF, NullBSDF, RoughDielectricBSDF
+from . import bsdfs as B
 from ..variant import current_variant
 from .emitters import AreaEmitter, ConstantEmitter, DirectionalEmitter
 from .film import Film
@@ -49,7 +54,13 @@ from . import shapes as SH
 from .textures import ConstantTexture
 
 SHAPE_TYPES = ("rectangle", "cube", "obj", "ply", "mesh")
-BSDF_TYPES = ("diffuse", "null", "roughdielectric")
+BSDF_TYPES = ("diffuse", "null", "roughdielectric", "dielectric", "thindielectric", "conductor",
+              "roughconductor", "roughplastic", "pplastic", "polarizer", "circular", "retarder",
+              "twosided", "mask", "blendbsdf")
+# the reference's other BSDF plugins, refused with a NotImplementedError
+BSDF_TYPES_NOT_PORTED = ("normalmap", "bumpmap", "plastic", "principled", "principledthin",
+                         "principled_thin", "measured", "measured_polarized", "hair")
+ALL_BSDF_TYPES = BSDF_TYPES + BSDF_TYPES_NOT_PORTED
 # the reference's environment and delta emitters; "constant" and
 # "directional" are ported
 EMITTER_TYPES = ("constant", "point", "directional", "envmap", "spot", "projector")
@@ -139,31 +150,137 @@ def _ior(v, default=1.5046):
     return float(v)
 
 
+# spectrally averaged (eta, k) of common conductors, as the JAX package's
+# scene loader keeps them
+_CONDUCTOR_PRESETS = {
+    "Au": ([0.143, 0.375, 1.442], [3.983, 2.386, 1.603]),
+    "Ag": ([0.156, 0.144, 0.135], [3.60, 3.13, 2.38]),
+    "Al": ([1.345, 0.965, 0.617], [7.47, 6.40, 5.30]),
+    "Cu": ([0.20, 0.924, 1.102], [3.91, 2.45, 2.14]),
+    "none": ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0]),
+}
+
+
+def _nested_bsdf_spec(spec, t):
+    """The one nested BSDF of a wrapper (twosided, mask): its ``bsdf``
+    child, or else its first child of a BSDF type."""
+    nested = spec.get("bsdf")
+    if nested is None:
+        nested = next((v for v in spec.values()
+                       if isinstance(v, dict) and v.get("type") in ALL_BSDF_TYPES), None)
+    if nested is None:
+        raise ValueError(f"{t!r} needs a nested BSDF (add a 'bsdf' child)")
+    return nested
+
+
+def _parse_nested(spec, name, paths, device, attr):
+    """A wrapper's child BSDF, parsed under the wrapper's `name`; its
+    parameter paths reach it through the wrapper's field `attr`."""
+    local = []
+    inst = parse_bsdf(spec, name, local, device)
+    paths.extend((key, (attr,) + sub) for key, sub in local)
+    return inst
+
+
+def _scalar(v, device):
+    return torch.tensor(float(v), dtype=torch.float32, device=device)
+
+
+def _iors(spec, int_default):
+    """The relative IOR int_ior / ext_ior (numbers or presets' names)."""
+    return _ior(spec.get("int_ior"), int_default) / _ior(spec.get("ext_ior"), 1.000277)
+
+
 def parse_bsdf(spec, name, paths, device):
+    """A BSDF instance from its dict; appends its (key, path) pairs to
+    `paths`, with the JAX package's keys."""
     t = spec["type"]
+    if t in BSDF_TYPES_NOT_PORTED:
+        raise _not_ported(f"BSDF type {t!r}")
+    if t not in BSDF_TYPES:
+        raise ValueError(f"unknown bsdf type {t!r}")
     if t == "null":
-        return NullBSDF()
+        return B.NullBSDF()
+    if t == "diffuse":
+        tex, leaf = parse_texture(spec.get("reflectance", 0.5), device)
+        paths.append((f"{name}.reflectance.{leaf}", ("reflectance", leaf)))
+        return B.DiffuseBSDF(reflectance=tex)
+    if t == "twosided":
+        return B.TwoSidedBSDF(
+            nested=_parse_nested(_nested_bsdf_spec(spec, t), name, paths, device, "nested"))
+    if t == "mask":
+        nested = _parse_nested(_nested_bsdf_spec(spec, t), name, paths, device, "nested")
+        op, leaf = parse_texture(spec.get("opacity", 0.5), device)
+        paths.append((f"{name}.opacity.{leaf}", ("opacity", leaf)))
+        return B.MaskBSDF(nested=nested, opacity=op)
+    if t == "blendbsdf":
+        nested = [v for v in spec.values()
+                  if isinstance(v, dict) and v.get("type") in ALL_BSDF_TYPES]
+        if len(nested) != 2:
+            raise ValueError("blendbsdf needs exactly two nested BSDFs")
+        w, leaf = parse_texture(spec.get("weight", 0.5), device)
+        paths.append((f"{name}.weight.{leaf}", ("weight", leaf)))
+        return B.BlendBSDF(
+            bsdf_a=_parse_nested(nested[0], name + ".a", paths, device, "bsdf_a"),
+            bsdf_b=_parse_nested(nested[1], name + ".b", paths, device, "bsdf_b"),
+            weight=w,
+        )
+    if t in ("polarizer", "circular", "retarder"):
+        tr, _ = parse_texture(spec.get("transmittance", 1.0), device)
+        if t == "circular":
+            return B.CircularPolarizerBSDF(transmittance=tr,
+                                           left=bool(spec.get("left_handed", False)))
+        # theta (and the retarder's delta) in degrees, stored in radians
+        paths.append((f"{name}.theta", ("theta",)))
+        theta = _scalar(np.deg2rad(float(spec.get("theta", 0.0))), device)
+        if t == "polarizer":
+            return B.PolarizerBSDF(theta=theta, transmittance=tr)
+        return B.RetarderBSDF(theta=theta,
+                              delta_phase=_scalar(np.deg2rad(float(spec.get("delta", 90.0))),
+                                                  device),
+                              transmittance=tr)
+    if t in ("roughplastic", "pplastic"):
+        dr, leaf = parse_texture(spec.get("diffuse_reflectance", 0.5), device)
+        paths.append((f"{name}.diffuse_reflectance.{leaf}", ("diffuse_reflectance", leaf)))
+        sr, _ = parse_texture(spec.get("specular_reflectance", 1.0), device)
+        cls = B.PPlasticBSDF if t == "pplastic" else B.RoughPlasticBSDF
+        return cls(eta=_scalar(_iors(spec, 1.49), device),
+                   alpha=_scalar(spec.get("alpha", 0.06 if t == "pplastic" else 0.1), device),
+                   diffuse_reflectance=dr, specular_reflectance=sr)
+    if t in ("conductor", "roughconductor"):
+        if "eta" in spec:
+            eta = np.asarray(spec["eta"], np.float32)
+            k = np.asarray(spec.get("k", 1.0), np.float32)
+        else:
+            eta, k = (np.asarray(x, np.float32)
+                      for x in _CONDUCTOR_PRESETS[spec.get("material", "none")])
+        if eta.ndim == 1 and eta.shape[0] == 3 and current_variant().n_channels != 3:
+            eta, k = eta.mean(keepdims=True), k.mean(keepdims=True)
+        eta, k = torch.from_numpy(eta).to(device), torch.from_numpy(k).to(device)
+        sr, _ = parse_texture(spec.get("specular_reflectance", 1.0), device)
+        if t == "conductor":
+            return B.SmoothConductorBSDF(eta=eta, k=k, specular_reflectance=sr)
+        alpha = float(spec.get("alpha", 0.1))
+        # as in the JAX package, <name>.alpha is alpha_u alone
+        paths.append((f"{name}.alpha", ("alpha_u",)))
+        return B.RoughConductorBSDF(
+            eta=eta, k=k, alpha_u=_scalar(spec.get("alpha_u", alpha), device),
+            alpha_v=_scalar(spec.get("alpha_v", alpha), device), specular_reflectance=sr)
+    # the dielectrics
+    sr, _ = parse_texture(spec.get("specular_reflectance", 1.0), device)
+    st, _ = parse_texture(spec.get("specular_transmittance", 1.0), device)
     if t == "roughdielectric":
-        int_ior = _ior(spec.get("int_ior"), 1.5046)
-        ext_ior = _ior(spec.get("ext_ior"), 1.000277)
-        eta = float(spec["eta"]) if "eta" in spec else int_ior / ext_ior
+        eta = float(spec["eta"]) if "eta" in spec else _iors(spec, 1.5046)
         alpha = spec.get("alpha", 0.1)
         if isinstance(alpha, dict):
             alpha = float(alpha.get("value", 0.1))
-        sr, _ = parse_texture(spec.get("specular_reflectance", 1.0), device)
-        st, _ = parse_texture(spec.get("specular_transmittance", 1.0), device)
         paths.append((f"{name}.eta", ("eta",)))
         paths.append((f"{name}.alpha.value", ("alpha",)))
-        return RoughDielectricBSDF(
-            eta=torch.tensor(eta, dtype=torch.float32, device=device),
-            alpha=torch.tensor(float(alpha), dtype=torch.float32, device=device),
-            specular_reflectance=sr, specular_transmittance=st,
-        )
-    if t != "diffuse":
-        raise _not_ported(f"BSDF type {t!r}")
-    tex, leaf = parse_texture(spec.get("reflectance", 0.5), device)
-    paths.append((f"{name}.reflectance.{leaf}", ("reflectance", leaf)))
-    return DiffuseBSDF(reflectance=tex)
+        return B.RoughDielectricBSDF(eta=_scalar(eta, device), alpha=_scalar(alpha, device),
+                                     specular_reflectance=sr, specular_transmittance=st)
+    cls = B.SmoothDielectricBSDF if t == "dielectric" else B.ThinDielectricBSDF
+    return cls(eta=_scalar(_iors(spec, 1.5046), device), specular_reflectance=sr,
+               specular_transmittance=st)
 
 
 def parse_sensor(spec, device):
@@ -277,7 +394,7 @@ def load_dict(d, device=None, intersector="smem"):
 
     # pass 1: named top-level BSDFs, so that refs resolve
     for name, spec in d.items():
-        if isinstance(spec, dict) and spec.get("type") in BSDF_TYPES:
+        if isinstance(spec, dict) and spec.get("type") in ALL_BSDF_TYPES:
             named_bsdfs[name] = register_bsdf(spec, name)
 
     # pass 2: named top-level media, which shapes may refer to
@@ -290,7 +407,7 @@ def load_dict(d, device=None, intersector="smem"):
         if not isinstance(spec, dict):
             continue
         t = spec.get("type")
-        if t in BSDF_TYPES or t in MEDIUM_TYPES:
+        if t in ALL_BSDF_TYPES or t in MEDIUM_TYPES:
             continue
         if name == "integrator" or t in INTEGRATOR_TYPES:
             integrator_spec = spec
@@ -374,7 +491,7 @@ def load_dict(d, device=None, intersector="smem"):
         param_paths.append((f"{name}.radiance.{leaf}", ("emitters", e_idx, "radiance", leaf)))
 
     if not bsdf_list:
-        bsdf_list.append(DiffuseBSDF(reflectance=parse_texture(0.5, device)[0]))
+        bsdf_list.append(B.DiffuseBSDF(reflectance=parse_texture(0.5, device)[0]))
     n_shapes = max(len(shape_records), 1)
     shape_bsdf = np.zeros(n_shapes, np.int64)
     shape_emitter = np.full(n_shapes, -1, np.int64)
@@ -509,6 +626,51 @@ def cornell_box():
             "bsdf": {"type": "ref", "id": "white"},
         },
     }
+
+
+def materials_scene(res=256, spp=64, integrator=None):
+    """The Cornell box in other materials: the large box a rough conductor
+    (gold, alpha 0.2), the small box smooth glass (bk7), the back wall a
+    two-sided rough plastic (diffuse reflectance 0.6, alpha 0.1), the
+    floor a blend of the white diffuse (0.7) and smooth silver (0.3), the
+    green wall a mask of opacity 0.8 over the green diffuse; a res x res
+    film at spp, `integrator` (a spec dict) or the cbox's path tracer."""
+    d = cornell_box()
+    film = d["sensor"]["film"]
+    film["width"] = film["height"] = res
+    d["sensor"]["sampler"]["sample_count"] = spp
+    d["large-box"]["bsdf"] = {"type": "roughconductor", "material": "Au", "alpha": 0.2}
+    d["small-box"]["bsdf"] = {"type": "dielectric", "int_ior": "bk7"}
+    d["back"]["bsdf"] = {"type": "twosided", "bsdf": {
+        "type": "roughplastic", "diffuse_reflectance": 0.6, "alpha": 0.1}}
+    d["floor"]["bsdf"] = {"type": "blendbsdf", "weight": 0.3,
+                          "diffuse": dict(d["white"]),
+                          "metal": {"type": "conductor", "material": "Ag"}}
+    d["green-wall"]["bsdf"] = {"type": "mask", "opacity": 0.8, "bsdf": dict(d["green"])}
+    if integrator is not None:
+        d["integrator"] = integrator
+    return d
+
+
+def polarimeter_scene(res=256, spp=64, integrator=None):
+    """What a polarization camera sees of materials_scene with a polarized
+    plastic back wall (diffuse reflectance 0.3, alpha 0.08) and a smooth
+    gold large box, through two filter sheets at z = 2.5 between the camera
+    (z = 3.9) and the box, each covering half the view: a linear polarizer
+    (theta 30 degrees) over x in [-1, 0] and a quarter-wave retarder (theta
+    45 degrees) over x in [0, 1]. For the polarized variants; by default
+    the stokes integrator over volpath at max_depth 8."""
+    d = materials_scene(res, spp)
+    d["back"]["bsdf"] = {"type": "pplastic", "diffuse_reflectance": 0.3, "alpha": 0.08}
+    d["large-box"]["bsdf"] = {"type": "conductor", "material": "Au"}
+    for name, x, bsdf in (("polarizer-sheet", -0.5, {"type": "polarizer", "theta": 30.0}),
+                          ("retarder-sheet", 0.5, {"type": "retarder", "theta": 45.0})):
+        d[name] = {"type": "rectangle", "bsdf": bsdf,
+                   "to_world": [{"type": "scale", "value": [0.5, 1, 1]},
+                                {"type": "translate", "value": [x, 0, 2.5]}]}
+    d["integrator"] = integrator or {"type": "stokes",
+                                     "integrator": {"type": "volpath", "max_depth": 8}}
+    return d
 
 
 def spherified_cube(k=130):

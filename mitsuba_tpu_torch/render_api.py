@@ -72,14 +72,15 @@ def wavefront_for(scene, seed, pix, sidx, spp_total, sensor_idx=0):
     return rng, ray, jitter
 
 
-def warn_invalid(L, polarized=False):
+def warn_invalid(L, polarized=False, clamp_negative=True):
     """Sanitize per-lane radiance [N, C] (polarized: Stokes [N, C, 4])
     before it reaches the film: NaN/inf values are dropped and negative
     values clamped, for a Stokes vector in I only (Q, U and V are signed).
-    Returns (L_clean, stats) with the lane counts {'n_invalid',
-    'n_negative'} as tensors."""
+    With clamp_negative=False (an integrator's signed output: AOV normals,
+    positions) only the non-finite values are dropped. Returns (L_clean,
+    stats) with the lane counts {'n_invalid', 'n_negative'} as tensors."""
     bad = ~torch.isfinite(L)
-    neg = L < 0.0
+    neg = L < 0.0 if clamp_negative else torch.zeros_like(bad)
     if polarized:
         neg[..., 1:] = False
     lane_dims = tuple(range(1, L.ndim))
@@ -123,9 +124,12 @@ def render_lanes(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_i
     )
     active = torch.ones(n, dtype=torch.bool, device=scene.device)
     L, aux = scene.integrator.sample(scene, rng, ray, active)
-    if scene.polarized:
+    # Stokes radiance; an AOV or depth in a polarized variant is [n, C]
+    stokes = scene.polarized and L.ndim == 3
+    if stokes:
         L = to_sensor_mueller(ray.d, L)
-    L, inv_stats = warn_invalid(L, scene.polarized)
+    L, inv_stats = warn_invalid(
+        L, stokes, clamp_negative=not getattr(scene.integrator, "signed_output", False))
     return L, {**aux, **inv_stats}
 
 

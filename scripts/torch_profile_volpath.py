@@ -6,9 +6,13 @@ spp, max_depth 32), its polarized atmosphere (BASELINE config 4:
 mono_polarized, render_1 of a 64x64 radiancemeter film @ 64 spp, max_depth
 8) or its atmosphere-ocean scene (BASELINE config 5: mono_polarized,
 volpathaos render_1 of a 32x32 film @ 64 spp, max_depth 4), with a
-profiler range around each layer of the integrator.
+profiler range around each layer of the integrator; or of the surface
+materials: the materials scene (rgb, path at 256x256 @ 64 spp, max_depth
+8) or the polarimeter (rgb_polarized, stokes over volpath at 256x256 @ 64
+spp in passes of 16 spp), with a range around each BSDF's methods too.
 
-    python3 scripts/torch_profile_volpath.py [--scene het|vol32|atmo|aos] [--regenerate] [--prb]
+    python3 scripts/torch_profile_volpath.py [--scene het|vol32|atmo|aos|materials|polarimeter]
+                                             [--regenerate] [--prb]
 
 With --prb the profiled call is one gradient step instead (the scene's
 PRB integrator: prbvolpath for het and vol32, prb_polarized for atmo,
@@ -26,7 +30,10 @@ K1 and the surface interaction), "track_segment" (delta tracking of a
 segment), "estimate_transmittance" (NEE: its crossings' closest hits and
 "track_segment_ratio", the ratio tracking; "estimate_transmittance_aos",
 the bent shadow walk of the atmosphere-ocean integrators),
-"emitter_sample" and, in a polarized variant, the Mueller layer:
+"emitter_sample", "bsdf_eval_pdf" and "bsdf_sample" (the BSDF dispatch;
+with --scene materials or polarimeter also one range per BSDF class and
+method, "bsdf:<class>.<method>", so that a BSDF nested in a wrapper shows
+inside its wrapper's range) and, in a polarized variant, the Mueller layer:
 "phase_eval_pdf_pol" (the phase matrices of NEE and of the sampled
 direction, rotated to the world), "phase_sample_pol" (the sampled
 direction's weight), "bsdf_eval_pdf_pol" and "bsdf_sample_pol" (the
@@ -89,15 +96,19 @@ def _ranged_attached(name, fn):
     return wrapper
 
 
-PRB_TYPES = {"het": "prbvolpath", "vol32": "prbvolpath", "atmo": "prb", "aos": "prb_volpathaos"}
+PRB_TYPES = {"het": "prbvolpath", "vol32": "prbvolpath", "atmo": "prb", "aos": "prb_volpathaos",
+             "materials": "prb", "polarimeter": "prb"}
 SIGMA_T = {"het": "cloud.interior_medium.sigma_t.data",
            "vol32": "slab.interior_medium.sigma_t.value.value",
-           "atmo": "atmo.sigma_t.value.value", "aos": "atmo_medium.sigma_t.value.value"}
+           "atmo": "atmo.sigma_t.value.value", "aos": "atmo_medium.sigma_t.value.value",
+           "materials": "large-box.bsdf.alpha",
+           "polarimeter": "back.bsdf.diffuse_reflectance.value"}
+BSDF_METHODS = ("eval", "pdf", "sample", "sample_pol", "eval_pdf_mueller")
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("het", "vol32", "atmo", "aos"), default="het")
+    ap.add_argument("--scene", choices=tuple(PRB_TYPES), default="het")
     ap.add_argument("--regenerate", action="store_true")
     ap.add_argument("--prb", action="store_true")
     args = ap.parse_args()
@@ -105,13 +116,21 @@ def main():
         sys.exit("torch_profile_volpath: needs a CUDA card")
     import mitsuba_tpu_torch as mi
     from mitsuba_tpu_torch import render_api
-    from mitsuba_tpu_torch.ad import prb_volpathaos, prbvolpath, render_ad
+    from mitsuba_tpu_torch.ad import prb, prb_volpathaos, prbvolpath, render_ad
     from mitsuba_tpu_torch.integrators import volpath, volpathaos
     from mitsuba_tpu_torch.render import scene as scene_mod
     from mitsuba_tpu_torch.render.scene_loader import (aos_scene, atmo_scene, het_vol_scene,
                                                        vol32_scene)
 
-    if args.scene in ("atmo", "aos"):
+    spp_per_pass = None
+    if args.scene in ("materials", "polarimeter"):
+        mi.set_variant("rgb" if args.scene == "materials" else "rgb_polarized")
+        make = mi.materials_scene if args.scene == "materials" else mi.polarimeter_scene
+        d = make(256, 64, {"type": "path", "max_depth": 8, "regenerate": args.regenerate})
+        spp = 64
+        spp_per_pass = 16 if args.scene == "polarimeter" and not args.regenerate else None
+        render = mi.render
+    elif args.scene in ("atmo", "aos"):
         mi.set_variant("mono_polarized")
         d = atmo_scene() if args.scene == "atmo" else aos_scene(integrator="volpathaos")
         d["integrator"]["regenerate"] = args.regenerate
@@ -128,12 +147,16 @@ def main():
     scene = mi.load_dict(d)
     key = SIGMA_T[args.scene]
 
+    kw = {} if spp_per_pass is None else {"spp_per_pass": spp_per_pass}
+
     def call(seed, stats=None):
         if not args.prb:
-            return render(scene, spp=spp, seed=seed, stats=stats)
+            # no parameter requires grad: the ranges carry no "_attached"
+            with torch.no_grad():
+                return render(scene, spp=spp, seed=seed, stats=stats, **kw)
         params = mi.traverse(scene)
         v = params[key].clone().requires_grad_()
-        out = render(params.update({key: v}), spp=spp, seed=seed, stats=stats)
+        out = render(params.update({key: v}), spp=spp, seed=seed, stats=stats, **kw)
         (out.sum() if render is mi.render_1 else out.mean()).backward()
         return v.grad
 
@@ -146,7 +169,9 @@ def main():
                     "bsdf_eval_pdf_pol": "bsdf_eval_pdf_pol",
                     "bsdf_sample_pol": "bsdf_sample_pol",
                     "phase_eval_pdf": "phase_eval_pdf",
-                    "bsdf_eval_pdf": "bsdf_eval_pdf"}
+                    "bsdf_eval_pdf": "bsdf_eval_pdf",
+                    "bsdf_sample": "bsdf_sample",
+                    "ray_intersect_and_test": "ray_intersect"}
     # each module that calls a layer by its own name, and what to range there
     patches = [(m, name, _ranged(name, getattr(m, name)))
                for m in (volpath, volpathaos, prbvolpath, prb_volpathaos) for name in layers
@@ -161,6 +186,20 @@ def main():
                  _ranged("replay", prbvolpath.VolumeReplay.sample_backward)),
                 (prbvolpath.VolumeReplay, "_bwd_bounce",
                  _ranged("replay_segment", prbvolpath.VolumeReplay._bwd_bounce))]
+    bsdf_ranges = ()
+    if args.scene in ("materials", "polarimeter"):
+        # every BSDF class of the scene, wrappers' children included
+        classes = {type(x) for b in scene.bsdfs
+                   for x in (b, getattr(b, "nested", None), getattr(b, "bsdf_a", None),
+                             getattr(b, "bsdf_b", None)) if x is not None}
+        pairs = [(c, m) for c in sorted(classes, key=lambda c: c.__name__) for m in BSDF_METHODS
+                 if hasattr(c, m)]
+        bsdf_ranges = tuple(f"bsdf:{c.__name__}.{m}" for c, m in pairs)
+        patches += [(c, m, _ranged_attached(f"bsdf:{c.__name__}.{m}", getattr(c, m)))
+                    for c, m in pairs]
+        patches += [(prb.PRBIntegrator, "sample_backward",
+                     _ranged("replay", prb.PRBIntegrator.sample_backward)),
+                    (prb, "vjp_into", _ranged("autograd_grad", prb.vjp_into))]
     if args.prb and args.regenerate:
         patches += [(volpath, "volpath_regen_render",
                      _ranged("primal", volpath.volpath_regen_render)),
@@ -186,7 +225,8 @@ def main():
 
     names = (layers + tuple(scene_layers.values())
              + tuple(v + "_attached" for v in scene_layers.values())
-             + ("to_sensor_mueller", "primal", "autograd_grad", "replay", "replay_segment"))
+             + ("to_sensor_mueller", "primal", "autograd_grad", "replay", "replay_segment")
+             + bsdf_ranges + tuple(r + "_attached" for r in bsdf_ranges))
     # the ranges' own device spans are not kernels: leave them out of the sums
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.key not in names]

@@ -520,3 +520,57 @@ def test_regen_prb_gradient_through_k1_equals_plain(cuda, name, monkeypatch):
     for k in keys:
         assert bool(torch.isfinite(g_k[k]).all()) and bool((g_k[k] != 0).any()), k
         assert torch.equal(g_k[k], g_p[k]), k
+
+
+# ---------------------------------------------------------------------------
+# surface materials and polarization optics
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene,variant", [("materials", "rgb"),
+                                           ("polarimeter", "rgb_polarized")])
+def test_materials_render_through_k1_equals_plain(cuda, scene, variant, monkeypatch):
+    """The materials scene (path) and the polarimeter scene (stokes over
+    volpath, Stokes image [32, 32, 4, 3]) at 32x32 @ 4 spp go through K1 on
+    every closest hit and equal, bit for bit, the same renders through K1's
+    plain version."""
+    mt.set_variant(variant)
+    try:
+        make = mt.materials_scene if scene == "materials" else mt.polarimeter_scene
+        s = mt.load_dict(make(32, 4))
+        before = K1.smem_intersect.launches
+        img = mt.render(s, spp=4, seed=0)
+        assert K1.smem_intersect.launches > before
+        monkeypatch.setattr(K1, "smem_intersect", K1.tri_intersect_reference)
+        plain = mt.render(s, spp=4, seed=0)
+    finally:
+        mt.set_variant("rgb")
+    shape = (32, 32, 3) if scene == "materials" else (32, 32, 4, 3)
+    assert img.shape == shape and bool(torch.isfinite(img).all())
+    assert float(img[..., 0, :].mean() if img.ndim == 4 else img.mean()) > 0
+    assert torch.equal(img, plain)
+
+
+@pytest.mark.gpu
+def test_materials_prb_gradient_through_k1_equals_plain(cuda, monkeypatch):
+    """A reduced materials-prb step (16x16 @ 4 spp, max_depth 8): the image
+    mean's gradients for the rough conductor's alpha and the blend's
+    weight through K1 (forward and backward) equal those of the same step
+    through K1's plain version, bit for bit (the bound is 1e-6 relative:
+    the same kernels on the same inputs, so any difference would be a
+    fault)."""
+    d = mt.materials_scene(16, 4, {"type": "prb", "max_depth": 8})
+    keys = ["large-box.bsdf.alpha", "floor.bsdf.weight.value"]
+    scene = mt.load_dict(d)
+
+    def loss(s):
+        return mt.render(s, spp=4, seed=0).mean()
+
+    out_k, g_k, launches = _prb_grads(scene, keys, loss)
+    assert min(launches) > 0, launches
+    monkeypatch.setattr(K1, "smem_intersect", K1.tri_intersect_reference)
+    out_p, g_p, _ = _prb_grads(scene, keys, loss)
+    assert bool(torch.isfinite(out_k)) and torch.equal(out_k, out_p)
+    for k in keys:
+        assert bool(torch.isfinite(g_k[k]).all()) and bool((g_k[k] != 0).all()), k
+        assert float((g_k[k] - g_p[k]).abs().max()) <= 1e-6 * float(g_p[k].abs().max()), k

@@ -221,7 +221,9 @@ def test_integrator_types():
         "VolPathIntegrator"
     assert type(mt.load_dict(_cbox("prbvolpath"), device="cpu").integrator).__name__ == \
         "PRBVolpathIntegrator"
-    for t in ("direct", "volpathmis"):
+    assert type(mt.load_dict(_cbox("direct"), device="cpu").integrator).__name__ == \
+        "DirectIntegrator"
+    for t in ("ptracer", "volpathmis"):
         with pytest.raises(NotImplementedError):
             mt.load_dict(_cbox(t), device="cpu")
 
