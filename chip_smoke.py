@@ -268,6 +268,28 @@ JAX_MATERIALS_PRB64_DEPTH4_GRAD = (-0.0053257145918905735, -0.015754077583551407
 # the 64x64 means (Q, U, V relative to I) and gradients against the JAX
 # package's
 MATERIALS_RTOL = 1e-3
+# The spectral variants (spectral, spectral_polarized). The JAX package's
+# values, computed once with mitsuba_tpu on the CPU
+# (XLA_FLAGS=--xla_backend_optimization_level=1), in the spectral variant:
+# - the cbox (mi.cornell_box(), path max_depth 8) at 64x64, spp=16, seed=0:
+#   mi.render(mi.load_dict(d), spp=16, seed=0).mean(axis=(0, 1)) (10.4 s);
+JAX_SPECTRAL_CBOX64_MEANS = (0.2357284426689148, 0.14337600767612457, 0.06117020919919014)
+# - the same dict with prb max_depth 4: the gradient of the image mean for
+#   white.reflectance.value, jax.jit(jax.value_and_grad(loss, has_aux=True))
+#   of loss(v) = (mean of mi.render(mi.traverse(scene).update({KEY: v}),
+#   spp=16, seed=0), the image) (27.6 s);
+JAX_SPECTRAL_PRB64_DEPTH4_GRAD = (0.045912668108940125, 0.038948509842157364, 0.01508698146790266)
+# - in spectral_polarized, BASELINE config 4 (atmo_scene(64, 64)): the raw
+#   Stokes [4, 4] (Stokes-major; the radiancemeter's 550 nm on all four
+#   channels) of mi.render_1(mi.load_dict(atmo_scene(64, 64)), spp=64,
+#   seed=0) (126.9 s).
+JAX_SPECTRAL_ATMO_STOKES = tuple(
+    (v,) * 4 for v in (0.5410645008087158, -0.36343690752983093, -1.1720664588210639e-05,
+                       8.731049092602916e-06))
+SPECTRAL_RTOL = 1e-3
+SPECTRAL_RENDERS = 2
+SPECTRAL_ATMO_PASSES = 2
+SPECTRAL_REGEN_RES, SPECTRAL_REGEN_SPP = 32, 8
 MATERIALS_RES, MATERIALS_SPP, MATERIALS_PASSES = 256, 64, 2
 MATERIALS_PRB_KEYS = ("large-box.bsdf.alpha", "floor.bsdf.weight.value")
 POLARIMETER_SPP_PER_PASS, POLARIMETER_RENDERS = 16, 1
@@ -2516,6 +2538,182 @@ def phase_integrators(mi, K1, K2, K3, path_means):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the spectral variants
+# ---------------------------------------------------------------------------
+
+def phase_spectral(mi, K1, K2, K3):
+    """Config 1 in the spectral variant: the cbox at 256x256 @ 64 spp, path
+    max_depth 8, four hero wavelengths a lane contracted to sRGB. One
+    render with CUDA events around each K1 launch and every launch held bit
+    for bit against the plain version, SPECTRAL_RENDERS timed renders
+    (wall, Mrays/s, K1 launches, peak memory), and the 64x64 @ 16 spp means
+    against the JAX package's."""
+    mi.set_variant("spectral")
+    try:
+        scene = mi.load_dict(mi.cornell_box())
+        spp = 64
+        name = f"spectral cbox {scene.film.width}x{scene.film.height} @ {spp} spp, path max_depth 8"
+
+        def render(seed, stats):
+            return mi.render(scene, spp=spp, seed=seed, stats=stats)
+
+        n_k1, k_ms, b2b_ms, b_ms, by, bitwise = k1_in_place_and_held(K1, name,
+                                                                    lambda: render(1, {}))
+        walls, per_call, stats, img, peak = timed_calls(K1, K2, K3, name, render,
+                                                        SPECTRAL_RENDERS, warm_up=False)
+        if tuple(img.shape) != (scene.film.height, scene.film.width, 3) or not bool(
+                torch.isfinite(img).all()) or not float(img.mean()) > 0:
+            raise AssertionError(f"{name}: image {tuple(img.shape)} not finite or black")
+        mrays = [stats["n_rays"] / w / 1e6 for w in walls]
+        log(f"== main path: {name}: walls {[round(w, 4) for w in walls]} s, {stats['n_rays']} "
+            f"rays, {[round(m, 2) for m in mrays]} Mrays/s, K1 launches per render {per_call}, "
+            f"peak memory {peak / 2**30:.3f} GiB, means {img.mean(dim=(0, 1)).tolist()}")
+        log(f"  {name}: one render with events around each K1 launch: {n_k1} launches, "
+            f"{k_ms:.3f} ms in K1 in place, {b2b_ms:.4f} ms back to back; summed bound "
+            f"{b_ms:.4f} ms {by}")
+        d64 = mi.cornell_box()
+        d64["sensor"]["film"]["width"] = d64["sensor"]["film"]["height"] = 64
+        means = mi.render(mi.load_dict(d64), spp=16, seed=0).mean(dim=(0, 1)).tolist()
+        rel = max(check_rel(f"spectral cbox 64x64 @ 16 spp, channel {c} mean", m, w,
+                            SPECTRAL_RTOL)
+                  for c, (m, w) in enumerate(zip(means, JAX_SPECTRAL_CBOX64_MEANS)))
+    finally:
+        mi.set_variant("rgb")
+    return dict(walls=walls, mrays=mrays, n_rays=stats["n_rays"], k1_per_render=per_call[0],
+                peak=peak, means=img.mean(dim=(0, 1)).tolist(), means64=means,
+                means64_rel_err=rel, k1_render_ms=k_ms, k1_render_back_to_back_ms=b2b_ms,
+                k1_render_bound_ms=b_ms, k1_bound_by=by, k1_bitwise_vs_plain=bitwise)
+
+
+def phase_spectral_prb(mi, K1, K2, K3):
+    """Config 2 in the spectral variant: the cbox-prb step at 256x256 @ 64
+    spp, prb max_depth 8, the image mean's gradient for
+    white.reflectance.value through the XYZ -> sRGB measurement inside the
+    PRB node (run_prb_vol: warm-up, timed steps, every K1 launch of a step
+    held bit for bit), and the 64x64 @ 16 spp gradient at max_depth 4
+    against the JAX package's."""
+    mi.set_variant("spectral")
+    try:
+        keys = [KEY]
+        scene = mi.load_dict(prb_dict(mi, 256, 64, 8))
+
+        def loss(mi, sc, seed, stats, spp=64):
+            return mi.render(sc, spp=spp, seed=seed, stats=stats).mean()
+
+        out = run_prb_vol(mi, K1, K2, K3, "spectral cbox-prb 256x256 @ 64 spp, prb max_depth 8",
+                          scene, keys, loss, 256 * 256 * 64)
+        out["grads"] = {k: v.tolist() for k, v in out["grads"].items()}
+        _, g64, _, _, _ = prb_vol_step(mi, mi.load_dict(prb_dict(mi, 64, 16, 4)), keys,
+                                       lambda mi, sc, seed, st: loss(mi, sc, seed, st, 16), 0)
+        g64 = g64[KEY].tolist()
+        out["grad64_depth4"] = g64
+        out["grad64_depth4_rel_err"] = max(
+            check_rel(f"spectral cbox-prb 64x64 @ 16 spp, max_depth 4, d mean / d {KEY}[{c}]",
+                      g, w, SPECTRAL_RTOL)
+            for c, (g, w) in enumerate(zip(g64, JAX_SPECTRAL_PRB64_DEPTH4_GRAD)))
+    finally:
+        mi.set_variant("rgb")
+    return out
+
+
+def phase_atmo_spectral(mi, K1, K2, K3):
+    """BASELINE config 4 as BASELINE names it, in spectral_polarized: one
+    warm-up pass and SPECTRAL_ATMO_PASSES timed passes of render_1 at 64x64
+    @ 64 spp (wall, Msamples/s = lanes / wall, K1 launches, peak memory; the
+    [N, 4, 4, 4] Mueller state), the raw Stokes [4, 4] against the JAX
+    package's (I within ATMO_I_RTOL, Q/U/V within ATMO_QUV_ATOL of I, the
+    four channels equal: the radiancemeter pins 550 nm), and one pass with
+    every K1 launch held bit for bit against the plain version."""
+    from mitsuba_tpu_torch.render.scene_loader import atmo_scene
+
+    mi.set_variant("spectral_polarized")
+    try:
+        scene = mi.load_dict(atmo_scene(ATMO_RES, ATMO_SPP))
+        lanes = scene.film.n_pixels * ATMO_SPP
+        name = (f"atmo-spectral (config 4, spectral_polarized) {ATMO_RES}x{ATMO_RES} @ {ATMO_SPP} "
+                "spp")
+
+        def pass_(seed, stats):
+            return mi.render_1(scene, spp=ATMO_SPP, seed=seed, stats=stats)
+
+        walls, per_pass, stats, stokes, peak = timed_calls(K1, K2, K3, name, pass_,
+                                                           SPECTRAL_ATMO_PASSES)
+        if tuple(stokes.shape) != (4, 4) or not bool(torch.isfinite(stokes).all()):
+            raise AssertionError(f"{name}: Stokes {stokes.tolist()}")
+        msamples = [lanes / w / 1e6 for w in walls]
+        log(f"== main path: {name}, {lanes} lanes: walls {[round(w, 4) for w in walls]} s, "
+            f"{[round(m, 4) for m in msamples]} Msamples/s, {stats['n_rays']} rays a pass, K1 "
+            f"launches per pass {per_pass}, peak memory {peak / 2**30:.3f} GiB; Stokes (rows "
+            f"I, Q, U, V) {stokes.tolist()}")
+        want = torch.tensor(JAX_SPECTRAL_ATMO_STOKES, dtype=torch.float32, device=stokes.device)
+        rel_i = float(((stokes[0] - want[0]).abs() / want[0]).max())
+        quv = float(((stokes[1:] - want[1:]).abs() / want[0]).max())
+        same = bool((stokes == stokes[:, :1]).all())
+        log(f"  against the JAX package's: I within {rel_i:.3e} (rtol {ATMO_I_RTOL}), Q/U/V "
+            f"within {quv:.3e} of I (atol {ATMO_QUV_ATOL} I); the four channels equal: {same}")
+        if rel_i > ATMO_I_RTOL or quv > ATMO_QUV_ATOL or not same:
+            raise AssertionError(f"{name}: Stokes {stokes.tolist()} vs JAX "
+                                 f"{JAX_SPECTRAL_ATMO_STOKES}")
+        held = []
+        with k1_held_to_plain(K1, held):
+            pass_(0, {})
+        bitwise = k1_held_summary(f"{name} pass", held)
+    finally:
+        mi.set_variant("rgb")
+    return dict(walls=walls, msamples=msamples, lanes=lanes, rays=stats["n_rays"],
+                k1_per_pass=per_pass, peak=peak, stokes=stokes.tolist(), stokes_rel_err_i=rel_i,
+                stokes_err_quv_over_i=quv, k1_bitwise_vs_plain=bitwise)
+
+
+def phase_spectral_regen(mi, K1, K2, K3):
+    """Reduced regeneration in spectral on the Rayleigh slab
+    (SPECTRAL_REGEN_RES^2 @ SPECTRAL_REGEN_SPP): the regenerative volpath
+    render (the sRGB conversion at each flush) with every K1 launch held
+    bit for bit, against the wavefront render (REGEN_RTOL / REGEN_ATOL); the
+    regenerative prbvolpath step (the conversion's adjoint at each sample's
+    primal radiance and wavelengths) against the wavefront step
+    (REGEN_GRAD_RTOL)."""
+    res, spp = SPECTRAL_REGEN_RES, SPECTRAL_REGEN_SPP
+    mi.set_variant("spectral")
+    try:
+        name = f"spectral-regen Rayleigh slab volpath {res}x{res} @ {spp} spp"
+        held = []
+        before = K1.smem_intersect.launches
+        with k1_held_to_plain(K1, held):
+            img_r, wall_r = render_timed(mi, rayleigh_slab(mi, "volpath", True, res, spp), spp,
+                                         0)
+        k1 = K1.smem_intersect.launches - before
+        bitwise = k1_held_summary(name, held)
+        img_w, wall_w = render_timed(mi, rayleigh_slab(mi, "volpath", False, res, spp), spp, 0)
+        close = torch.isclose(img_r, img_w, rtol=REGEN_RTOL, atol=REGEN_ATOL)
+        log(f"== {name}: regenerative {wall_r:.3f} s (K1 held), wavefront {wall_w:.3f} s, K1 "
+            f"launches {k1}, image {tuple(img_r.shape)}: {close.float().mean().item():.5%} of "
+            f"values within rtol {REGEN_RTOL} / atol {REGEN_ATOL} of the wavefront image")
+        if k1 == 0 or not bool(close.all()) or tuple(img_r.shape) != (res, res, 3):
+            raise AssertionError(f"{name}: the regenerative image differs")
+        prb = regen_vs_wavefront_step(
+            mi, K1, f"spectral-regen Rayleigh slab {res}x{res} @ {spp} spp, prbvolpath",
+            lambda r: rayleigh_slab(mi, "prbvolpath", r, res, spp),
+            ["slab.interior_medium.albedo.value.value"], spp)
+    finally:
+        mi.set_variant("rgb")
+    return dict(volpath=dict(wall=wall_r, wavefront_wall=wall_w, k1=k1,
+                             k1_bitwise_vs_plain=bitwise), prbvolpath=prb)
+
+
+PHASE_S = {}
+
+
+def timed_phase(name, fn, *args):
+    """fn(*args), its wall seconds kept in PHASE_S[name] and logged."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = round(time.perf_counter() - t0, 1)
+    log(f"## phase {name}: {PHASE_S[name]} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one card", file=sys.stderr)
@@ -2535,52 +2733,64 @@ def main():
     log(f"== device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; {smi}")
 
     build_all(cuda_build, native, K1, K2, K3)
-    scene, batch, k1_entry = phase_k1(mi, K1, make_wavefront)
-    cbox_launches = phase_cbox_main(mi, K1, K2, K3, scene)
-    k3_entry = phase_k3(K1, K3, scene, batch)
+    scene, batch, k1_entry = timed_phase("k1", phase_k1, mi, K1, make_wavefront)
+    cbox_launches = timed_phase("cbox_main", phase_cbox_main, mi, K1, K2, K3, scene)
+    k3_entry = timed_phase("k3", phase_k3, K1, K3, scene, batch)
     del scene, batch
     torch.cuda.empty_cache()
 
-    l_smem, l_mma, step_k1, step_k3, prb = phase_prb_main(mi, K1, K2, K3)
-    phase_prb64(mi, K1, K2, K3)
-    phase_adam(mi)
+    l_smem, l_mma, step_k1, step_k3, prb = timed_phase("prb_main", phase_prb_main, mi, K1, K2,
+                                                        K3)
+    timed_phase("prb64", phase_prb64, mi, K1, K2, K3)
+    timed_phase("adam", phase_adam, mi)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        scene, err, closest, bounce1, anyhit = phase_k2(mi, K1, K2, native, tmp)
-        n_closest, n_any, k2_pass = phase_mesh_main(mi, K1, K2, K3, scene, tmp)
+        scene, err, closest, bounce1, anyhit = timed_phase("k2", phase_k2, mi, K1, K2, native,
+                                                           tmp)
+        n_closest, n_any, k2_pass = timed_phase("mesh_main", phase_mesh_main, mi, K1, K2, K3,
+                                                scene, tmp)
         del scene
     torch.cuda.empty_cache()
-    k4_entry = phase_k4(K4)
+    k4_entry = timed_phase("k4", phase_k4, K4)
     torch.cuda.empty_cache()
-    hetvol = phase_hetvol(mi, K1, K2, K3)
+    hetvol = timed_phase("hetvol", phase_hetvol, mi, K1, K2, K3)
     torch.cuda.empty_cache()
-    vol32 = phase_vol32(mi, K1, K2, K3)
+    vol32 = timed_phase("vol32", phase_vol32, mi, K1, K2, K3)
     torch.cuda.empty_cache()
-    atmo = phase_atmo(mi, K1, K2, K3)
+    atmo = timed_phase("atmo", phase_atmo, mi, K1, K2, K3)
     torch.cuda.empty_cache()
-    aos_prb = phase_aos_prb(mi, K1, K2, K3)
+    aos_prb = timed_phase("aos_prb", phase_aos_prb, mi, K1, K2, K3)
     torch.cuda.empty_cache()
-    atmo_prb = phase_atmo_prb(mi, K1, K2, K3)
+    atmo_prb = timed_phase("atmo_prb", phase_atmo_prb, mi, K1, K2, K3)
     torch.cuda.empty_cache()
-    hetvol_prb = phase_hetvol_prb(mi, K1, K2, K3)
+    hetvol_prb = timed_phase("hetvol_prb", phase_hetvol_prb, mi, K1, K2, K3)
     torch.cuda.empty_cache()
-    vol32_regen_prb = phase_vol32_regen_prb(mi, K1, K2, K3)
+    vol32_regen_prb = timed_phase("vol32_regen_prb", phase_vol32_regen_prb, mi, K1, K2, K3)
     torch.cuda.empty_cache()
-    regen_prb = phase_regen_prb(mi, K1, K2, K3)
+    regen_prb = timed_phase("regen_prb", phase_regen_prb, mi, K1, K2, K3)
     torch.cuda.empty_cache()
-    api = phase_api(mi, K1, K2, K3)
+    api = timed_phase("api", phase_api, mi, K1, K2, K3)
     torch.cuda.empty_cache()
-    materials = phase_materials(mi, K1, K2, K3)
+    materials = timed_phase("materials", phase_materials, mi, K1, K2, K3)
     torch.cuda.empty_cache()
-    materials_prb = phase_materials_prb(mi, K1, K2, K3)
+    materials_prb = timed_phase("materials_prb", phase_materials_prb, mi, K1, K2, K3)
     torch.cuda.empty_cache()
-    polarimeter = phase_polarimeter(mi, K1, K2, K3)
+    polarimeter = timed_phase("polarimeter", phase_polarimeter, mi, K1, K2, K3)
     torch.cuda.empty_cache()
-    polarimeter_prb = phase_polarimeter_prb(mi, K1, K2, K3)
+    polarimeter_prb = timed_phase("polarimeter_prb", phase_polarimeter_prb, mi, K1, K2, K3)
     torch.cuda.empty_cache()
-    integrators = phase_integrators(mi, K1, K2, K3, materials["means"])
+    integrators = timed_phase("integrators", phase_integrators, mi, K1, K2, K3,
+                              materials["means"])
+    torch.cuda.empty_cache()
+    spectral = timed_phase("spectral", phase_spectral, mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    spectral_prb = timed_phase("spectral_prb", phase_spectral_prb, mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    atmo_spectral = timed_phase("atmo_spectral", phase_atmo_spectral, mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    spectral_regen = timed_phase("spectral_regen", phase_spectral_regen, mi, K1, K2, K3)
 
     per_path = f"{PRB_ITERS} iterations"
     k1_entry["launches"] = cbox_launches
@@ -2615,7 +2825,17 @@ def main():
                                     "polarimeter-prb step 64x64 @ 16 spp":
                                         polarimeter_prb["k1_per_step"],
                                     **{f"integrators {k} render 256x256 @ 64 spp": v["k1"]
-                                       for k, v in integrators.items() if k != "checks"}}
+                                       for k, v in integrators.items() if k != "checks"},
+                                    "spectral cbox render 256x256 @ 64 spp":
+                                        spectral["k1_per_render"],
+                                    "spectral cbox-prb step 256x256 @ 64 spp":
+                                        spectral_prb["k1_per_step"],
+                                    "atmo-spectral pass 64x64 @ 64 spp":
+                                        atmo_spectral["k1_per_pass"][0],
+                                    "spectral-regen volpath render":
+                                        spectral_regen["volpath"]["k1"],
+                                    "spectral-regen prbvolpath step":
+                                        spectral_regen["prbvolpath"]["k1"]}
     k1_entry.update(step_k1)
     k1_entry.update(hetvol_pass_launches=hetvol["k1_pass_launches"],
                     hetvol_pass_ms=hetvol["k1_pass_ms"],
@@ -2658,6 +2878,20 @@ def main():
                     **{f"{name}_{k}": r[f"k1_{k}"]
                        for name, r in (("materials_prb", materials_prb),
                                        ("polarimeter_prb", polarimeter_prb))
+                       for k in ("step_ms", "step_back_to_back_ms", "step_bound_ms")},
+                    spectral_bitwise_vs_plain={
+                        "cbox render": spectral["k1_bitwise_vs_plain"],
+                        "cbox-prb step": spectral_prb["k1_bitwise_vs_plain"],
+                        "atmo-spectral pass": atmo_spectral["k1_bitwise_vs_plain"],
+                        "regen volpath render": spectral_regen["volpath"]["k1_bitwise_vs_plain"]},
+                    spectral_render_ms=spectral["k1_render_ms"],
+                    spectral_render_back_to_back_ms=spectral["k1_render_back_to_back_ms"],
+                    spectral_render_bound_ms=spectral["k1_render_bound_ms"],
+                    spectral_prb_step_launches={"forward": spectral_prb["k1_forward"],
+                                                "backward_primal":
+                                                    spectral_prb["k1_backward_primal"],
+                                                "replay": spectral_prb["k1_replay"]},
+                    **{f"spectral_prb_{k}": spectral_prb[f"k1_{k}"]
                        for k in ("step_ms", "step_back_to_back_ms", "step_bound_ms")})
     k3_entry.update(step_k3)
     k3_entry["launches"] = l_mma["K3"]
@@ -2690,7 +2924,12 @@ def main():
         "materials_prb": materials_prb,
         "polarimeter": polarimeter,
         "polarimeter_prb": polarimeter_prb,
-        "integrators": integrators}
+        "integrators": integrators,
+        "spectral": spectral,
+        "spectral_prb": spectral_prb,
+        "atmo_spectral": atmo_spectral,
+        "spectral_regen": spectral_regen,
+        "phase_s": PHASE_S}
     log(f"== chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(report))

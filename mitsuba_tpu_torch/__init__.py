@@ -23,6 +23,13 @@ quarter-wave plate in front of the camera), seen as Stokes images:
     mi.set_variant("rgb_polarized")
     img = mi.render(mi.load_dict(mi.polarimeter_scene()), spp=64)   # [H, W, 4, 3]
 
+The spectral variants: four hero wavelengths a lane, rgb data upsampled
+by the rgb2spec model, each lane's spectrum contracted to linear sRGB (or
+a specfilm's response functions); BASELINE config 4 as BASELINE names it:
+
+    mi.set_variant("spectral_polarized")
+    stokes = mi.render_1(mi.load_dict(mi.atmo_scene()), spp=64)   # [4, 4] raw
+
 Gradients: write a parameter that requires grad and call backward, through
 the path integrator's tape or the PRB integrators' replay; BASELINE config
 5's retrieval gradient, the atmosphere's extinction seen through a rough

@@ -114,12 +114,12 @@ class PRBIntegrator(PathIntegrator):
 
     is_prb = True
 
-    def sample_backward(self, scene, leaves, rng, ray, dL, L_primal, active):
-        """Replay the paths of (rng, ray) from their primal radiance
-        L_primal [N, 3] and return (the gradients of sum(dL * L) with
-        respect to each tensor of `leaves`, the rays cast: one closest hit
-        per active lane and, with NEE, one shadow ray per NEE-active lane
-        of each bounce)."""
+    def sample_backward(self, scene, leaves, rng, ray, dL, L_primal, active, wavelengths=None):
+        """Replay the paths of (rng, ray) (at the lanes' `wavelengths` in
+        the spectral variants) from their primal radiance L_primal [N, C]
+        and return (the gradients of sum(dL * L) with respect to each tensor
+        of `leaves`, the rays cast: one closest hit per active lane and,
+        with NEE, one shadow ray per NEE-active lane of each bounce)."""
         n = ray.o.shape[0]
         dev = ray.o.device
         max_depth = self.max_depth if self.max_depth > 0 else 1024
@@ -135,7 +135,8 @@ class PRBIntegrator(PathIntegrator):
         )
         n_rays = torch.zeros((), dtype=torch.int64, device=dev)
         for depth in range(min(max_depth, 1024)):
-            s, cast = self._bwd_bounce(scene_d, scene_att, att, grads, dL, max_depth, depth, s)
+            s, cast = self._bwd_bounce(scene_d, scene_att, att, grads, dL, max_depth, depth, s,
+                                       wavelengths)
             n_rays = n_rays + cast
         return grads, n_rays
 
@@ -183,7 +184,8 @@ class PRBIntegrator(PathIntegrator):
             iters += 1
         return grads, {"n_rays": n_rays, "wavefront_iters": iters}
 
-    def _bwd_bounce(self, scene_d, scene_att, att, grads, dL, max_depth, depth, s):
+    def _bwd_bounce(self, scene_d, scene_att, att, grads, dL, max_depth, depth, s,
+                    wavelengths=None):
         """One replay bounce: adds the bounce's VJP into `grads` and returns
         (the next state, the rays this bounce cast). `depth` is the bounce's
         index, one int for every lane (the wavefront) or an int64 tensor per
@@ -201,9 +203,9 @@ class PRBIntegrator(PathIntegrator):
 
         def emitted(sc):
             return (torch.where(escaped[..., None], s.beta * w_env[..., None]
-                                * sc.eval_environment(s.ray_d), 0.0)
+                                * sc.eval_environment(s.ray_d, wavelengths), 0.0)
                     + torch.where(hit_em[..., None], s.beta * w_em[..., None]
-                                  * sc.eval_emitter_hit(si), 0.0))
+                                  * sc.eval_emitter_hit(si, wavelengths), 0.0))
 
         Le_det = emitted(scene_d)
         active_next = s.active & si.is_valid & (depth + 1 < max_depth)
@@ -217,10 +219,11 @@ class PRBIntegrator(PathIntegrator):
         if nee:
             ds, em_weight_d = scene_d.sample_emitter_direction(
                 si.p, u0, torch.stack([u2a_x, u2a_y], dim=-1), active_next,
-                test_visibility=True, ref_n=si.n,
+                test_visibility=True, ref_n=si.n, wavelengths=wavelengths,
             )
             wo_em = si.to_local(ds.d)
-            bsdf_val_em_d, bsdf_pdf_em = scene_d.bsdf_eval_pdf(si, wo_em, active_next)
+            bsdf_val_em_d, bsdf_pdf_em = scene_d.bsdf_eval_pdf(si, wo_em, active_next,
+                                                               wavelengths)
             w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf_em))
             Lr_dir_det = torch.where(
                 active_next[..., None], s.beta * bsdf_val_em_d * em_weight_d * w_nee[..., None],
@@ -229,7 +232,7 @@ class PRBIntegrator(PathIntegrator):
             # the detached ratio that carries the NEE weight's pdf,
             # visibility and geometry; the attached term multiplies the
             # emitter's radiance back in
-            em_val_d = scene_d.eval_emitter_sample(ds)
+            em_val_d = scene_d.eval_emitter_sample(ds, wavelengths)
             em_ratio = torch.where(
                 em_val_d > 1e-20, em_weight_d / torch.clamp(em_val_d, min=1e-20), 0.0
             )
@@ -237,7 +240,7 @@ class PRBIntegrator(PathIntegrator):
             Lr_dir_det = torch.zeros_like(s.L)
 
         bs, bsdf_weight_d = scene_d.bsdf_sample(
-            si, u_lobe, torch.stack([u2b_x, u2b_y], dim=-1), active_next
+            si, u_lobe, torch.stack([u2b_x, u2b_y], dim=-1), active_next, wavelengths
         )
         # inverse of the detached continuing weight
         bsdf_val_det = bsdf_weight_d * bs.pdf[..., None]
@@ -251,14 +254,15 @@ class PRBIntegrator(PathIntegrator):
         with torch.enable_grad():
             Lo = emitted(scene_att)
             if nee:
-                bsdf_val_em_a, _ = scene_att.bsdf_eval_pdf(si, wo_em, active_next)
+                bsdf_val_em_a, _ = scene_att.bsdf_eval_pdf(si, wo_em, active_next, wavelengths)
                 Lo = Lo + torch.where(
                     active_next[..., None],
-                    s.beta * bsdf_val_em_a * (scene_att.eval_emitter_sample(ds) * em_ratio)
+                    s.beta * bsdf_val_em_a
+                    * (scene_att.eval_emitter_sample(ds, wavelengths) * em_ratio)
                     * w_nee[..., None],
                     0.0,
                 )
-            bsdf_val_a, _ = scene_att.bsdf_eval_pdf(si, bs.wo, active_next)
+            bsdf_val_a, _ = scene_att.bsdf_eval_pdf(si, bs.wo, active_next, wavelengths)
             Lo = Lo + torch.where(active_next[..., None], L_next * bsdf_val_a * inv_det, 0.0)
             vjp_into(grads, (dL * Lo).sum(), att)
 

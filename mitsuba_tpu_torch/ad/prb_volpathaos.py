@@ -45,15 +45,16 @@ class PRBVolpathAOSIntegrator(VolumeReplay, VolPathAOSIntegrator):
             T_a, rng = estimate_transmittance_aos(
                 sc, nee.p_nee, nee.d_nee, nee.ds.d, nee.walk_dist, nee.nee_medium, s["channel"],
                 rng, nee.nee_active, ops, max_crossings=self.nee_crossings,
-                steps_per_segment=self.nee_steps)
-            f_a, _ = nee_eval(sc, ops, ev, nee.d_nee, nee.nee_surf)
+                steps_per_segment=self.nee_steps, wavelengths=s["wavelengths"])
+            f_a, _ = nee_eval(sc, ops, ev, nee.d_nee, nee.nee_surf, s["wavelengths"])
             C_det = aos_nee_contrib(ops, beta, f_a.detach(), T_a.detach(), nee.em_weight,
                                     nee.nee_active)
             # the emitter's irradiance attached; the proposal's pdf and the
             # rest of the weight are a detached ratio
-            em_val_d = scene_d.eval_emitter_sample(nee.ds)
+            em_val_d = scene_d.eval_emitter_sample(nee.ds, s["wavelengths"])
             em_ratio = torch.where(em_val_d > 1e-20,
                                    nee.em_weight / torch.clamp(em_val_d, min=1e-20), 0.0)
-            C_att = aos_nee_contrib(ops, beta, f_a, T_a, sc.eval_emitter_sample(nee.ds) * em_ratio,
+            C_att = aos_nee_contrib(ops, beta, f_a, T_a,
+                                    sc.eval_emitter_sample(nee.ds, s["wavelengths"]) * em_ratio,
                                     nee.nee_active)
         return C_det, C_att, nee.nee_active, nee.ref_p, rng

@@ -58,6 +58,7 @@ from ..integrators.volpath import (
     track_segment,
     volpath_restart,
 )
+from ..render.film import spectral_to_film_adjoint
 from ..render.records import Ray
 from ..render.spectrum_ops import get_ops
 from .prb import attach_scene, detach_scene, vjp_into
@@ -74,17 +75,18 @@ class VolumeReplay:
     # in the reference)
     dir_floor = 1e-20
 
-    def sample_backward(self, scene, leaves, rng, ray, dL, L_primal, active):
-        """Replay the paths of (rng, ray) from their primal radiance
-        L_primal and return (the gradients of sum(dL * L) for each tensor
-        of `leaves`, the rays cast: a closest hit per active lane and a
-        shadow walk per NEE-active lane of each segment)."""
+    def sample_backward(self, scene, leaves, rng, ray, dL, L_primal, active, wavelengths=None):
+        """Replay the paths of (rng, ray) (at the lanes' `wavelengths` in the
+        spectral variants) from their primal radiance L_primal and return
+        (the gradients of sum(dL * L) for each tensor of `leaves`, the rays
+        cast: a closest hit per active lane and a shadow walk per
+        NEE-active lane of each segment)."""
         ops = get_ops(scene.polarized)
         max_depth, max_segments = self._budgets()
         scene_d = detach_scene(scene)
         scene_att, att = attach_scene(scene, leaves)
         grads = [torch.zeros_like(x) for x in leaves]
-        s = self._start(scene_d, ops, rng, ray, active, L_primal.detach())
+        s = self._start(scene_d, ops, rng, ray, active, L_primal.detach(), wavelengths)
         n_rays = torch.zeros((), dtype=torch.int64, device=ray.o.device)
         for _ in range(max_segments):
             if not _any(s["active"]):
@@ -111,15 +113,16 @@ class VolumeReplay:
             T_a, rng = estimate_transmittance(
                 sc, p_nee, ds, nee_medium, s["channel"], rng, nee_active,
                 max_crossings=self.nee_crossings, steps_per_segment=self.nee_steps)
-            f_a, pdf_fwd = nee_eval(sc, ops, ev, ds.d, ev["scatter_surf"])
+            f_a, pdf_fwd = nee_eval(sc, ops, ev, ds.d, ev["scatter_surf"], s["wavelengths"])
             w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, pdf_fwd.detach()))
             C_det = ops.where_rad(nee_active, ops.contrib_nee(
                 beta, f_a.detach(), em_weight_d * T_a.detach() * w_nee[..., None]), zero)
-            em_val_d = scene_d.eval_emitter_sample(ds)
+            em_val_d = scene_d.eval_emitter_sample(ds, s["wavelengths"])
             em_ratio = torch.where(em_val_d > 1e-20,
                                    em_weight_d / torch.clamp(em_val_d, min=1e-20), 0.0)
             C_att = ops.where_rad(nee_active, ops.contrib_nee(
-                beta, f_a, sc.eval_emitter_sample(ds) * em_ratio * T_a * w_nee[..., None]), zero)
+                beta, f_a, sc.eval_emitter_sample(ds, s["wavelengths"]) * em_ratio * T_a
+                * w_nee[..., None]), zero)
         return C_det, C_att, nee_active, ref_p, rng
 
     def _bwd_bounce(self, scene_d, sc, att, grads, ops, dL, max_depth, s):
@@ -142,6 +145,7 @@ class VolumeReplay:
         mei, phase_idx, scatter_med, scatter_surf = (ev["mei"], ev["phase_idx"],
                                                      ev["scatter_med"], ev["scatter_surf"])
         u0, u2a, u_lobe, u2b, u2r, u_rr, rng = self._draws(rng)
+        wl = s["wavelengths"]
 
         # ---- emission (detached MIS weights) and NEE ----
         Le_det = emission(scene_d, scene_d, ops, s, ev, beta)
@@ -152,17 +156,17 @@ class VolumeReplay:
         # ---- the sampled direction: detached sample, attached eval ----
         if ops.polarized:
             wo_ph, _, pdf_ph = scene_d.phase_sample(phase_idx, mei, u_lobe, u2b, scatter_med)
-            bs, bw_det = scene_d.bsdf_sample_pol(si, u_lobe, u2b, scatter_surf)
+            bs, bw_det = scene_d.bsdf_sample_pol(si, u_lobe, u2b, scatter_surf, wl)
         else:
             wo_ph, w_ph_det, pdf_ph = scene_d.phase_sample(phase_idx, mei, u_lobe, u2b,
                                                            scatter_med)
-            bs, bw_det = scene_d.bsdf_sample(si, u_lobe, u2b, scatter_surf)
+            bs, bw_det = scene_d.bsdf_sample(si, u_lobe, u2b, scatter_surf, wl)
         pdf_dir = torch.where(scatter_med, pdf_ph, bs.pdf)
         zero = torch.zeros_like(L_start)
         with torch.enable_grad():
             if ops.polarized:
                 ph_dir_a, _ = sc.phase_eval_pdf_pol(phase_idx, mei, wo_ph, scatter_med)
-                b_dir_a, _ = sc.bsdf_eval_pdf_pol(si, bs.wo, scatter_surf)
+                b_dir_a, _ = sc.bsdf_eval_pdf_pol(si, bs.wo, scatter_surf, wl)
                 # Scene.phase_sample_pol's weight: the eval over the pdf
                 w_ph_det = (ph_dir_a.detach()
                             / torch.clamp(pdf_ph, min=1e-12)[..., None, None, None])
@@ -172,7 +176,7 @@ class VolumeReplay:
                                       b_dir_a)[..., 0, 0]
             else:
                 ph_dir_a, _ = sc.phase_eval_pdf(phase_idx, mei, wo_ph, scatter_med)
-                b_dir_a, _ = sc.bsdf_eval_pdf(si, bs.wo, scatter_surf)
+                b_dir_a, _ = sc.bsdf_eval_pdf(si, bs.wo, scatter_surf, wl)
                 w_dir_det = torch.where(scatter_med[..., None], w_ph_det, bw_det)
                 f_dir_a = torch.where(scatter_med[..., None], ph_dir_a, b_dir_a)
             inv_dir = torch.where(w_dir_det > self.dir_floor,
@@ -205,17 +209,17 @@ def volumetric_regen_backward(integrator, scene, leaves, seed, spp, sensor_idx, 
     "wavefront_iters": steps}). A lane restarts as the primal's does (the
     same fresh draws, the integrator's extra state reset) with L = its
     sample's primal radiance from L_samples and dL = the pixel's adjoint
-    dL_px pulled back through the flush: the identity, or in a polarized
+    dL_px pulled back through the flush: the identity; in a polarized
     variant the transpose of the flush's rotation at the sample's camera
-    ray. The loop reads from the card once per step whether any lane has
-    work left, as the primal's does."""
+    ray; in the spectral variant the VJP of the conversion to the film's
+    channels at the sample's primal radiance and wavelengths. The loop
+    reads from the card once per step whether any lane has work left, as
+    the primal's does."""
     from ..render_api import sensor_stokes_rotation
 
     n = scene.film.n_pixels
     nc = scene.n_channels
-    if nc not in (1, 3) and not scene.polarized:
-        raise NotImplementedError("the regenerative replay in a spectral variant (the adjoint "
-                                  "of the sRGB conversion at each flush) is not yet ported")
+    spectral = nc == 4 and not scene.polarized
     ops = get_ops(scene.polarized)
     max_depth, max_segments = integrator._budgets()
     dev = scene.device
@@ -227,24 +231,28 @@ def volumetric_regen_backward(integrator, scene, leaves, seed, spp, sensor_idx, 
     fresh = regen_fresh(scene_d, seed, spp, sensor_idx)
     extra0 = integrator._regen_extra(n, scene)
 
-    def lane_dL(cam_d):
-        """The film adjoint pulled back through a flush at cam_d."""
+    def lane_dL(cam_d, L_s, wl, wl_pdf):
+        """The film adjoint pulled back through the flush of a sample
+        seen along cam_d, of primal radiance L_s at wavelengths wl."""
         if scene.polarized:
             return torch.einsum("nji,ncj->nci", sensor_stokes_rotation(cam_d), dL_px)
+        if spectral:
+            return spectral_to_film_adjoint(scene.film, dL_px, L_s, wl, wl_pdf)
         return dL_px
 
-    rng0, ray0, ch0 = fresh(torch.zeros(n, dtype=torch.int64, device=dev))
+    rng0, ray0, ch0, wl0, wlp0 = fresh(torch.zeros(n, dtype=torch.int64, device=dev))
     L0 = torch.zeros_like(L_samples[:, 0])
-    s = dict(regen_start(scene_d, ops, ray0, ch0, rng0, L0, extra0), dL=L0)
+    s = dict(regen_start(scene_d, ops, ray0, ch0, rng0, L0, extra0, wl0, wlp0), dL=L0)
     n_rays = torch.zeros((), dtype=torch.int64, device=dev)
     iters = 0
     while iters < spp * max_segments + 1 and _any(s["active"] | (s["s_next"] < spp)):
         regen = ~s["active"] & (s["s_next"] < spp)
-        rng_new, ray_new, ch_new = fresh(s["s_next"])
+        rng_new, ray_new, ch_new, wl_new, wlp_new = fresh(s["s_next"])
         L_fresh = L_samples[pix, torch.clamp(s["s_next"], max=spp - 1)]
         s = dict(
-            volpath_restart(scene_d, ops, s, regen, rng_new, ray_new, ch_new, L_fresh, extra0),
-            dL=lanes_where(regen, lane_dL(ray_new.d), s["dL"]),
+            volpath_restart(scene_d, ops, s, regen, rng_new, ray_new, ch_new, L_fresh, extra0,
+                            wl_new, wlp_new),
+            dL=lanes_where(regen, lane_dL(ray_new.d, L_fresh, wl_new, wlp_new), s["dL"]),
             s_next=torch.where(regen, s["s_next"] + 1, s["s_next"]),
         )
         s, cast = integrator._bwd_bounce(scene_d, scene_att, att, grads, ops, s["dL"], max_depth,

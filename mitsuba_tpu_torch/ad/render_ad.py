@@ -11,8 +11,13 @@ The measurement conversion lives inside the node: in a polarized variant
 each lane's Stokes vector is rotated into the sensor frame
 (to_sensor_mueller, the ray direction detached), so the incoming cotangent
 is the sensor-frame Stokes adjoint, and the backward pulls it back through
-the same rotation at the backward pass's own lanes before the replay. The
-spectral contraction waits for the spectral variants.
+the same rotation at the backward pass's own lanes before the replay. In
+the spectral variants (unpolarized) the lanes' spectra become the film's
+channels inside the node (render/film.py:spectral_to_film, the wavelength
+pdf detached), and the backward pulls the cotangent back through that
+conversion's VJP at the backward pass's own lanes, their wavelengths and
+primal radiance. render_1 and render_test take the ``raw`` form: the
+lanes' spectra, with no conversion.
 
 Under filter importance sampling a lane's pixel is lane // spp, so the
 incoming cotangent dL is a per-pixel film adjoint that does not depend on
@@ -33,45 +38,48 @@ from __future__ import annotations
 import torch
 
 from ..core.rng import MASK32, sample_tea_32
+from ..render.film import spectral_to_film, spectral_to_film_adjoint
 from .prb import detach_scene, grad_leaves
 
 
-def _postprocess(scene, L, ray_d):
+def _postprocess(scene, L, ray_d, wavelengths=None, wl_pdf=None, raw=False):
     """The per-lane measurement: polarized, the Stokes vectors [n, C, 4] in
-    the sensor frame; otherwise L. The spectral contraction (and render_1's
-    raw form, which skips it) waits for the spectral variants."""
+    the sensor frame; spectral (unpolarized, unless `raw`), the film's
+    channels of the lanes' spectra at their wavelengths; otherwise L."""
     if scene.polarized and L.ndim == 3:
         from ..render_api import to_sensor_mueller
 
         return to_sensor_mueller(ray_d.detach(), L)
-    if scene.n_channels not in (1, 3):
-        raise NotImplementedError("the spectral measurement (the spectral variants) is not "
-                                  "yet ported")
-    return L
+    if raw or wavelengths is None or scene.polarized:
+        return L
+    return spectral_to_film(scene.film, L, wavelengths, wl_pdf)
 
 
-def _postprocess_adjoint(scene, dL, ray_d):
-    """The adjoint of _postprocess at the lanes of ray_d: the rotation's
-    transpose (it is orthogonal per lane), or dL itself."""
+def _postprocess_adjoint(scene, dL, ray_d, L=None, wavelengths=None, wl_pdf=None, raw=False):
+    """The adjoint of _postprocess at the lanes of ray_d whose raw
+    radiance is L: the rotation's transpose (it is orthogonal per lane),
+    the VJP of the spectral conversion at L, or dL itself."""
     if scene.polarized and dL.ndim == 3:
         from ..render_api import sensor_stokes_rotation
 
         return torch.einsum("nij,nci->ncj", sensor_stokes_rotation(ray_d), dL)
-    return dL
+    if raw or wavelengths is None or scene.polarized:
+        return dL
+    return spectral_to_film_adjoint(scene.film, dL, L, wavelengths, wl_pdf)
 
 
 def _primal(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx):
-    """(rng, ray, L, aux) of one detached primal pass over lanes
-    [lane0, lane0 + n): L is [n, C], or Stokes [n, C, 4] in the frame of
-    each lane's path."""
+    """(rng, ray, wavelengths, wl_pdf, L, aux) of one detached primal pass
+    over lanes [lane0, lane0 + n): L is [n, C], or Stokes [n, C, 4] in the
+    frame of each lane's path."""
     from ..render_api import make_wavefront
 
     with torch.no_grad():
-        rng, ray, _ = make_wavefront(scene, seed, lane0, n, pass_base, spp_pass, spp_total,
-                                     sensor_idx)
+        rng, ray, wl, wl_pdf, _ = make_wavefront(scene, seed, lane0, n, pass_base, spp_pass,
+                                                 spp_total, sensor_idx, with_wavelengths=True)
         active = torch.ones(n, dtype=torch.bool, device=scene.device)
-        L, aux = scene.integrator.sample(scene, rng, ray, active)
-    return rng, ray, L, aux
+        L, aux = scene.integrator.sample(scene, rng, ray, active, wl)
+    return rng, ray, wl, wl_pdf, L, aux
 
 
 class PRBPassLanes(torch.autograd.Function):
@@ -81,12 +89,12 @@ class PRBPassLanes(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, args, *leaves):
-        _, ray, L, aux = _primal(args["scene"], args["seed"], args["lane0"], args["n"],
-                                 args["pass_base"], args["spp_pass"], args["spp_total"],
-                                 args["sensor_idx"])
+        _, ray, wl, wl_pdf, L, aux = _primal(args["scene"], args["seed"], args["lane0"],
+                                             args["n"], args["pass_base"], args["spp_pass"],
+                                             args["spp_total"], args["sensor_idx"])
         args["aux"] = aux
         ctx.args, ctx.leaves = args, leaves
-        return _postprocess(args["scene"], L, ray.d)
+        return _postprocess(args["scene"], L, ray.d, wl, wl_pdf, args["raw"])
 
     @staticmethod
     def backward(ctx, dL):
@@ -105,11 +113,12 @@ class PRBPassLanes(torch.autograd.Function):
             n = pixels * spp_grad
             lane0 = (lane0 // spp_pass) * spp_grad
             pass_base, spp_pass, spp_total = 0, spp_grad, spp_grad
-        rng, ray, L, aux = _primal(scene, a["seed_grad"], lane0, n, pass_base, spp_pass,
-                                   spp_total, a["sensor_idx"])
+        rng, ray, wl, wl_pdf, L, aux = _primal(scene, a["seed_grad"], lane0, n, pass_base,
+                                               spp_pass, spp_total, a["sensor_idx"])
         active = torch.ones(n, dtype=torch.bool, device=scene.device)
+        dL_raw = _postprocess_adjoint(scene, dL, ray.d, L, wl, wl_pdf, a["raw"])
         grads, n_replay = a["scene"].integrator.sample_backward(
-            a["scene"], ctx.leaves, rng, ray, _postprocess_adjoint(scene, dL, ray.d), L, active
+            a["scene"], ctx.leaves, rng, ray, dL_raw, L, active, wl
         )
         stats = a["stats"]
         if stats is not None:
@@ -119,17 +128,18 @@ class PRBPassLanes(torch.autograd.Function):
 
 
 def prb_pass_lanes(scene, seed, seed_grad, lane0, n, pass_base, spp_pass, spp_total,
-                   sensor_idx=0, spp_grad=None, stats=None):
+                   sensor_idx=0, spp_grad=None, stats=None, raw=False):
     """(measurement [n, C] (polarized: [n, C, 4]) of lanes [lane0, lane0 +
     n), {"n_rays": rays cast}) with PRB gradients for the scene's parameter
     tensors that require grad.
     `seed_grad` seeds the backward pass's primal and replay; `spp_grad` sets
     its sample count (None or spp_pass: the forward's lanes). When `stats`
     is a dict, the backward pass adds the rays it casts (its primal and the
-    replay) to stats["n_rays_grad"]."""
+    replay) to stats["n_rays_grad"]. With `raw` the spectral variants'
+    lanes keep their spectra (render_1's measurement)."""
     args = dict(scene=scene, seed=seed, seed_grad=seed_grad, lane0=lane0, n=n,
                 pass_base=pass_base, spp_pass=spp_pass, spp_total=spp_total,
-                sensor_idx=sensor_idx, spp_grad=spp_grad, stats=stats)
+                sensor_idx=sensor_idx, spp_grad=spp_grad, stats=stats, raw=raw)
     L = PRBPassLanes.apply(args, *grad_leaves(scene))
     return L, args["aux"]
 
@@ -195,7 +205,7 @@ def derive_seed_grad(seed, seed_grad=None):
 
 
 def prb_pass(scene, seed, seed_grad, pass_base, spp_pass, spp_total, sensor_idx=0,
-             spp_grad=None, stats=None):
+             spp_grad=None, stats=None, raw=False):
     """prb_pass_lanes over every lane of one pass of the film."""
     return prb_pass_lanes(scene, seed, seed_grad, 0, scene.film.n_pixels * spp_pass,
-                          pass_base, spp_pass, spp_total, sensor_idx, spp_grad, stats)
+                          pass_base, spp_pass, spp_total, sensor_idx, spp_grad, stats, raw)

@@ -20,7 +20,10 @@ too), and ``prb``, ``prb_basic`` and ``prbvolpath`` are the Mueller replay
 ``regenerate`` (path regeneration: one lane per pixel, a finished path
 restarts on its pixel's next sample) is taken by every integrator here,
 in every ported variant: the forward ones render with the regenerative
-loop, and the PRB ones also replay it in their backward pass."""
+loop, and the PRB ones also replay it in their backward pass; in the
+spectral variants the surface ``path``, ``prb`` and ``prb_basic`` render
+their plain passes instead, as in the reference
+(render_api.regenerates)."""
 from __future__ import annotations
 
 from ..variant import current_variant

@@ -22,7 +22,7 @@ class AOVIntegrator:
     def _channels(self):
         return [item.strip().split(":")[-1] for item in self.aovs.split(",")]
 
-    def sample(self, scene, rng, ray, active):
+    def sample(self, scene, rng, ray, active, wavelengths=None):
         si = scene.ray_intersect(ray, active)
         valid = si.is_valid
         nc = scene.n_channels
@@ -42,7 +42,7 @@ class AOVIntegrator:
                 # the diffuse reflectance: eval toward +n times pi
                 wo_up = torch.zeros_like(si.p)
                 wo_up[..., 2] = 1.0
-                alb, _ = scene.bsdf_eval_pdf(si, wo_up, valid)
+                alb, _ = scene.bsdf_eval_pdf(si, wo_up, valid, wavelengths)
                 values.append(torch.where(valid[..., None], alb * math.pi, 0.0))
             elif kind in ("shape_index", "prim_index"):
                 values.append(getattr(si, kind).to(torch.float32)[..., None])
@@ -63,10 +63,10 @@ class StokesIntegrator:
 
     nested: object
 
-    def sample(self, scene, rng, ray, active):
+    def sample(self, scene, rng, ray, active, wavelengths=None):
         if not scene.polarized:
             raise ValueError("the stokes integrator requires a polarized variant")
-        return self.nested.sample(scene, rng, ray, active)
+        return self.nested.sample(scene, rng, ray, active, wavelengths)
 
 
 @dataclass(frozen=True)
@@ -76,6 +76,6 @@ class MomentIntegrator:
 
     nested: object
 
-    def sample(self, scene, rng, ray, active):
-        L, aux = self.nested.sample(scene, rng, ray, active)
+    def sample(self, scene, rng, ray, active, wavelengths=None):
+        L, aux = self.nested.sample(scene, rng, ray, active, wavelengths)
         return L * L, aux

@@ -26,16 +26,16 @@ class DirectIntegrator:
     emitter_samples: int = 1
     bsdf_samples: int = 1
 
-    def sample(self, scene, rng, ray, active):
+    def sample(self, scene, rng, ray, active, wavelengths=None):
         """Radiance [N, C] and {"n_rays": closest hits, shadow rays and
         BSDF-sample rays cast}."""
         n, nc = ray.o.shape[0], scene.n_channels
         si = scene.ray_intersect(ray, active)
         L = torch.zeros(n, nc, dtype=torch.float32, device=ray.o.device)
         escaped = active & ~si.is_valid
-        L = L + torch.where(escaped[..., None], scene.eval_environment(ray.d), 0.0)
+        L = L + torch.where(escaped[..., None], scene.eval_environment(ray.d, wavelengths), 0.0)
         hit = active & si.is_valid
-        L = L + torch.where(hit[..., None], scene.eval_emitter_hit(si), 0.0)
+        L = L + torch.where(hit[..., None], scene.eval_emitter_hit(si, wavelengths), 0.0)
         n_hit = hit.sum()
         n_rays = active.sum()
 
@@ -43,8 +43,9 @@ class DirectIntegrator:
             u0, ux, rng = rng.next_2d()
             uy, _, rng = rng.next_2d()
             ds, em_weight = scene.sample_emitter_direction(
-                si.p, u0, torch.stack([ux, uy], dim=-1), hit, test_visibility=True, ref_n=si.n)
-            bsdf_val, bsdf_pdf = scene.bsdf_eval_pdf(si, si.to_local(ds.d), hit)
+                si.p, u0, torch.stack([ux, uy], dim=-1), hit, test_visibility=True, ref_n=si.n,
+                wavelengths=wavelengths)
+            bsdf_val, bsdf_pdf = scene.bsdf_eval_pdf(si, si.to_local(ds.d), hit, wavelengths)
             w = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf))
             L = L + torch.where(hit[..., None],
                                 bsdf_val * em_weight * (w / self.emitter_samples)[..., None], 0.0)
@@ -53,12 +54,13 @@ class DirectIntegrator:
         for _ in range(self.bsdf_samples):
             u_lobe, ux, rng = rng.next_2d()
             uy, _, rng = rng.next_2d()
-            bs, bsdf_weight = scene.bsdf_sample(si, u_lobe, torch.stack([ux, uy], dim=-1), hit)
+            bs, bsdf_weight = scene.bsdf_sample(si, u_lobe, torch.stack([ux, uy], dim=-1), hit,
+                                                wavelengths)
             ray2 = spawn_ray(si.p, si.n, si.to_world(bs.wo))
             si2 = scene.ray_intersect(ray2, hit)
             esc2 = hit & ~si2.is_valid
-            em_val2 = torch.where(esc2[..., None], scene.eval_environment(ray2.d),
-                                  scene.eval_emitter_hit(si2))
+            em_val2 = torch.where(esc2[..., None], scene.eval_environment(ray2.d, wavelengths),
+                                  scene.eval_emitter_hit(si2, wavelengths))
             pdf_em = torch.where(esc2, scene.pdf_emitter_direction_escaped(ray2.d),
                                  scene.pdf_emitter_direction_hit(si.p, si2))
             w = torch.where(bs.delta, 1.0, mis_weight(bs.pdf, pdf_em))
@@ -73,7 +75,7 @@ class DepthIntegrator:
     """The distance to the first hit, 0 where the ray escapes, in every
     channel."""
 
-    def sample(self, scene, rng, ray, active):
+    def sample(self, scene, rng, ray, active, wavelengths=None):
         si = scene.ray_intersect(ray, active)
         d = torch.where(si.is_valid, si.t, 0.0)
         return d[..., None].expand(d.shape + (scene.n_channels,)), {"n_rays": active.sum()}

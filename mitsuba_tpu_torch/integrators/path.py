@@ -56,9 +56,11 @@ class PathIntegrator:
     def regen_render(self, scene, seed, spp, sensor_idx, record_samples=False):
         return path_regen_render(self, scene, seed, spp, sensor_idx, record_samples)
 
-    def sample(self, scene, rng, ray, active):
-        """Radiance [N, 3] along each ray and {"n_rays": rays cast}: one
-        closest-hit per active lane and one shadow ray per NEE-active lane."""
+    def sample(self, scene, rng, ray, active, wavelengths=None):
+        """Radiance [N, C] along each ray and {"n_rays": rays cast}: one
+        closest-hit per active lane and one shadow ray per NEE-active lane.
+        `wavelengths` [N, 4] are the lanes' wavelengths in the spectral
+        variants (None elsewhere)."""
         n = ray.o.shape[0]
         nc = scene.n_channels
         dev = ray.o.device
@@ -87,7 +89,7 @@ class PathIntegrator:
             else:
                 si = scene.ray_intersect(cur_ray, active)
             b = path_bounce(self, scene, si, rng, ray_d, L, beta, eta, active, prev_pdf,
-                            prev_delta, prev_p, depth, max_depth, defer)
+                            prev_delta, prev_p, depth, max_depth, defer, wavelengths)
             if defer:
                 # the shadow ray rides the next bounce's fused launch
                 pend = spawn_ray(si.p, si.n, b.ds.d, maxt=b.ds.dist * (1.0 - 1e-3))
@@ -130,7 +132,7 @@ def _lanes(cond, mask):
 
 
 def path_bounce(integrator, scene, si, rng, ray_d, L, beta, eta, active, prev_pdf, prev_delta,
-                prev_p, depth, max_depth, defer):
+                prev_p, depth, max_depth, defer, wavelengths=None):
     """One bounce of the path tracer after its closest hit `si`: emitter
     hits and escapes with MIS, NEE, the BSDF sample and Russian roulette,
     drawing 4 x next_2d in this order. `depth` is the bounce's index, one
@@ -144,9 +146,11 @@ def path_bounce(integrator, scene, si, rng, ray_d, L, beta, eta, active, prev_pd
     if shown is not False:
         w_env, w_em = emitter_mis_weights(scene, nee, si, ray_d, prev_pdf, prev_delta, prev_p)
         L = L + torch.where(_lanes(shown, active & ~si.is_valid)[..., None],
-                            beta * w_env[..., None] * scene.eval_environment(ray_d), 0.0)
+                            beta * w_env[..., None] * scene.eval_environment(ray_d, wavelengths),
+                            0.0)
         L = L + torch.where(_lanes(shown, active & si.is_valid)[..., None],
-                            beta * w_em[..., None] * scene.eval_emitter_hit(si), 0.0)
+                            beta * w_em[..., None] * scene.eval_emitter_hit(si, wavelengths),
+                            0.0)
 
     active_next = active & si.is_valid & (depth + 1 < max_depth)
 
@@ -161,9 +165,10 @@ def path_bounce(integrator, scene, si, rng, ray_d, L, beta, eta, active, prev_pd
     if nee:
         ds, em_weight = scene.sample_emitter_direction(
             si.p, u0, torch.stack([u2a_x, u2a_y], dim=-1), active_next,
-            test_visibility=not defer, ref_n=si.n,
+            test_visibility=not defer, ref_n=si.n, wavelengths=wavelengths,
         )
-        bsdf_val, bsdf_pdf = scene.bsdf_eval_pdf(si, si.to_local(ds.d), active_next)
+        bsdf_val, bsdf_pdf = scene.bsdf_eval_pdf(si, si.to_local(ds.d), active_next,
+                                                 wavelengths)
         w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, bsdf_pdf))
         contrib = torch.where(
             active_next[..., None], beta * bsdf_val * em_weight * w_nee[..., None], 0.0
@@ -173,7 +178,7 @@ def path_bounce(integrator, scene, si, rng, ray_d, L, beta, eta, active, prev_pd
 
     # ---- BSDF sampling ----
     bs, bsdf_weight = scene.bsdf_sample(
-        si, u_lobe, torch.stack([u2b_x, u2b_y], dim=-1), active_next
+        si, u_lobe, torch.stack([u2b_x, u2b_y], dim=-1), active_next, wavelengths
     )
     new_ray = spawn_ray(si.p, si.n, si.to_world(bs.wo))
     beta = beta * bsdf_weight

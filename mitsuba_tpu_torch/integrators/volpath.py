@@ -36,6 +36,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core.rng import lanes_rng, merge_rng
+from ..render.film import spectral_to_film
 from ..render.records import MediumInteraction, Ray, spawn_ray
 from ..render.spectrum_ops import get_ops
 from .path import mis_weight, record_flush
@@ -242,7 +243,8 @@ def nee_setup(scene, s, ev, u0, u2a):
     nee_active = scatter_med | scatter_surf
     ref_p = torch.where(scatter_med[..., None], ev["p_med"], si.p)
     ds, em_weight = scene.sample_emitter_direction(ref_p, u0, u2a, nee_active,
-                                                   test_visibility=False)
+                                                   test_visibility=False,
+                                                   wavelengths=s["wavelengths"])
     nee_medium = torch.where(scatter_surf, scene.medium_transition(si, ds.d, medium), medium)
     side = torch.sign(torch.sum(si.n * ds.d, dim=-1))
     p_nee = torch.where(scatter_surf[..., None], si.p + side[..., None] * 1e-4 * si.n,
@@ -250,7 +252,7 @@ def nee_setup(scene, s, ev, u0, u2a):
     return nee_active, ref_p, ds, em_weight, nee_medium, p_nee
 
 
-def nee_eval(scene, ops, ev, d, surf_active):
+def nee_eval(scene, ops, ev, d, surf_active, wavelengths=None):
     """(value, pdf) toward the world direction d of each lane's phase
     (where it scattered in a medium) or BSDF (where surf_active): [N, C],
     or the world-frame Mueller matrix [N, C, 4, 4] in a polarized
@@ -259,11 +261,11 @@ def nee_eval(scene, ops, ev, d, surf_active):
     wo_med, wo_surf = mei.to_local(d), si.to_local(d)
     if ops.polarized:
         ph_val, ph_pdf = scene.phase_eval_pdf_pol(phase_idx, mei, wo_med, scatter_med)
-        b_val, b_pdf = scene.bsdf_eval_pdf_pol(si, wo_surf, surf_active)
+        b_val, b_pdf = scene.bsdf_eval_pdf_pol(si, wo_surf, surf_active, wavelengths)
         f = torch.where(scatter_med[..., None, None, None], ph_val, b_val)
     else:
         ph_val, ph_pdf = scene.phase_eval_pdf(phase_idx, mei, wo_med, scatter_med)
-        b_val, b_pdf = scene.bsdf_eval_pdf(si, wo_surf, surf_active)
+        b_val, b_pdf = scene.bsdf_eval_pdf(si, wo_surf, surf_active, wavelengths)
         f = torch.where(scatter_med[..., None], ph_val, b_val)
     return f, torch.where(scatter_med, ph_pdf, b_pdf)
 
@@ -273,17 +275,18 @@ def emission(scene_mis, scene_val, ops, s, ev, beta):
     MIS-weighted against the previous vertex's pdf: the weights from
     scene_mis, the emitted radiance from scene_val (the PRB replay's
     attached copy, or the same scene)."""
-    ray_d, si = s["ray_d"], ev["si"]
+    ray_d, si, wl = s["ray_d"], ev["si"], s["wavelengths"]
     zero_L = torch.zeros_like(s["L"])
     env_pdf = torch.where(s["prev_delta"], 0.0, scene_mis.pdf_emitter_direction_escaped(ray_d))
     w_env = mis_weight(s["prev_pdf"], env_pdf)
     em_pdf = torch.where(s["prev_delta"], 0.0,
                          scene_mis.pdf_emitter_direction_hit(s["prev_p"], si))
     w_hit = mis_weight(s["prev_pdf"], em_pdf)
-    return (ops.where_rad(ev["escaped"], ops.emit(beta, scene_val.eval_environment(ray_d)
+    return (ops.where_rad(ev["escaped"], ops.emit(beta, scene_val.eval_environment(ray_d, wl)
                                                   * w_env[..., None]), zero_L)
-            + ops.where_rad(ev["surface_event"], ops.emit(beta, scene_val.eval_emitter_hit(si)
-                                                          * w_hit[..., None]), zero_L))
+            + ops.where_rad(ev["surface_event"],
+                            ops.emit(beta, scene_val.eval_emitter_hit(si, wl)
+                                     * w_hit[..., None]), zero_L))
 
 
 def advance(integrator, scene, ops, s, ev, beta, wo_ph, w_ph, pdf_ph, bs, bw, nee_active, ref_p,
@@ -352,14 +355,16 @@ class VolPathIntegrator:
         max_depth = self.max_depth if self.max_depth > 0 else 64
         return max_depth, self.max_segments or (max_depth + 8)
 
-    def sample(self, scene, rng, ray, active):
+    def sample(self, scene, rng, ray, active, wavelengths=None):
         """Radiance [N, C] along each ray and {"n_rays": rays cast}: per
         segment one closest hit per active lane and one shadow ray per
-        NEE-active lane, counted in int64."""
+        NEE-active lane, counted in int64. `wavelengths` [N, 4]: the lanes'
+        wavelengths in the spectral variants, None elsewhere."""
         ops = get_ops(scene.polarized)
         max_depth, max_segments = self._budgets()
         s = self._start(scene, ops, rng, ray, active,
-                        ops.zero_radiance(ray.o.shape[0], scene.n_channels, ray.o.device))
+                        ops.zero_radiance(ray.o.shape[0], scene.n_channels, ray.o.device),
+                        wavelengths)
         s["n_rays"] = torch.zeros((), dtype=torch.int64, device=ray.o.device)
         for _ in range(max_segments):
             if not _any(s["active"]):
@@ -367,9 +372,9 @@ class VolPathIntegrator:
             s = self._bounce(scene, ops, max_depth, s)
         return s["L"], {"n_rays": s["n_rays"]}
 
-    def _start(self, scene, ops, rng, ray, active, L):
+    def _start(self, scene, ops, rng, ray, active, L, wavelengths=None):
         """Each lane's path state before its first segment (after the hero
-        channel's draw), with radiance L."""
+        channel's draw), with radiance L; its wavelengths ride the state."""
         n = ray.o.shape[0]
         nc = scene.n_channels
         dev = ray.o.device
@@ -387,6 +392,7 @@ class VolPathIntegrator:
             prev_pdf=torch.ones(n, dtype=torch.float32, device=dev),
             prev_delta=torch.ones(n, dtype=torch.bool, device=dev),
             prev_p=ray.o,
+            wavelengths=wavelengths,
             **self._regen_extra(n, scene),
         )
 
@@ -408,7 +414,7 @@ class VolPathIntegrator:
         T_nee, rng = estimate_transmittance(
             scene, p_nee, ds, nee_medium, s["channel"], rng, nee_active,
             max_crossings=self.nee_crossings, steps_per_segment=self.nee_steps)
-        f_nee, pdf_fwd = nee_eval(scene, ops, ev, ds.d, ev["scatter_surf"])
+        f_nee, pdf_fwd = nee_eval(scene, ops, ev, ds.d, ev["scatter_surf"], s["wavelengths"])
         w_nee = torch.where(ds.delta, 1.0, mis_weight(ds.pdf, pdf_fwd))
         nee_contrib = ops.contrib_nee(beta, f_nee, em_weight * T_nee * w_nee[..., None])
         return (ops.where_rad(nee_active, nee_contrib, torch.zeros_like(s["L"])), nee_active,
@@ -446,12 +452,13 @@ class VolPathIntegrator:
         # ---- direction sampling ----
         mei, phase_idx, scatter_med, scatter_surf = (ev["mei"], ev["phase_idx"],
                                                      ev["scatter_med"], ev["scatter_surf"])
+        wl = s["wavelengths"]
         if ops.polarized:
             wo_ph, w_ph, pdf_ph = scene.phase_sample_pol(phase_idx, mei, u_lobe, u2b, scatter_med)
-            bs, bw = scene.bsdf_sample_pol(si, u_lobe, u2b, scatter_surf)
+            bs, bw = scene.bsdf_sample_pol(si, u_lobe, u2b, scatter_surf, wl)
         else:
             wo_ph, w_ph, pdf_ph = scene.phase_sample(phase_idx, mei, u_lobe, u2b, scatter_med)
-            bs, bw = scene.bsdf_sample(si, u_lobe, u2b, scatter_surf)
+            bs, bw = scene.bsdf_sample(si, u_lobe, u2b, scatter_surf, wl)
         n_rays = s["n_rays"] + active.sum() + nee_active.sum()
         return dict(s, L=L, rng=rng, n_rays=n_rays,
                     **advance(self, scene, ops, s, ev, beta, wo_ph, w_ph, pdf_ph, bs, bw,
@@ -468,18 +475,20 @@ class VolPathIntegrator:
 
 
 def regen_fresh(scene, seed, spp, sensor_idx):
-    """fresh(sidx) -> (rng, ray, channel): the stream, camera ray and hero
-    channel of each pixel's sample sidx, drawn as the wavefront draws them.
-    The regenerative render and its PRB replay share it."""
+    """fresh(sidx) -> (rng, ray, channel, wavelengths, wl_pdf): the stream,
+    camera ray, hero channel and wavelengths (None outside the spectral
+    variants) of each pixel's sample sidx, drawn as the wavefront draws
+    them. The regenerative render and its PRB replay share it."""
     from ..render_api import wavefront_for
 
     n = scene.film.n_pixels
     pix = torch.arange(n, dtype=torch.int64, device=scene.device)
 
     def fresh(sidx):
-        rng_f, ray_f, _ = wavefront_for(scene, seed, pix, sidx, spp, sensor_idx)
+        rng_f, ray_f, wl, wl_pdf, _ = wavefront_for(scene, seed, pix, sidx, spp, sensor_idx,
+                                                    with_wavelengths=True)
         u_ch, _, rng_f = lanes_rng(rng_f, n).next_2d()
-        return rng_f, ray_f, sample_channel(u_ch, scene.n_channels)
+        return rng_f, ray_f, sample_channel(u_ch, scene.n_channels), wl, wl_pdf
 
     return fresh
 
@@ -491,12 +500,16 @@ def lanes_where(m, a, b):
     return torch.where(m.reshape(m.shape + (1,) * (nd - 1)), a, b)
 
 
-def volpath_restart(scene, ops, s, regen, rng_new, ray_new, ch_new, L_new, extra0):
+def volpath_restart(scene, ops, s, regen, rng_new, ray_new, ch_new, L_new, extra0,
+                    wl_new=None, wlp_new=None):
     """Volumetric path state `s` with the lanes of `regen` restarted on a
     fresh sample: radiance L_new, unit throughput, the camera's medium, the
-    new hero channel and stream, the previous vertex reset, and the
-    integrator's extra state (`extra0`) reset."""
+    new hero channel, wavelengths (spectral) and stream, the previous vertex
+    reset, and the integrator's extra state (`extra0`) reset."""
     n, nc = regen.shape[0], scene.n_channels
+    if wl_new is not None:
+        s = dict(s, wavelengths=lanes_where(regen, wl_new, s["wavelengths"]),
+                 wl_pdf=lanes_where(regen, wlp_new, s["wl_pdf"]))
     return dict(
         s,
         L=lanes_where(regen, L_new, s["L"]),
@@ -515,7 +528,7 @@ def volpath_restart(scene, ops, s, regen, rng_new, ray_new, ch_new, L_new, extra
     )
 
 
-def regen_start(scene, ops, ray0, ch0, rng0, L0, extra0):
+def regen_start(scene, ops, ray0, ch0, rng0, L0, extra0, wl0=None, wlp0=None):
     """The regenerative loops' state before their first step: every lane
     inactive, waiting for its pixel's sample 0."""
     n = ray0.o.shape[0]
@@ -534,6 +547,8 @@ def regen_start(scene, ops, ray0, ch0, rng0, L0, extra0):
         prev_pdf=torch.ones(n, dtype=torch.float32, device=dev),
         prev_delta=torch.ones(n, dtype=torch.bool, device=dev),
         prev_p=ray0.o,
+        wavelengths=wl0,
+        wl_pdf=wlp0,
         **extra0,
     )
 
@@ -547,9 +562,12 @@ def volpath_regen_render(integrator, scene, seed, spp, sensor_idx, record_sample
     samples, {"n_rays", "wavefront_iters"}): [n_pixels, C], or in a
     polarized variant the Stokes vectors [n_pixels, C, 4] in the sensor
     frame, each finished path rotated there by its own camera ray (cam_d)
-    as it is flushed. With `record_samples` the aux also holds "L_samples"
-    [n_pixels, spp, C] ([n_pixels, spp, C, 4]), each sample's radiance in
-    the integrator's frame, which the PRB replay starts from.
+    as it is flushed, or in the spectral variant the film's channels
+    [n_pixels, 3] (specfilm: one per SRF), each finished path converted at
+    its own wavelengths as it is flushed. With `record_samples` the aux also
+    holds "L_samples" [n_pixels, spp, C] ([n_pixels, spp, C, 4]), each
+    sample's radiance in the integrator's frame and wavelengths, which the
+    PRB replay starts from.
 
     The loop reads from the card, once per step, whether any lane has work
     left; it stops there or after spp * max_segments + 1 steps."""
@@ -557,38 +575,42 @@ def volpath_regen_render(integrator, scene, seed, spp, sensor_idx, record_sample
 
     n = scene.film.n_pixels
     nc = scene.n_channels
-    if nc not in (1, 3) and not scene.polarized:
-        raise NotImplementedError("regenerate in a spectral variant (the sRGB conversion at "
-                                  "each path's flush) is not yet ported")
+    spectral = nc == 4 and not scene.polarized
     ops = get_ops(scene.polarized)
     max_depth, max_segments = integrator._budgets()
     dev = scene.device
     fresh = regen_fresh(scene, seed, spp, sensor_idx)
     extra0 = integrator._regen_extra(n, scene)
 
-    def finish(L, cam_d):
+    def finish(L, s):
         """A finished path's value on the film."""
-        return to_sensor_mueller(cam_d, L) if scene.polarized else L
+        if scene.polarized:
+            return to_sensor_mueller(s["cam_d"], L)
+        if spectral:
+            return spectral_to_film(scene.film, L, s["wavelengths"], s["wl_pdf"])
+        return L
 
-    rng0, ray0, ch0 = fresh(torch.zeros(n, dtype=torch.int64, device=dev))
+    rng0, ray0, ch0, wl0, wlp0 = fresh(torch.zeros(n, dtype=torch.int64, device=dev))
     L0 = ops.zero_radiance(n, nc, dev)
-    s = dict(regen_start(scene, ops, ray0, ch0, rng0, L0, extra0),
+    n_film = (len(scene.film.srfs) or 3) if spectral else nc
+    s = dict(regen_start(scene, ops, ray0, ch0, rng0, L0, extra0, wl0, wlp0),
              n_rays=torch.zeros((), dtype=torch.int64, device=dev),
-             L_px=torch.zeros_like(L0), cam_d=ray0.d,
-             cur_sample=torch.zeros(n, dtype=torch.int64, device=dev))
+             L_px=torch.zeros((n, n_film) + L0.shape[2:], dtype=torch.float32, device=dev),
+             cam_d=ray0.d, cur_sample=torch.zeros(n, dtype=torch.int64, device=dev))
     L_samples = torch.zeros((n, spp) + L0.shape[1:], dtype=torch.float32,
                             device=dev) if record_samples else None
     iters = 0
     while iters < spp * max_segments + 1 and _any(s["active"] | (s["s_next"] < spp)):
         regen = ~s["active"] & (s["s_next"] < spp)
-        rng_new, ray_new, ch_new = fresh(s["s_next"])
+        rng_new, ray_new, ch_new, wl_new, wlp_new = fresh(s["s_next"])
         if record_samples:
             # the flushed radiance is the sample the lane held before
             record_flush(L_samples, s["cur_sample"], regen & (s["s_next"] > 0), s["L"])
         s = dict(
-            volpath_restart(scene, ops, s, regen, rng_new, ray_new, ch_new, 0.0, extra0),
+            volpath_restart(scene, ops, s, regen, rng_new, ray_new, ch_new, 0.0, extra0, wl_new,
+                            wlp_new),
             # flush the finished path into its pixel
-            L_px=s["L_px"] + lanes_where(regen, finish(s["L"], s["cam_d"]), 0.0),
+            L_px=s["L_px"] + lanes_where(regen, finish(s["L"], s), 0.0),
             cam_d=lanes_where(regen, ray_new.d, s["cam_d"]),
             cur_sample=torch.where(regen, s["s_next"], s["cur_sample"]),
             s_next=torch.where(regen, s["s_next"] + 1, s["s_next"]),
@@ -597,7 +619,7 @@ def volpath_regen_render(integrator, scene, seed, spp, sensor_idx, record_sample
         iters += 1
     # every lane ends inactive: flush each lane's last path
     started = s["s_next"] > 0
-    L_px = s["L_px"] + lanes_where(started, finish(s["L"], s["cam_d"]), 0.0)
+    L_px = s["L_px"] + lanes_where(started, finish(s["L"], s), 0.0)
     aux = {"n_rays": s["n_rays"], "wavefront_iters": iters}
     if record_samples:
         record_flush(L_samples, s["cur_sample"], started, s["L"])

@@ -55,7 +55,7 @@ def _refractive_nee_direction(scene, refr_idx, emitter_d, u2, active):
 
 
 def estimate_transmittance_aos(scene, p0, d0, emitter_d, dist, medium0, channel, rng, active,
-                               ops, max_crossings=6, steps_per_segment=32):
+                               ops, max_crossings=6, steps_per_segment=32, wavelengths=None):
     """The atmosphere-ocean shadow walk from p0 along d0: ratio tracking
     through media and null surfaces, and at the refractive surface the
     BSDF's eval toward emitter_d and a turn onto it. Polarized, the
@@ -87,10 +87,10 @@ def estimate_transmittance_aos(scene, p0, d0, emitter_d, dist, medium0, channel,
         # along the emitter's direction
         wo_em = si.to_local(emitter_d)
         if ops.polarized:
-            M_refr, _ = scene.bsdf_eval_pdf_pol(si, wo_em, cross_refr)
+            M_refr, _ = scene.bsdf_eval_pdf_pol(si, wo_em, cross_refr, wavelengths)
             T = torch.where(cross_refr[..., None, None, None], T @ M_refr, T)
         else:
-            v_refr, _ = scene.bsdf_eval_pdf(si, wo_em, cross_refr)
+            v_refr, _ = scene.bsdf_eval_pdf(si, wo_em, cross_refr, wavelengths)
             T = torch.where(cross_refr[..., None], T * v_refr, T)
         new_d = torch.where(cross_refr[..., None], emitter_d, d)
         medium = torch.where(hit_surface, scene.medium_transition(si, new_d, medium), medium)
@@ -151,7 +151,8 @@ def aos_nee_setup(scene, s, ev, u0, u2a, u2r):
     nee_active = scatter_med | nee_surf
     ref_p = torch.where(scatter_med[..., None], p_med, si.p)
     ds, em_weight = scene.sample_emitter_direction(ref_p, u0, u2a, nee_active,
-                                                   test_visibility=False)
+                                                   test_visibility=False,
+                                                   wavelengths=s["wavelengths"])
     has_refr = nee_active & (s["refr"] >= 0)
     d_refr, inv_pdf_refr, refr_ok = _refractive_nee_direction(scene, s["refr"], ds.d, u2r,
                                                               has_refr)
@@ -203,8 +204,8 @@ class VolPathAOSIntegrator(VolPathIntegrator):
         T_nee, rng = estimate_transmittance_aos(
             scene, nee.p_nee, nee.d_nee, nee.ds.d, nee.walk_dist, nee.nee_medium, s["channel"],
             rng, nee.nee_active, ops, max_crossings=self.nee_crossings,
-            steps_per_segment=self.nee_steps)
-        f_nee, _ = nee_eval(scene, ops, ev, nee.d_nee, nee.nee_surf)
+            steps_per_segment=self.nee_steps, wavelengths=s["wavelengths"])
+        f_nee, _ = nee_eval(scene, ops, ev, nee.d_nee, nee.nee_surf, s["wavelengths"])
         return (aos_nee_contrib(ops, beta, f_nee, T_nee, nee.em_weight, nee.nee_active),
                 nee.nee_active, nee.ref_p, rng)
 

@@ -108,7 +108,7 @@ class _Dirac:
 
     flags_smooth = False
 
-    def eval(self, si, wo, n_channels):
+    def eval(self, si, wo, n_channels, wavelengths=None):
         return torch.zeros(wo.shape[:-1] + (n_channels,), dtype=torch.float32, device=wo.device)
 
     def pdf(self, si, wo):
@@ -121,11 +121,11 @@ class DiffuseBSDF:
     flags_smooth = True
     flags_transmission = False
 
-    def eval(self, si, wo, n_channels):
+    def eval(self, si, wo, n_channels, wavelengths=None):
         cos_i = si.wi[..., 2]
         cos_o = wo[..., 2]
         valid = (cos_i > 0) & (cos_o > 0)
-        refl = self.reflectance.eval(si.uv, n_channels)
+        refl = self.reflectance.eval(si.uv, n_channels, wavelengths)
         val = refl * (INV_PI * torch.clamp(cos_o, min=0.0))[..., None]
         return torch.where(valid[..., None], val, 0.0)
 
@@ -133,11 +133,11 @@ class DiffuseBSDF:
         valid = (si.wi[..., 2] > 0) & (wo[..., 2] > 0)
         return torch.where(valid, warp.square_to_cosine_hemisphere_pdf(wo), 0.0)
 
-    def sample(self, u_lobe, u2, si, n_channels):
+    def sample(self, u_lobe, u2, si, n_channels, wavelengths=None):
         wo = warp.square_to_cosine_hemisphere(u2)
         pdf = warp.square_to_cosine_hemisphere_pdf(wo)
         valid = si.wi[..., 2] > 0
-        refl = self.reflectance.eval(si.uv, n_channels)
+        refl = self.reflectance.eval(si.uv, n_channels, wavelengths)
         weight = torch.where(valid[..., None], refl, 0.0)
         bs = BSDFSample(
             wo=wo,
@@ -155,7 +155,7 @@ class NullBSDF(_Dirac):
 
     flags_transmission = True
 
-    def sample(self, u_lobe, u2, si, n_channels):
+    def sample(self, u_lobe, u2, si, n_channels, wavelengths=None):
         return _pass_through(si), torch.ones(si.wi.shape[0], n_channels, dtype=torch.float32,
                                              device=si.wi.device)
 
@@ -187,7 +187,7 @@ class RoughDielectricBSDF:
         return ((torch.abs(cos_i) > 1e-6) & (dot(wi, m) * cos_i > 0)
                 & (dot(wo, m) * cos_o > 0))
 
-    def eval(self, si, wo, n_channels):
+    def eval(self, si, wo, n_channels, wavelengths=None):
         wi = si.wi
         cos_i = wi[..., 2]
         cos_o = wo[..., 2]
@@ -212,8 +212,8 @@ class RoughDielectricBSDF:
         val_t = torch.abs((inv_eta ** 2) * (1.0 - f) * d * g * eta * eta * wim * wom
                           / (cos_i_ok * torch.clamp(denom, min=1e-12)))
         val = torch.where(valid, torch.where(reflect_m, val_r, val_t), 0.0)
-        refl = self.specular_reflectance.eval(si.uv, n_channels)
-        trans = self.specular_transmittance.eval(si.uv, n_channels)
+        refl = self.specular_reflectance.eval(si.uv, n_channels, wavelengths)
+        trans = self.specular_transmittance.eval(si.uv, n_channels, wavelengths)
         return val[..., None] * torch.where(reflect_m[..., None], refl, trans)
 
     def pdf(self, si, wo):
@@ -245,7 +245,7 @@ class RoughDielectricBSDF:
         wim = dot(wi, m)
         return m, wim, fresnel(wim, self.eta)
 
-    def sample(self, u_lobe, u2, si, n_channels):
+    def sample(self, u_lobe, u2, si, n_channels, wavelengths=None):
         wi = si.wi
         cos_i = wi[..., 2]
         m, wim, (f, cos_theta_t, eta_it, eta_ti) = self._sample_m(u2, wi)
@@ -259,18 +259,18 @@ class RoughDielectricBSDF:
         # would count them as transmissions
         agree = (wim * cos_i > 0) & (dot(wo, m) * wo[..., 2] > 0)
         pdf = torch.where(agree, self.pdf(si, wo), 0.0)
-        val = self.eval(si, wo, n_channels)
+        val = self.eval(si, wo, n_channels, wavelengths)
         ok = agree & (pdf > 1e-10)
         weight = torch.where(ok[..., None], val / torch.clamp(pdf, min=1e-10)[..., None], 0.0)
         bs = BSDFSample(wo=wo, pdf=pdf, eta=torch.where(pick_reflect, 1.0, eta_it),
                         delta=torch.zeros_like(pick_reflect))
         return bs, weight
 
-    def sample_pol(self, u_lobe, u2, si, n_channels):
+    def sample_pol(self, u_lobe, u2, si, n_channels, wavelengths=None):
         """The sampled direction weighted by the Mueller matrix:
         eval_pdf_mueller / pdf there."""
-        bs, _ = self.sample(u_lobe, u2, si, n_channels)
-        M, pdf = self.eval_pdf_mueller(si, bs.wo, n_channels)
+        bs, _ = self.sample(u_lobe, u2, si, n_channels, wavelengths)
+        M, pdf = self.eval_pdf_mueller(si, bs.wo, n_channels, wavelengths)
         ok = (pdf > 1e-10)[..., None, None, None]
         return bs, torch.where(ok, M / torch.clamp(pdf, min=1e-10)[..., None, None, None], 0.0)
 
@@ -289,14 +289,14 @@ class RoughDielectricBSDF:
                                    self.alpha, self.alpha)
         return wo, torch.where(cos_theta_t == 0.0, 0.0, pdf_m * dwh_dwo)
 
-    def eval_pdf_mueller(self, si, wo, n_channels):
+    def eval_pdf_mueller(self, si, wo, n_channels, wavelengths=None):
         """(local-frame Mueller weight [N, C, 4, 4], pdf): the Fresnel
         Mueller matrix of reflection or transmission about the microfacet
         normal, normalised to M00 = 1 and scaled by eval's value."""
         wi = si.wi
         reflect_m = wi[..., 2] * wo[..., 2] > 0
         m, _ = self._half_vector(wi, wo, reflect_m)
-        val = self.eval(si, wo, n_channels)
+        val = self.eval(si, wo, n_channels, wavelengths)
         pdf = self.pdf(si, wo)
         cos_o_hat = dot(wo, m)[..., None]
         R = mu.specular_reflection(cos_o_hat, self.eta)
@@ -321,25 +321,25 @@ class SmoothDielectricBSDF(_Dirac):
 
     flags_transmission = True
 
-    def sample(self, u_lobe, u2, si, n_channels):
+    def sample(self, u_lobe, u2, si, n_channels, wavelengths=None):
         cos_i = si.wi[..., 2]
         f, cos_theta_t, eta_it, eta_ti = fresnel(cos_i, self.eta)
         pick_reflect = u_lobe <= f
         wo_t = torch.stack([-eta_ti * si.wi[..., 0], -eta_ti * si.wi[..., 1], cos_theta_t], dim=-1)
         wo = torch.where(pick_reflect[..., None], reflect(si.wi), wo_t)
-        refl = self.specular_reflectance.eval(si.uv, n_channels)
-        trans = self.specular_transmittance.eval(si.uv, n_channels)
+        refl = self.specular_reflectance.eval(si.uv, n_channels, wavelengths)
+        trans = self.specular_transmittance.eval(si.uv, n_channels, wavelengths)
         weight = torch.where(pick_reflect[..., None], refl, trans * (eta_ti * eta_ti)[..., None])
         bs = BSDFSample(wo=wo, pdf=torch.where(pick_reflect, f, 1.0 - f),
                         eta=torch.where(pick_reflect, 1.0, eta_it),
                         delta=torch.ones_like(pick_reflect))
         return bs, weight
 
-    def sample_pol(self, u_lobe, u2, si, n_channels):
+    def sample_pol(self, u_lobe, u2, si, n_channels, wavelengths=None):
         """The sampled lobe's Fresnel Mueller matrix over its pdf, rotated
         into the local implicit bases: light arrives along -bs.wo and
         leaves along si.wi."""
-        bs, _ = self.sample(u_lobe, u2, si, n_channels)
+        bs, _ = self.sample(u_lobe, u2, si, n_channels, wavelengths)
         cos_o = bs.wo[..., 2:3]
         pick_reflect = bs.eta == 1.0
         M = torch.where(pick_reflect[..., None, None, None],
@@ -349,8 +349,8 @@ class SmoothDielectricBSDF(_Dirac):
         M = M / torch.clamp(bs.pdf, min=1e-8)[..., None, None, None]
         M = rotate_specular_mueller(M, bs.wo, si.wi)
         scalar = torch.where(pick_reflect[..., None],
-                             self.specular_reflectance.eval(si.uv, n_channels),
-                             self.specular_transmittance.eval(si.uv, n_channels))
+                             self.specular_reflectance.eval(si.uv, n_channels, wavelengths),
+                             self.specular_transmittance.eval(si.uv, n_channels, wavelengths))
         return bs, M * scalar[..., None, None]
 
 
@@ -365,14 +365,14 @@ class ThinDielectricBSDF(_Dirac):
 
     flags_transmission = True
 
-    def sample(self, u_lobe, u2, si, n_channels):
+    def sample(self, u_lobe, u2, si, n_channels, wavelengths=None):
         f, _, _, _ = fresnel(torch.abs(si.wi[..., 2]), self.eta)
         f = torch.where(f < 1.0, 2.0 * f / (1.0 + f), 1.0)
         pick_reflect = u_lobe <= f
         wo = torch.where(pick_reflect[..., None], reflect(si.wi), -si.wi)
         weight = torch.where(pick_reflect[..., None],
-                             self.specular_reflectance.eval(si.uv, n_channels),
-                             self.specular_transmittance.eval(si.uv, n_channels))
+                             self.specular_reflectance.eval(si.uv, n_channels, wavelengths),
+                             self.specular_transmittance.eval(si.uv, n_channels, wavelengths))
         pdf = torch.where(pick_reflect, f, 1.0 - f)
         bs = BSDFSample(wo=wo, pdf=pdf, eta=torch.ones_like(pdf),
                         delta=torch.ones_like(pick_reflect))
@@ -390,25 +390,25 @@ class SmoothConductorBSDF(_Dirac):
 
     flags_transmission = False
 
-    def sample(self, u_lobe, u2, si, n_channels):
+    def sample(self, u_lobe, u2, si, n_channels, wavelengths=None):
         cos_i = si.wi[..., 2]
         valid = cos_i > 0
         f = fresnel_conductor(cos_i[..., None], self.eta, self.k)
         f = f.expand(f.shape[:-1] + (n_channels,))
-        refl = self.specular_reflectance.eval(si.uv, n_channels)
+        refl = self.specular_reflectance.eval(si.uv, n_channels, wavelengths)
         bs = BSDFSample(wo=reflect(si.wi), pdf=torch.where(valid, 1.0, 0.0),
                         eta=torch.ones_like(cos_i), delta=torch.ones_like(valid))
         return bs, torch.where(valid[..., None], f * refl, 0.0)
 
-    def sample_pol(self, u_lobe, u2, si, n_channels):
+    def sample_pol(self, u_lobe, u2, si, n_channels, wavelengths=None):
         """The mirror's Mueller matrix, from the complex Fresnel amplitudes
         of eta - i k in complex64."""
-        bs, _ = self.sample(u_lobe, u2, si, n_channels)
+        bs, _ = self.sample(u_lobe, u2, si, n_channels, wavelengths)
         eta_c = torch.complex(self.eta, -self.k)
         R = mu.specular_reflection(bs.wo[..., 2:3], eta_c)
         R = rotate_specular_mueller(R.expand(R.shape[:-3] + (n_channels, 4, 4)), bs.wo, si.wi)
         valid = si.wi[..., 2] > 0
-        refl = self.specular_reflectance.eval(si.uv, n_channels)
+        refl = self.specular_reflectance.eval(si.uv, n_channels, wavelengths)
         return bs, torch.where(valid[..., None, None, None], R * refl[..., None, None], 0.0)
 
 
@@ -433,7 +433,7 @@ class RoughConductorBSDF:
         no gradient of the unselected branch leaks NaN through the where."""
         return normalize(torch.where(valid[..., None], wi + wo, _unit_z(wi)))
 
-    def eval(self, si, wo, n_channels):
+    def eval(self, si, wo, n_channels, wavelengths=None):
         # f cos_o = D G F / (4 cos_i cos_o) * cos_o = D G F / (4 cos_i)
         cos_i = si.wi[..., 2]
         valid = (cos_i > 0) & (wo[..., 2] > 0)
@@ -443,7 +443,7 @@ class RoughConductorBSDF:
         f = fresnel_conductor(dot(si.wi, h)[..., None], self.eta, self.k)
         f = f.expand(f.shape[:-1] + (n_channels,))
         spec = (d * g / torch.clamp(4.0 * cos_i, min=1e-9))[..., None] * f
-        refl = self.specular_reflectance.eval(si.uv, n_channels)
+        refl = self.specular_reflectance.eval(si.uv, n_channels, wavelengths)
         return torch.where(valid[..., None], spec, 0.0) * refl
 
     def pdf(self, si, wo):
@@ -453,11 +453,11 @@ class RoughConductorBSDF:
         jac = 1.0 / torch.clamp(4.0 * torch.abs(dot(wo, h)), min=1e-9)
         return torch.where(valid, pdf_h * jac, 0.0)
 
-    def sample(self, u_lobe, u2, si, n_channels):
+    def sample(self, u_lobe, u2, si, n_channels, wavelengths=None):
         m = mf.ggx_sample_vndf(si.wi, u2[..., 0], u2[..., 1], self.alpha_u, self.alpha_v)
         wo = 2.0 * dot(si.wi, m, keepdims=True) * m - si.wi
         pdf = self.pdf(si, wo)
-        val = self.eval(si, wo, n_channels)
+        val = self.eval(si, wo, n_channels, wavelengths)
         weight = torch.where((pdf > 0)[..., None], val / torch.clamp(pdf, min=1e-20)[..., None],
                              0.0)
         bs = BSDFSample(wo=wo, pdf=pdf, eta=torch.ones_like(pdf),
@@ -483,17 +483,18 @@ class TwoSidedBSDF:
         wi = torch.where(flip[..., None], _flip_z(si.wi), si.wi)
         return dataclasses.replace(si, wi=wi), flip
 
-    def eval(self, si, wo, n_channels):
+    def eval(self, si, wo, n_channels, wavelengths=None):
         si2, flip = self._flip(si)
-        return self.nested.eval(si2, torch.where(flip[..., None], _flip_z(wo), wo), n_channels)
+        return self.nested.eval(si2, torch.where(flip[..., None], _flip_z(wo), wo), n_channels,
+                                wavelengths)
 
     def pdf(self, si, wo):
         si2, flip = self._flip(si)
         return self.nested.pdf(si2, torch.where(flip[..., None], _flip_z(wo), wo))
 
-    def sample(self, u_lobe, u2, si, n_channels):
+    def sample(self, u_lobe, u2, si, n_channels, wavelengths=None):
         si2, flip = self._flip(si)
-        bs, weight = self.nested.sample(u_lobe, u2, si2, n_channels)
+        bs, weight = self.nested.sample(u_lobe, u2, si2, n_channels, wavelengths)
         wo = torch.where(flip[..., None], _flip_z(bs.wo), bs.wo)
         return dataclasses.replace(bs, wo=wo), weight
 
@@ -513,17 +514,18 @@ class MaskBSDF:
     def flags_smooth(self):
         return self.nested.flags_smooth
 
-    def eval(self, si, wo, n_channels):
-        return self.nested.eval(si, wo, n_channels) * self.opacity.eval(si.uv, n_channels)
+    def eval(self, si, wo, n_channels, wavelengths=None):
+        return (self.nested.eval(si, wo, n_channels, wavelengths)
+                * self.opacity.eval(si.uv, n_channels, wavelengths))
 
     def pdf(self, si, wo):
         return self.nested.pdf(si, wo) * torch.mean(self.opacity.eval(si.uv, 1), dim=-1)
 
-    def sample(self, u_lobe, u2, si, n_channels):
-        op_s = torch.mean(self.opacity.eval(si.uv, n_channels), dim=-1)
+    def sample(self, u_lobe, u2, si, n_channels, wavelengths=None):
+        op_s = torch.mean(self.opacity.eval(si.uv, n_channels, wavelengths), dim=-1)
         pass_through = u_lobe >= op_s
         u_nested = torch.clamp(u_lobe / torch.clamp(op_s, min=1e-6), 0.0, 1.0)
-        bs_n, w_n = self.nested.sample(u_nested, u2, si, n_channels)
+        bs_n, w_n = self.nested.sample(u_nested, u2, si, n_channels, wavelengths)
         bs = BSDFSample(
             wo=torch.where(pass_through[..., None], -si.wi, bs_n.wo),
             pdf=torch.where(pass_through, 1.0 - op_s, bs_n.pdf * op_s),
@@ -549,25 +551,25 @@ class BlendBSDF:
     def _w(self, si):
         return torch.mean(self.weight.eval(si.uv, 1), dim=-1)
 
-    def eval(self, si, wo, n_channels):
+    def eval(self, si, wo, n_channels, wavelengths=None):
         w = self._w(si)[..., None]
-        return ((1 - w) * self.bsdf_a.eval(si, wo, n_channels)
-                + w * self.bsdf_b.eval(si, wo, n_channels))
+        return ((1 - w) * self.bsdf_a.eval(si, wo, n_channels, wavelengths)
+                + w * self.bsdf_b.eval(si, wo, n_channels, wavelengths))
 
     def pdf(self, si, wo):
         w = self._w(si)
         return (1 - w) * self.bsdf_a.pdf(si, wo) + w * self.bsdf_b.pdf(si, wo)
 
-    def sample(self, u_lobe, u2, si, n_channels):
+    def sample(self, u_lobe, u2, si, n_channels, wavelengths=None):
         w = self._w(si)
         pick_b = u_lobe < w
         u_a = torch.clamp((u_lobe - w) / torch.clamp(1 - w, min=1e-6), 0.0, 1.0)
         u_b = torch.clamp(u_lobe / torch.clamp(w, min=1e-6), 0.0, 1.0)
-        bs_a, _ = self.bsdf_a.sample(u_a, u2, si, n_channels)
-        bs_b, _ = self.bsdf_b.sample(u_b, u2, si, n_channels)
+        bs_a, _ = self.bsdf_a.sample(u_a, u2, si, n_channels, wavelengths)
+        bs_b, _ = self.bsdf_b.sample(u_b, u2, si, n_channels, wavelengths)
         wo = torch.where(pick_b[..., None], bs_b.wo, bs_a.wo)
         pdf = self.pdf(si, wo)
-        val = self.eval(si, wo, n_channels)
+        val = self.eval(si, wo, n_channels, wavelengths)
         weight = torch.where((pdf > 1e-10)[..., None],
                              val / torch.clamp(pdf, min=1e-10)[..., None], 0.0)
         bs = BSDFSample(wo=wo, pdf=pdf, eta=torch.ones_like(pdf),
@@ -586,12 +588,12 @@ class PolarizerBSDF(_Dirac):
 
     flags_transmission = True
 
-    def sample(self, u_lobe, u2, si, n_channels):
-        return _pass_through(si), 0.5 * self.transmittance.eval(si.uv, n_channels)
+    def sample(self, u_lobe, u2, si, n_channels, wavelengths=None):
+        return _pass_through(si), 0.5 * self.transmittance.eval(si.uv, n_channels, wavelengths)
 
-    def sample_pol(self, u_lobe, u2, si, n_channels):
+    def sample_pol(self, u_lobe, u2, si, n_channels, wavelengths=None):
         M = mu.rotated_element(self.theta, mu.linear_polarizer(torch.ones_like(self.theta)))
-        t = self.transmittance.eval(si.uv, n_channels)
+        t = self.transmittance.eval(si.uv, n_channels, wavelengths)
         return _pass_through(si), M * t[..., None, None]
 
 
@@ -605,12 +607,12 @@ class CircularPolarizerBSDF(_Dirac):
 
     flags_transmission = True
 
-    def sample(self, u_lobe, u2, si, n_channels):
-        return _pass_through(si), 0.5 * self.transmittance.eval(si.uv, n_channels)
+    def sample(self, u_lobe, u2, si, n_channels, wavelengths=None):
+        return _pass_through(si), 0.5 * self.transmittance.eval(si.uv, n_channels, wavelengths)
 
-    def sample_pol(self, u_lobe, u2, si, n_channels):
+    def sample_pol(self, u_lobe, u2, si, n_channels, wavelengths=None):
         M = mu.circular_polarizer(1.0, left=self.left).to(si.wi.device)
-        t = self.transmittance.eval(si.uv, n_channels)
+        t = self.transmittance.eval(si.uv, n_channels, wavelengths)
         return _pass_through(si), M * t[..., None, None]
 
 
@@ -625,12 +627,12 @@ class RetarderBSDF(_Dirac):
 
     flags_transmission = True
 
-    def sample(self, u_lobe, u2, si, n_channels):
-        return _pass_through(si), self.transmittance.eval(si.uv, n_channels)
+    def sample(self, u_lobe, u2, si, n_channels, wavelengths=None):
+        return _pass_through(si), self.transmittance.eval(si.uv, n_channels, wavelengths)
 
-    def sample_pol(self, u_lobe, u2, si, n_channels):
+    def sample_pol(self, u_lobe, u2, si, n_channels, wavelengths=None):
         M = mu.rotated_element(self.theta, mu.linear_retarder(self.delta_phase))
-        t = self.transmittance.eval(si.uv, n_channels)
+        t = self.transmittance.eval(si.uv, n_channels, wavelengths)
         return _pass_through(si), M * t[..., None, None]
 
 
@@ -652,7 +654,7 @@ class RoughPlasticBSDF:
         f_i, _, _, _ = fresnel(si.wi[..., 2], self.eta)
         return torch.clamp(f_i, 0.15, 0.9)
 
-    def _lobes(self, si, wo, n_channels):
+    def _lobes(self, si, wo, n_channels, wavelengths=None):
         """(specular, diffuse) [N, C] values of the two lobes, f * cos_o,
         before the lanes below either horizon are masked."""
         cos_i, cos_o = si.wi[..., 2], wo[..., 2]
@@ -661,17 +663,17 @@ class RoughPlasticBSDF:
         g = mf.ggx_g(si.wi, wo, h, self.alpha, self.alpha)
         f_h, _, _, _ = fresnel(dot(si.wi, h), self.eta)
         spec = ((f_h * d * g / torch.clamp(4.0 * cos_i, min=1e-9))[..., None]
-                * self.specular_reflectance.eval(si.uv, n_channels))
+                * self.specular_reflectance.eval(si.uv, n_channels, wavelengths))
         f_i, _, _, _ = fresnel(cos_i, self.eta)
         f_o, _, _, _ = fresnel(cos_o, self.eta)
-        diff = self.diffuse_reflectance.eval(si.uv, n_channels) * (
+        diff = self.diffuse_reflectance.eval(si.uv, n_channels, wavelengths) * (
             (1.0 - f_i) * (1.0 - f_o) * (1.0 / (self.eta ** 2)) * INV_PI
             * torch.clamp(cos_o, min=0.0))[..., None]
         return spec, diff
 
-    def eval(self, si, wo, n_channels):
+    def eval(self, si, wo, n_channels, wavelengths=None):
         valid = (si.wi[..., 2] > 0) & (wo[..., 2] > 0)
-        spec, diff = self._lobes(si, wo, n_channels)
+        spec, diff = self._lobes(si, wo, n_channels, wavelengths)
         return torch.where(valid[..., None], spec + diff, 0.0)
 
     def pdf(self, si, wo):
@@ -683,13 +685,13 @@ class RoughPlasticBSDF:
         pdf_diff = warp.square_to_cosine_hemisphere_pdf(wo)
         return torch.where(valid, prob * pdf_spec + (1 - prob) * pdf_diff, 0.0)
 
-    def sample(self, u_lobe, u2, si, n_channels):
+    def sample(self, u_lobe, u2, si, n_channels, wavelengths=None):
         pick_spec = u_lobe < self._spec_prob(si)
         m = mf.ggx_sample_vndf(si.wi, u2[..., 0], u2[..., 1], self.alpha, self.alpha)
         wo_spec = 2.0 * dot(si.wi, m, keepdims=True) * m - si.wi
         wo = torch.where(pick_spec[..., None], wo_spec, warp.square_to_cosine_hemisphere(u2))
         pdf = self.pdf(si, wo)
-        val = self.eval(si, wo, n_channels)
+        val = self.eval(si, wo, n_channels, wavelengths)
         weight = torch.where((pdf > 1e-12)[..., None],
                              val / torch.clamp(pdf, min=1e-12)[..., None], 0.0)
         bs = BSDFSample(wo=wo, pdf=pdf, eta=torch.ones_like(pdf),
@@ -703,12 +705,12 @@ class PPlasticBSDF(RoughPlasticBSDF):
     polarized Fresnel Mueller matrix about the half vector and the diffuse
     one an ideal depolarizer; its unpolarized values are roughplastic's."""
 
-    def eval_pdf_mueller(self, si, wo, n_channels):
+    def eval_pdf_mueller(self, si, wo, n_channels, wavelengths=None):
         """(local-frame Mueller weight [N, C, 4, 4], pdf): the Fresnel
         reflection matrix about h normalised to M00 = 1 and scaled by the
         specular value, plus the depolarized diffuse value."""
         valid = ((si.wi[..., 2] > 0) & (wo[..., 2] > 0))[..., None]
-        spec, diff = self._lobes(si, wo, n_channels)
+        spec, diff = self._lobes(si, wo, n_channels, wavelengths)
         spec = torch.where(valid, spec, 0.0)
         diff = torch.where(valid, diff, 0.0)
         pdf = self.pdf(si, wo)
@@ -723,8 +725,8 @@ class PPlasticBSDF(RoughPlasticBSDF):
              + mu.depolarizer(1.0).to(wo.device) * diff[..., None, None])
         return torch.nan_to_num(M), pdf
 
-    def sample_pol(self, u_lobe, u2, si, n_channels):
-        bs, _ = self.sample(u_lobe, u2, si, n_channels)
-        M, pdf = self.eval_pdf_mueller(si, bs.wo, n_channels)
+    def sample_pol(self, u_lobe, u2, si, n_channels, wavelengths=None):
+        bs, _ = self.sample(u_lobe, u2, si, n_channels, wavelengths)
+        M, pdf = self.eval_pdf_mueller(si, bs.wo, n_channels, wavelengths)
         ok = (pdf > 1e-12)[..., None, None, None]
         return bs, torch.where(ok, M / torch.clamp(pdf, min=1e-12)[..., None, None, None], 0.0)

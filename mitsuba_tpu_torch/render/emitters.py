@@ -2,9 +2,11 @@
 light, the constant environment and the directional sun.
 
 As in the reference: sample_direction(ref_p, u2, geom, emitter_index,
-n_channels) returns (DirectionSample, weight) with weight = radiance / pdf
-([N, C]), pdf_direction is a solid-angle density, and eval(si,
-n_channels) is the radiance of a ray that hits the emitter. A delta emitter
+n_channels, wavelengths) returns (DirectionSample, weight) with weight =
+radiance / pdf ([N, C]), pdf_direction is a solid-angle density, and
+eval(si, n_channels, wavelengths) is the radiance of a ray that hits the
+emitter; `wavelengths` [N, 4] are the lanes' wavelengths in the spectral
+variants, None elsewhere. A delta emitter
 (the sun) is never hit: its samples have pdf 1 and ``delta`` set, and MIS
 gives them weight 1.
 
@@ -70,12 +72,13 @@ class AreaEmitter:
             self, tri_cdf=fresh.tri_cdf, total_area=fresh.total_area
         )
 
-    def eval(self, si, n_channels):
+    def eval(self, si, n_channels, wavelengths=None):
         """Radiance toward si.wi; the front face only."""
         front = si.wi[..., 2] > 0
-        return torch.where(front[..., None], self.radiance.eval(si.uv, n_channels), 0.0)
+        return torch.where(front[..., None], self.radiance.eval(si.uv, n_channels, wavelengths),
+                           0.0)
 
-    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels):
+    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels, wavelengths=None):
         n_lanes = ref_p.shape[0]
         scaled = u2[..., 0] * self.total_area
         K = self.tri_cdf.shape[0]
@@ -100,7 +103,7 @@ class AreaEmitter:
         pdf = torch.where(
             valid, dist2 / torch.where(valid, cos_e * self.total_area, 1.0), 0.0
         )
-        val = self.radiance.eval(bary, n_channels)
+        val = self.radiance.eval(bary, n_channels, wavelengths)
         pos = pdf > 0
         weight = torch.where(
             pos[..., None], val / torch.where(pos, pdf, 1.0)[..., None], 0.0
@@ -138,18 +141,19 @@ class ConstantEmitter:
     is_environment = True
     is_delta = False
 
-    def eval_escaped(self, d, n_channels):
+    def eval_escaped(self, d, n_channels, wavelengths=None):
         return self.radiance.eval(
-            torch.zeros(d.shape[0], 2, dtype=torch.float32, device=d.device), n_channels)
+            torch.zeros(d.shape[0], 2, dtype=torch.float32, device=d.device), n_channels,
+            wavelengths)
 
-    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels):
+    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels, wavelengths=None):
         n_lanes, dev = ref_p.shape[0], ref_p.device
         d = warp.square_to_uniform_sphere(u2)
         pdf = torch.full((n_lanes,), INV_FOUR_PI, dtype=torch.float32, device=dev)
         dist = torch.full((n_lanes,), 2.0, dtype=torch.float32, device=dev) * torch.clamp(
             self.scene_radius, min=1.0)
         uv = torch.zeros(n_lanes, 2, dtype=torch.float32, device=dev)
-        weight = self.radiance.eval(uv, n_channels) / pdf[..., None]
+        weight = self.radiance.eval(uv, n_channels, wavelengths) / pdf[..., None]
         ds = DirectionSample(
             p=ref_p + d * dist[..., None], n=-d, d=d, dist=dist, pdf=pdf,
             delta=torch.zeros(n_lanes, dtype=torch.bool, device=dev),
@@ -179,11 +183,11 @@ class DirectionalEmitter:
     is_environment = False
     is_delta = True
 
-    def eval(self, si, n_channels):
+    def eval(self, si, n_channels, wavelengths=None):
         return torch.zeros(si.p.shape[:-1] + (n_channels,), dtype=torch.float32,
                            device=si.p.device)
 
-    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels):
+    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels, wavelengths=None):
         n_lanes, dev = ref_p.shape[0], ref_p.device
         d = -normalize(self.direction.expand(ref_p.shape))
         dist = torch.full((n_lanes,), 2.0, dtype=torch.float32, device=dev) * torch.clamp(
@@ -196,7 +200,7 @@ class DirectionalEmitter:
             emitter_index=torch.full((n_lanes,), emitter_index, dtype=torch.int32, device=dev),
             uv=uv,
         )
-        return ds, self.irradiance.eval(uv, n_channels)
+        return ds, self.irradiance.eval(uv, n_channels, wavelengths)
 
     def pdf_direction(self, ref_p, si):
         return torch.zeros(ref_p.shape[:-1], dtype=torch.float32, device=ref_p.device)

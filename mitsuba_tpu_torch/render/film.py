@@ -21,6 +21,11 @@ only.
 Polarized variants put the raw Stokes components on the film: per-lane
 [N, C, 4] values develop to [H, W, 4, C], Stokes-major, as the reference's
 film does; no colour conversion is applied.
+
+In the spectral variants a lane's radiance at its four wavelengths becomes
+the film's channels by ``spectral_to_film``: linear sRGB through CIE XYZ
+(clipped at 0), or, on a ``specfilm``, one channel per sensor response
+function (``srfs``), each the SRF-weighted mean radiance over the range.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..core import spectrum as spec
 from ..core.warp import interval_to_tent
 
 FIS_FILTERS = ("box", "tent", "gaussian")
@@ -41,6 +47,10 @@ class Film:
     width: int
     height: int
     rfilter: str = "gaussian"
+    # specfilm: the sensor response functions (spectra), one per channel,
+    # and each one's integral over [360, 830] nm; () on an hdrfilm
+    srfs: tuple = ()
+    srf_norms: tuple = ()
 
     def __post_init__(self):
         if self.rfilter not in FIS_FILTERS:
@@ -71,6 +81,36 @@ def sample_filter_offset(rfilter: str, u2):
     phi = 2.0 * math.pi * u2[..., 1]
     sigma = 1.0 / 3.0
     return 0.5 + sigma * torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+
+
+def srf_norms(srfs, device):
+    """Each SRF's trapezoid integral over 512 points of [360, 830] nm."""
+    lam = torch.linspace(360.0, 830.0, 512, dtype=torch.float32, device=device)
+    uv0 = torch.zeros(512, 2, dtype=torch.float32, device=device)
+    return tuple(float(torch.trapezoid(srf.eval(uv0, 1, lam[:, None])[:, 0], lam))
+                 for srf in srfs)
+
+
+def spectral_to_film(film: Film, L, wavelengths, wl_pdf):
+    """The film's channels [N, 3] (or [N, len(srfs)]) of per-lane spectral
+    radiance L [N, 4] at `wavelengths` [N, 4] of pdf `wl_pdf` (detached
+    here: the sampling density carries no gradient)."""
+    wl_pdf = wl_pdf.detach()
+    if film.srfs:
+        uv0 = torch.zeros(L.shape[0], 2, dtype=torch.float32, device=L.device)
+        inv_pdf = 1.0 / torch.clamp(wl_pdf, min=1e-12)
+        return torch.stack([torch.mean(srf.eval(uv0, 4, wavelengths) * L * inv_pdf, -1) / norm
+                            for srf, norm in zip(film.srfs, film.srf_norms)], dim=-1)
+    return torch.clamp(spec.xyz_to_srgb(spec.spectrum_to_xyz(L, wavelengths, wl_pdf)), min=0.0)
+
+
+def spectral_to_film_adjoint(film: Film, dL_film, L, wavelengths, wl_pdf):
+    """The VJP of spectral_to_film at the lanes' radiance L: the film
+    adjoint dL_film [N, channels] pulled back to [N, 4]."""
+    with torch.enable_grad():
+        Lv = L.detach().requires_grad_()
+        (dL,) = torch.autograd.grad(spectral_to_film(film, Lv, wavelengths, wl_pdf), Lv, dL_film)
+    return dL
 
 
 def accumulate(film: Film, values, spp: int, acc=None):

@@ -98,7 +98,8 @@ class Scene:
         shape_idx = torch.clamp(si.shape_index, min=0).to(torch.int64)
         return torch.where(si.shape_index >= 0, self.shape_emitter[shape_idx], -1)
 
-    def sample_emitter_direction(self, ref_p, u0, u2, active, test_visibility=True, ref_n=None):
+    def sample_emitter_direction(self, ref_p, u0, u2, active, test_visibility=True, ref_n=None,
+                                 wavelengths=None):
         """Pick an emitter uniformly, sample a direction toward it and, with
         test_visibility, shadow-test it. The weight (radiance / pdf)
         includes the 1/n_emitters selection factor."""
@@ -118,7 +119,8 @@ class Scene:
         sel = torch.clamp((u0 * E).to(torch.int32), 0, E - 1)
         ds_out = w_out = None
         for i, em in enumerate(self.emitters):
-            ds_i, w_i = em.sample_direction(ref_p, u2, self.geometry, i, self.n_channels)
+            ds_i, w_i = em.sample_direction(ref_p, u2, self.geometry, i, self.n_channels,
+                                            wavelengths)
             m = sel == i
             if ds_out is None:
                 ds_out, w_out = ds_i, torch.where(m[..., None], w_i, 0.0)
@@ -170,7 +172,7 @@ class Scene:
         reference's power-weighted selection is not yet ported)."""
         return 1.0 / max(self.n_emitters, 1)
 
-    def eval_emitter_hit(self, si):
+    def eval_emitter_hit(self, si, wavelengths=None):
         """Radiance of the emitter (if any) at surface hit si."""
         out = torch.zeros(si.p.shape[0], self.n_channels, dtype=torch.float32, device=si.p.device)
         if self.n_emitters == 0:
@@ -179,10 +181,11 @@ class Scene:
         for i, em in enumerate(self.emitters):
             if em.is_environment or em.is_delta:
                 continue
-            out = torch.where((em_idx == i)[..., None], em.eval(si, self.n_channels), out)
+            out = torch.where((em_idx == i)[..., None], em.eval(si, self.n_channels, wavelengths),
+                              out)
         return out
 
-    def eval_emitter_sample(self, ds):
+    def eval_emitter_sample(self, ds, wavelengths=None):
         """Radiance value [N, C] of the emitter recorded in each direction
         sample, without its geometric factors (1/dist^2, pdf): the PRB
         replay evaluates it attached and carries the rest of the NEE weight
@@ -191,20 +194,20 @@ class Scene:
         out = torch.zeros(ds.d.shape[0], nc, dtype=torch.float32, device=ds.d.device)
         for i, em in enumerate(self.emitters):
             if em.is_environment:
-                v = em.eval_escaped(ds.d, nc)
+                v = em.eval_escaped(ds.d, nc, wavelengths)
             elif hasattr(em, "radiance"):
-                v = em.radiance.eval(ds.uv, nc)
+                v = em.radiance.eval(ds.uv, nc, wavelengths)
             else:   # directional
-                v = em.irradiance.eval(ds.uv, nc)
+                v = em.irradiance.eval(ds.uv, nc, wavelengths)
             out = torch.where((ds.emitter_index == i)[..., None], v, out)
         return out
 
-    def eval_environment(self, d):
+    def eval_environment(self, d, wavelengths=None):
         """Radiance of escaped rays along d: the environment emitter's, or 0."""
         if self.env_emitter < 0:
             return torch.zeros(d.shape[:-1] + (self.n_channels,), dtype=torch.float32,
                                device=d.device)
-        return self.emitters[self.env_emitter].eval_escaped(d, self.n_channels)
+        return self.emitters[self.env_emitter].eval_escaped(d, self.n_channels, wavelengths)
 
     def pdf_emitter_direction_escaped(self, d):
         """NEE pdf of an escaped ray's direction on the environment emitter."""
@@ -222,7 +225,8 @@ class Scene:
         """Indices of the Lambertian BSDFs with a constant reflectance. When
         there are several (the cbox has white, red and green), one closed
         form with a per-lane reflectance row replaces a masked evaluation
-        per instance."""
+        per instance. The spectral variants evaluate every instance at the
+        lanes' own wavelengths and take no shortcut."""
         idxs = tuple(
             i for i, b in enumerate(self.bsdfs)
             if type(b) is DiffuseBSDF and type(b.reflectance) is ConstantTexture
@@ -241,13 +245,13 @@ class Scene:
             in_group = in_group | hit
         return in_group, refl
 
-    def bsdf_eval_pdf(self, si, wo, active):
+    def bsdf_eval_pdf(self, si, wo, active, wavelengths=None):
         """eval and pdf of the BSDF at each lane's hit, fused."""
         n_lanes = si.p.shape[0]
         val = torch.zeros(n_lanes, self.n_channels, dtype=torch.float32, device=si.p.device)
         pdf = torch.zeros(n_lanes, dtype=torch.float32, device=si.p.device)
         b_idx = self.bsdf_index_at(si)
-        fused = self._fused_diffuse_idxs()
+        fused = self._fused_diffuse_idxs() if wavelengths is None else ()
         if fused:
             in_group, refl = self._fused_diffuse_refl(fused, b_idx)
             cos_o = wo[..., 2]
@@ -263,17 +267,17 @@ class Scene:
             if i in fused or not b.flags_smooth:
                 continue
             m = (b_idx == i) & active
-            val = torch.where(m[..., None], b.eval(si, wo, self.n_channels), val)
+            val = torch.where(m[..., None], b.eval(si, wo, self.n_channels, wavelengths), val)
             pdf = torch.where(m, b.pdf(si, wo), pdf)
         return val, pdf
 
-    def bsdf_sample(self, si, u_lobe, u2, active):
+    def bsdf_sample(self, si, u_lobe, u2, active, wavelengths=None):
         n_lanes = si.p.shape[0]
         dev = si.p.device
         b_idx = self.bsdf_index_at(si)
         bs = _invalid_sample(n_lanes, dev)
         weight = torch.zeros(n_lanes, self.n_channels, dtype=torch.float32, device=dev)
-        fused = self._fused_diffuse_idxs()
+        fused = self._fused_diffuse_idxs() if wavelengths is None else ()
         if fused:
             in_group, refl = self._fused_diffuse_refl(fused, b_idx)
             wo_c = warp.square_to_cosine_hemisphere(u2)
@@ -291,7 +295,7 @@ class Scene:
             if i in fused:
                 continue
             m = (b_idx == i) & active
-            bs_i, w_i = b.sample(u_lobe, u2, si, self.n_channels)
+            bs_i, w_i = b.sample(u_lobe, u2, si, self.n_channels, wavelengths)
             bs = BSDFSample(
                 wo=torch.where(m[..., None], bs_i.wo, bs.wo),
                 pdf=torch.where(m, bs_i.pdf, bs.pdf),
@@ -302,7 +306,7 @@ class Scene:
         return bs, weight
 
     # -- polarized dispatch: Mueller weights in the world's implicit bases --
-    def bsdf_eval_pdf_pol(self, si, wo, active):
+    def bsdf_eval_pdf_pol(self, si, wo, active, wavelengths=None):
         """Polarized eval: the world-frame Mueller weight [N, C, 4, 4] (f *
         cos) and the pdf. A BSDF without a polarized eval depolarizes."""
         n_lanes, nc = si.p.shape[0], self.n_channels
@@ -314,15 +318,15 @@ class Scene:
                 continue
             m = (b_idx == i) & active
             if hasattr(b, "eval_pdf_mueller"):
-                M_i, p_i = b.eval_pdf_mueller(si, wo, nc)
+                M_i, p_i = b.eval_pdf_mueller(si, wo, nc, wavelengths)
             else:
-                M_i, p_i = depolarizer_weight(b.eval(si, wo, nc)), b.pdf(si, wo)
+                M_i, p_i = depolarizer_weight(b.eval(si, wo, nc, wavelengths)), b.pdf(si, wo)
             M = torch.where(m[..., None, None, None], M_i, M)
             pdf = torch.where(m, p_i, pdf)
         M = mu.to_world_mueller(M, -wo, si.wi, si.sh_s, si.sh_t, si.sh_n)
         return M, pdf
 
-    def bsdf_sample_pol(self, si, u_lobe, u2, active):
+    def bsdf_sample_pol(self, si, u_lobe, u2, active, wavelengths=None):
         """Polarized sample: (BSDFSample, world-frame weight [N, C, 4, 4]).
         A BSDF without a polarized sample depolarizes, except the null BSDF,
         which passes the polarization on."""
@@ -333,9 +337,9 @@ class Scene:
         for i, b in enumerate(self.bsdfs):
             m = (b_idx == i) & active
             if hasattr(b, "sample_pol"):
-                bs_i, M_i = b.sample_pol(u_lobe, u2, si, nc)
+                bs_i, M_i = b.sample_pol(u_lobe, u2, si, nc, wavelengths)
             else:
-                bs_i, w_i = b.sample(u_lobe, u2, si, nc)
+                bs_i, w_i = b.sample(u_lobe, u2, si, nc, wavelengths)
                 M_i = identity_weight(w_i) if isinstance(b, NullBSDF) else depolarizer_weight(w_i)
             bs = BSDFSample(
                 wo=torch.where(m[..., None], bs_i.wo, bs.wo),

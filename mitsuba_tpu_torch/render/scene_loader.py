@@ -46,11 +46,12 @@ from ..core.transform import Transform, build_transform
 from . import bsdfs as B
 from ..variant import current_variant
 from .emitters import AreaEmitter, ConstantEmitter, DirectionalEmitter
-from .film import Film
+from .film import Film, srf_norms
 from .media import MEDIUM_TYPES, parse_medium
 from .scene import Scene
 from .sensors import PerspectiveCamera, RadiancemeterSensor
 from . import shapes as SH
+from . import textures as TX
 from .textures import ConstantTexture
 
 SHAPE_TYPES = ("rectangle", "cube", "obj", "ply", "mesh")
@@ -120,11 +121,25 @@ def raw_mesh(spec, to_world):
     return m
 
 
-def parse_texture(spec, device, default=1.0):
-    """(texture, name of its parameter leaf) from a float, a list or an
-    rgb dict."""
+def _floats(v):
+    """A list of numbers, or a string of them separated by commas or
+    spaces, as float32."""
+    if isinstance(v, str):
+        v = [x for x in v.replace(",", " ").split() if x]
+    return np.asarray(v, np.float32).reshape(-1)
+
+
+def parse_texture(spec, device, default=1.0, emissive=False):
+    """(texture, name of its parameter leaf) from a float, a list, an rgb
+    dict or a spectrum dict (``uniform``, ``singleton``, ``d65``,
+    ``blackbody``, ``regular``, ``irregular``). `emissive` marks the rgb
+    values of emitters, which the spectral variants upsample with D65."""
     if spec is None:
         spec = default
+
+    def t32(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+
     if isinstance(spec, (int, float)):
         value = np.asarray([float(spec)], np.float32)
     elif isinstance(spec, (list, tuple, np.ndarray)):
@@ -133,9 +148,27 @@ def parse_texture(spec, device, default=1.0):
             raise _not_ported("a bitmap texture")
     elif spec.get("type") in ("rgb", "srgb"):
         value = np.asarray(spec["color"] if "color" in spec else spec["value"], np.float32)
+    elif spec.get("type") == "uniform":
+        return ConstantTexture(value=t32([spec.get("value", 1.0)])), "value"
+    elif spec.get("type") == "singleton":
+        return TX.SingletonSpectrum(value=t32(spec.get("value", 1.0)),
+                                    wavelength=t32(spec.get("wavelength", 550.0))), "value"
+    elif spec.get("type") == "d65":
+        return TX.D65Spectrum(scale=t32(spec.get("scale", 1.0))), "scale"
+    elif spec.get("type") == "blackbody":
+        return TX.BlackbodySpectrum(temperature=t32(spec.get("temperature", 6504.0)),
+                                    scale=t32(spec.get("scale", 1.0))), "scale"
+    elif spec.get("type") == "regular":
+        return TX.RegularSpectrum(
+            values=t32(_floats(spec["values"])),
+            wl_min=t32(spec.get("wavelength_min", spec.get("lambda_min", 360.0))),
+            wl_max=t32(spec.get("wavelength_max", spec.get("lambda_max", 830.0)))), "values"
+    elif spec.get("type") == "irregular":
+        return TX.IrregularSpectrum(wavelengths_nodes=t32(_floats(spec["wavelengths"])),
+                                    values=t32(_floats(spec["values"]))), "values"
     else:
         raise _not_ported(f"texture type {spec.get('type')!r}")
-    return ConstantTexture(value=torch.from_numpy(value).to(device)), "value"
+    return ConstantTexture(value=torch.from_numpy(value).to(device), emissive=emissive), "value"
 
 
 _IOR_PRESETS = {"bk7": 1.5046, "water": 1.3330, "diamond": 2.419, "air": 1.000277}
@@ -288,14 +321,24 @@ def parse_sensor(spec, device):
     if t not in SENSOR_TYPES:
         raise _not_ported(f"sensor type {t!r}")
     film_spec = spec.get("film", {})
-    if film_spec.get("type", "hdrfilm") != "hdrfilm":
+    if film_spec.get("type", "hdrfilm") not in ("hdrfilm", "specfilm"):
         raise _not_ported(f"film type {film_spec.get('type')!r}")
     if any(k in film_spec for k in FILM_KEYS_NOT_PORTED):
         raise _not_ported("a film crop window")
     w = int(film_spec.get("width", 768))
     h = int(film_spec.get("height", 576))
     rfilter = film_spec.get("rfilter", {"type": "gaussian"})
-    film = Film(width=w, height=h, rfilter=rfilter["type"] if isinstance(rfilter, dict) else str(rfilter))
+    srfs = ()
+    if film_spec.get("type") == "specfilm":
+        # the nested spectra are the channels' sensor response functions
+        srfs = tuple(parse_texture(v, device)[0] for v in film_spec.values()
+                     if isinstance(v, dict)
+                     and v.get("type") in ("regular", "irregular", "uniform", "d65"))
+        if not srfs:
+            raise ValueError("specfilm needs at least one nested spectrum (SRF)")
+    film = Film(width=w, height=h,
+                rfilter=rfilter["type"] if isinstance(rfilter, dict) else str(rfilter),
+                srfs=srfs, srf_norms=srf_norms(srfs, device))
     sampler_spec = spec.get("sampler", {})
     if sampler_spec.get("type", "independent") != "independent":
         raise _not_ported(f"sampler type {sampler_spec.get('type')!r}")
@@ -466,7 +509,7 @@ def load_dict(d, device=None, intersector="smem"):
     for shape_index, em_spec, shape_name in emitter_specs:
         if em_spec.get("type") != "area":
             raise _not_ported(f"emitter type {em_spec.get('type')!r}")
-        tex, leaf = parse_texture(em_spec.get("radiance", 1.0), device)
+        tex, leaf = parse_texture(em_spec.get("radiance", 1.0), device, emissive=True)
         e_idx = len(emitters)
         emitters.append(AreaEmitter.attach(tex, shape_index, geometry))
         param_paths.append(
@@ -478,14 +521,14 @@ def load_dict(d, device=None, intersector="smem"):
     for name, spec in env_specs:
         e_idx = len(emitters)
         if spec["type"] == "directional":
-            tex, leaf = parse_texture(spec.get("irradiance", 1.0), device)
+            tex, leaf = parse_texture(spec.get("irradiance", 1.0), device, emissive=True)
             dirn = np.asarray(spec.get("direction", [0, 0, -1]), np.float32)
             emitters.append(DirectionalEmitter(
                 irradiance=tex, scene_radius=scene_radius,
                 direction=torch.from_numpy(dirn / np.linalg.norm(dirn)).to(device)))
             param_paths.append((f"{name}.irradiance.{leaf}", ("emitters", e_idx, "irradiance", leaf)))
             continue
-        tex, leaf = parse_texture(spec.get("radiance", 1.0), device)
+        tex, leaf = parse_texture(spec.get("radiance", 1.0), device, emissive=True)
         env_emitter = e_idx
         emitters.append(ConstantEmitter(radiance=tex, scene_radius=scene_radius))
         param_paths.append((f"{name}.radiance.{leaf}", ("emitters", e_idx, "radiance", leaf)))

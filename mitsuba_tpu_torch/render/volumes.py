@@ -18,12 +18,16 @@ from ..core.transform import build_transform
 
 def _to_channels(v, n_channels):
     """[..., C] -> [..., n_channels]: a single channel is repeated, RGB
-    averaged to one."""
+    averaged to one. An rgb volume in a spectral variant raises ValueError:
+    the JAX package cannot broadcast it either."""
     c = v.shape[-1]
     if c == 1 and n_channels > 1:
         return v.expand(v.shape[:-1] + (n_channels,))
     if c == 3 and n_channels == 1:
         return v.mean(dim=-1, keepdim=True)
+    if c != n_channels:
+        raise ValueError(f"a {c}-channel volume cannot be evaluated in a "
+                         f"{n_channels}-channel variant")
     return v
 
 

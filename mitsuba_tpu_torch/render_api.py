@@ -35,25 +35,34 @@ import time
 import torch
 
 from .ad.render_ad import derive_seed_grad, prb_pass, prb_regen_px
+from .core import spectrum as spec
 from .core.rng import MASK32, RNG
 from .core.frame import cross, normalize
 from .render import mueller as mu
-from .render.film import accumulate, sample_filter_offset, stokes_major
+from .render.film import accumulate, sample_filter_offset, spectral_to_film, stokes_major
 from .render.params import traverse
 
 
-def make_wavefront(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx=0):
+def make_wavefront(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx=0,
+                   with_wavelengths=False):
     """(rng, ray, jitter): per-lane RNG streams, camera rays and in-pixel
     film offsets for lanes [lane0, lane0 + n) of a pass whose samples start
-    at pass_base."""
+    at pass_base; with_wavelengths: (rng, ray, wavelengths, wl_pdf, jitter)
+    (wavefront_for)."""
     lane_local = lane0 + torch.arange(n, dtype=torch.int64, device=scene.device)
     pix = lane_local // spp_pass
     s_local = lane_local % spp_pass
-    return wavefront_for(scene, seed, pix, pass_base + s_local, spp_total, sensor_idx)
+    return wavefront_for(scene, seed, pix, pass_base + s_local, spp_total, sensor_idx,
+                         with_wavelengths)
 
 
-def wavefront_for(scene, seed, pix, sidx, spp_total, sensor_idx=0):
-    """make_wavefront for explicit (pixel, sample index) pairs."""
+def wavefront_for(scene, seed, pix, sidx, spp_total, sensor_idx=0, with_wavelengths=False):
+    """make_wavefront for explicit (pixel, sample index) pairs. With
+    with_wavelengths it also returns each lane's wavelengths [N, 4] and
+    their pdf [N, 4], as the JAX package's make_wavefront does: hero
+    wavelengths drawn uniformly over [360, 830] nm in the spectral variants,
+    all four pinned to a radiancemeter's ``wavelength`` (pdf 1) where it is
+    set, and None, None in the other variants."""
     film = scene.film
     sensor = scene.sensors[sensor_idx]
     rng = RNG(seed, (pix * spp_total + sidx) & MASK32)
@@ -61,7 +70,7 @@ def wavefront_for(scene, seed, pix, sidx, spp_total, sensor_idx=0):
     # dims 0-1: film-plane jitter; 2-3: aperture; 4: wavelength
     jx, jy, rng = rng.next_2d()
     ax, ay, rng = rng.next_2d()
-    _, _, rng = rng.next_2d()
+    uw, _, rng = rng.next_2d()
 
     jitter = sample_filter_offset(film.rfilter, torch.stack([jx, jy], dim=-1))
     px = (pix % film.width).to(torch.float32)
@@ -69,7 +78,18 @@ def wavefront_for(scene, seed, pix, sidx, spp_total, sensor_idx=0):
     size = torch.tensor([film.width, film.height], dtype=torch.float32, device=pix.device)
     pos = (torch.stack([px, py], dim=-1) + jitter) / size
     ray = sensor.sample_ray(pos, torch.stack([ax, ay], dim=-1))
-    return rng, ray, jitter
+    if not with_wavelengths:
+        return rng, ray, jitter
+    wavelengths = wl_pdf = None
+    if scene.n_channels == 4:
+        wavelengths = spec.sample_wavelengths_hero(uw, n=4)
+        wl_pdf = spec.pdf_uniform_wavelength(wavelengths)
+        fixed = getattr(sensor, "wavelength", None)
+        if fixed is not None:
+            use_pin = fixed > 0
+            wavelengths = torch.where(use_pin, fixed, wavelengths)
+            wl_pdf = torch.where(use_pin, 1.0, wl_pdf)
+    return rng, ray, wavelengths, wl_pdf, jitter
 
 
 def warn_invalid(L, polarized=False, clamp_negative=True):
@@ -114,23 +134,40 @@ def to_sensor_mueller(ray_d, L):
     return torch.einsum("nij,ncj->nci", R, L)
 
 
-def render_lanes(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx=0):
+def render_lanes(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx=0,
+                 measure=False):
     """Radiance [n, C] (polarized: [n, C, 4] in the sensor frame) of lanes
     [lane0, lane0 + n) of a pass, and the pass's counters (n_rays,
-    n_invalid, n_negative)."""
+    n_invalid, n_negative). In the spectral variants (unpolarized), with
+    `measure` the lanes' spectra become the film's channels
+    (film.spectral_to_film); without it they stay raw, as render_1 returns
+    them."""
     scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
-    rng, ray, _ = make_wavefront(
-        scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx
+    rng, ray, wavelengths, wl_pdf, _ = make_wavefront(
+        scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx, with_wavelengths=True
     )
     active = torch.ones(n, dtype=torch.bool, device=scene.device)
-    L, aux = scene.integrator.sample(scene, rng, ray, active)
+    L, aux = scene.integrator.sample(scene, rng, ray, active, wavelengths)
     # Stokes radiance; an AOV or depth in a polarized variant is [n, C]
     stokes = scene.polarized and L.ndim == 3
     if stokes:
         L = to_sensor_mueller(ray.d, L)
     L, inv_stats = warn_invalid(
         L, stokes, clamp_negative=not getattr(scene.integrator, "signed_output", False))
+    if measure and wavelengths is not None and not scene.polarized:
+        L = spectral_to_film(scene.film, L, wavelengths, wl_pdf)
     return L, {**aux, **inv_stats}
+
+
+def regenerates(scene):
+    """Whether render takes the regenerative loop: an integrator with
+    ``regenerate``, except the surface path tracers (path, prb, prb_basic)
+    in the spectral variants, whose regenerative loop has no spectral
+    conversion at the flush; they render in plain passes, as in the JAX
+    package."""
+    integ = scene.integrator
+    return (getattr(integ, "regenerate", False)
+            and (hasattr(integ, "_bounce") or scene.n_channels != 4))
 
 
 # reconstruction filters whose film weights depend on the sample's offset:
@@ -170,7 +207,7 @@ def _passes(scene, sensor, seed, spp, spp_per_pass, seed_grad, spp_grad, stats):
                               stats)
         else:
             L, aux = render_lanes(scene, seed, 0, film.n_pixels * this_spp, done, this_spp, spp,
-                                  sensor)
+                                  sensor, measure=True)
         acc = accumulate(film, L, this_spp, acc)
         done += this_spp
         yield done, acc, aux
@@ -216,7 +253,7 @@ def render(scene, params=None, sensor=0, seed=0, spp=None, spp_per_pass=None,
     film = scene.film
     spp = spp or scene.spp
     seed_grad = derive_seed_grad(seed, seed_grad)
-    if getattr(scene.integrator, "regenerate", False):
+    if regenerates(scene):
         if getattr(scene.integrator, "is_prb", False):
             return _render_regen_prb(scene, seed, seed_grad, spp, sensor, stats)
         return _render_regen(scene, seed, spp, sensor, stats)
@@ -257,7 +294,7 @@ def render_progressive(scene, sensor=0, seed=0, spp=None, spp_per_pass=None):
     8)): the last image is render(spp_per_pass=...)'s. A regenerative
     integrator renders all its samples in one loop and yields once."""
     spp = spp or scene.spp
-    if getattr(scene.integrator, "regenerate", False):
+    if regenerates(scene):
         yield spp, render(scene, sensor=sensor, seed=seed, spp=spp)
         return
     spp_per_pass = min(spp_per_pass or max(1, spp // 8), spp)
@@ -289,7 +326,8 @@ def _one_pass_lanes(scene, seed, spp, sensor, stats=None):
     derive_seed_grad(seed), for a PRB integrator."""
     if getattr(scene.integrator, "is_prb", False):
         scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
-        return prb_pass(scene, seed, derive_seed_grad(seed), 0, spp, spp, sensor, stats=stats)
+        return prb_pass(scene, seed, derive_seed_grad(seed), 0, spp, spp, sensor, stats=stats,
+                        raw=True)
     return render_lanes(scene, seed, 0, scene.film.n_pixels * spp, 0, spp, spp, sensor)
 
 

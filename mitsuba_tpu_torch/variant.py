@@ -1,11 +1,9 @@
 """Variant selection (counterpart of mitsuba_tpu/variant.py).
 
 A variant fixes the channel layout of every spectrum the renderer carries:
-``mono`` (C=1) or ``rgb`` (C=3), and, with ``polarized``, the Stokes axis
-(radiance [..., C, 4], throughput Mueller [..., C, 4, 4]). The reference
-names of the spectral variants are recognised and refused with
-``NotImplementedError``, so a caller learns the difference between "not
-ported yet" and "misspelled".
+``mono`` (C=1), ``rgb`` (C=3) or ``spectral`` (C=4 wavelengths sampled per
+lane), and, with ``polarized``, the Stokes axis (radiance [..., C, 4],
+throughput Mueller [..., C, 4, 4]).
 """
 from __future__ import annotations
 
@@ -15,34 +13,38 @@ from dataclasses import dataclass
 _ALIASES = {
     "scalar_rgb": ("rgb", False),
     "scalar_mono": ("mono", False),
+    "scalar_spectral": ("spectral", False),
+    "scalar_spectral_polarized": ("spectral", True),
     "llvm_rgb": ("rgb", False),
     "llvm_ad_rgb": ("rgb", False),
     "llvm_ad_mono": ("mono", False),
     "llvm_mono": ("mono", False),
+    "llvm_spectral": ("spectral", False),
+    "llvm_ad_spectral": ("spectral", False),
     "llvm_ad_mono_polarized": ("mono", True),
+    "llvm_ad_spectral_polarized": ("spectral", True),
     "cuda_ad_rgb": ("rgb", False),
     "mono": ("mono", False),
     "rgb": ("rgb", False),
+    "spectral": ("spectral", False),
     "mono_polarized": ("mono", True),
     "rgb_polarized": ("rgb", True),
+    "spectral_polarized": ("spectral", True),
 }
-
-# reference names of the spectral variants, which are not ported
-_SPECTRAL_NAMES = (
-    "scalar_spectral", "scalar_spectral_polarized", "llvm_spectral",
-    "llvm_ad_spectral", "llvm_ad_spectral_polarized", "spectral",
-    "spectral_polarized",
-)
 
 
 @dataclass(frozen=True)
 class Variant:
-    color_mode: str = "rgb"      # 'mono' | 'rgb'
+    color_mode: str = "rgb"      # 'mono' | 'rgb' | 'spectral'
     polarized: bool = False
 
     @property
     def n_channels(self) -> int:
-        return {"mono": 1, "rgb": 3}[self.color_mode]
+        return {"mono": 1, "rgb": 3, "spectral": 4}[self.color_mode]
+
+    @property
+    def is_spectral(self) -> bool:
+        return self.color_mode == "spectral"
 
     @property
     def name(self) -> str:
@@ -60,8 +62,6 @@ def set_variant(*names: str) -> None:
         if name in _ALIASES:
             _current = Variant(*_ALIASES[name])
             return
-        if name in _SPECTRAL_NAMES:
-            raise NotImplementedError(f"variant {name!r} is not yet ported")
     raise ValueError(f"unknown variant(s) {names!r}; known: {sorted(_ALIASES)}")
 
 

@@ -574,3 +574,84 @@ def test_materials_prb_gradient_through_k1_equals_plain(cuda, monkeypatch):
     for k in keys:
         assert bool(torch.isfinite(g_k[k]).all()) and bool((g_k[k] != 0).all()), k
         assert float((g_k[k] - g_p[k]).abs().max()) <= 1e-6 * float(g_p[k].abs().max()), k
+
+
+# ---------------------------------------------------------------------------
+# the spectral variants
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_spectral_cbox_through_k1_equals_plain_and_repeats(cuda, monkeypatch):
+    """The spectral cbox (path, 32x32 @ 4 spp, sRGB image [32, 32, 3]) goes
+    through K1 on every closest hit, equals bit for bit the same render
+    through K1's plain version, and two renders in one process are bitwise
+    equal."""
+    mt.set_variant("spectral")
+    try:
+        s = mt.load_dict(_cbox())
+        before = K1.smem_intersect.launches
+        img = mt.render(s, spp=4, seed=0)
+        assert K1.smem_intersect.launches > before
+        again = mt.render(s, spp=4, seed=0)
+        monkeypatch.setattr(K1, "smem_intersect", K1.tri_intersect_reference)
+        plain = mt.render(s, spp=4, seed=0)
+    finally:
+        mt.set_variant("rgb")
+    assert img.shape == (32, 32, 3) and bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+    assert torch.equal(img, again) and torch.equal(img, plain)
+
+
+@pytest.mark.gpu
+def test_spectral_prb_gradient_through_k1_equals_plain(cuda, monkeypatch):
+    """A reduced spectral cbox-prb step (16x16 @ 4 spp, max_depth 8): the
+    image mean's gradient for white.reflectance.value, through the XYZ ->
+    sRGB measurement inside the PRB node, through K1 equals that of the
+    same step through K1's plain version bit for bit, and two steps in one
+    process are bitwise equal."""
+    mt.set_variant("spectral")
+    try:
+        d = _cbox(16)
+        d["integrator"] = {"type": "prb", "max_depth": 8}
+        scene = mt.load_dict(d)
+        keys = ["white.reflectance.value"]
+
+        def loss(s):
+            return mt.render(s, spp=4, seed=0).mean()
+
+        out_k, g_k, launches = _prb_grads(scene, keys, loss)
+        assert min(launches) > 0, launches
+        out_2, g_2, _ = _prb_grads(scene, keys, loss)
+        monkeypatch.setattr(K1, "smem_intersect", K1.tri_intersect_reference)
+        out_p, g_p, _ = _prb_grads(scene, keys, loss)
+    finally:
+        mt.set_variant("rgb")
+    g = g_k[keys[0]]
+    assert bool(torch.isfinite(g).all()) and bool((g != 0).all())
+    assert torch.equal(out_k, out_2) and torch.equal(g, g_2[keys[0]])
+    assert torch.equal(out_k, out_p) and torch.equal(g, g_p[keys[0]])
+
+
+@pytest.mark.gpu
+def test_spectral_atmo_render_1_through_k1_equals_plain(cuda, monkeypatch):
+    """BASELINE config 4 in spectral_polarized at a 16x16 film @ 16 spp:
+    render_1's raw Stokes [4, 4] (the radiancemeter's 550 nm on all four
+    channels) goes through K1, equals the plain route's bit for bit, two
+    calls in one process are bitwise equal, and it is within 1e-5 of I of
+    the same render on the CPU."""
+    mt.set_variant("spectral_polarized")
+    try:
+        d = mt.atmo_scene(res=16, spp=16)
+        s = mt.load_dict(d)
+        before = K1.smem_intersect.launches
+        st = mt.render_1(s, spp=16, seed=0)
+        assert K1.smem_intersect.launches > before
+        again = mt.render_1(s, spp=16, seed=0)
+        cpu = mt.render_1(mt.load_dict(d, device="cpu"), spp=16, seed=0)
+        monkeypatch.setattr(K1, "smem_intersect", K1.tri_intersect_reference)
+        plain = mt.render_1(s, spp=16, seed=0)
+    finally:
+        mt.set_variant("rgb")
+    assert st.shape == (4, 4) and bool(torch.isfinite(st).all()) and float(st[0, 0]) > 0
+    assert torch.equal(st, again) and torch.equal(st, plain)
+    assert bool((st == st[:, :1]).all())
+    assert float((st.cpu() - cpu).abs().max()) <= 1e-5 * float(cpu[0, 0])

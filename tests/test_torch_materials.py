@@ -22,7 +22,9 @@ bits a chain of reflections inside the glass box amplifies until a path
 turns elsewhere (run op by op, with jax.disable_jit(), those paths are the
 port's). At depth 8, 7 of the 1,024 materials lanes differ. So the
 per-lane checks hold 99% of the lanes at depth 8, and the gradients are
-taken at max_depth 4, where no lane's path differs.
+taken at max_depth 4, where no lane's path differs. On the CPU the port's
+own transcendental functions part a few deep lanes more
+(test_last_place_of_sin_parts_a_deep_lane).
 """
 import numpy as np
 import jax
@@ -150,6 +152,56 @@ def test_coplanar_floor_ties_split_by_rounding():
     print(f"{int(split.sum())} of {n} rays hit the other coplanar shape")
     assert 0 < split.sum() < n // 4
 
+
+
+def test_last_place_of_sin_parts_a_deep_lane():
+    """The standing difference behind the CPU port's materials-prb gradient
+    at max_depth 8 (ROADMAP Queue 3): one lane of the 64x64 @ 16 spp
+    backward pass (pixel 269, sample 13, at seed_grad of seed 0), traced
+    alone. Up to max_depth 7 the port's radiance is the JAX package's run
+    op by op to the bit; at max_depth 8 its last bounce reaches another
+    point (radiance 0.0719 against 0.0684 in red). With torch.sin rounded
+    correctly (through float64) the port's lane is the JAX package's again:
+    PyTorch's vectorized CPU sin misses the correctly rounded value by one
+    place for one of the lane's arguments, and the path amplifies it. On
+    the whole pass 75 of 65,536 lanes part so (53 with every
+    transcendental function rounded correctly: XLA's own functions and
+    products differ in other last places); the roulette weights the
+    surviving deep paths by 1/q, so those lanes move the gradient by 8%,
+    as XLA's FMAs move the JAX package's own jitted gradient 7% from its
+    op-by-op one (scripts/torch_materials_parting.py)."""
+    from mitsuba_tpu.render_api import wavefront_for as j_wavefront_for
+    from mitsuba_tpu_torch.ad.render_ad import derive_seed_grad
+    from mitsuba_tpu_torch.render_api import wavefront_for as t_wavefront_for
+
+    _variant("rgb")
+    seed = derive_seed_grad(0)
+    pix, sidx = np.array([269]), np.array([13])
+
+    def lane(max_depth, sin=torch.sin, jax_too=True):
+        d = mt.materials_scene(64, 16, {"type": "path", "max_depth": max_depth})
+        ts = mt.load_dict(d, device="cpu")
+        rng, ray, _ = t_wavefront_for(ts, seed, torch.from_numpy(pix), torch.from_numpy(sidx), 16)
+        saved, torch.sin = torch.sin, sin
+        try:
+            Lt, _ = ts.integrator.sample(ts, rng, ray, torch.ones(1, dtype=torch.bool))
+        finally:
+            torch.sin = saved
+        if not jax_too:
+            return Lt.numpy()[0], None
+        js = mj.load_dict(d)
+        with jax.disable_jit():
+            r, ry, wl, _, _ = j_wavefront_for(js, jnp.uint32(seed), jnp.asarray(pix, jnp.uint32),
+                                              jnp.asarray(sidx, jnp.uint32), jnp.uint32(16), 0)
+            Lj, _ = js.integrator.sample(js, r, ry, wl, jnp.ones(1, bool))
+        return Lt.numpy()[0], np.asarray(Lj)[0]
+
+    t7, j7 = lane(7)
+    np.testing.assert_array_equal(t7, j7)
+    t8, j8 = lane(8)
+    assert abs(float(t8[0] - j8[0])) > 1e-3
+    t8_rn, _ = lane(8, lambda x, sin=torch.sin: sin(x.double()).float(), jax_too=False)
+    np.testing.assert_array_equal(t8_rn, j8)
 
 @pytest.mark.parametrize("integrator", [
     {"type": "direct"},

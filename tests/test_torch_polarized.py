@@ -91,19 +91,18 @@ def _pair(a):
 # ---------------------------------------------------------------------------
 
 def test_variants_set_the_channel_layout():
-    """mono, mono_polarized and rgb_polarized under their reference names;
-    the spectral names are refused as not yet ported."""
+    """mono, mono_polarized, rgb_polarized and the spectral variants
+    (C = 4 wavelengths) under their reference names."""
     for name, nc, pol in (("mono", 1, False), ("llvm_ad_mono", 1, False),
                           ("mono_polarized", 1, True), ("llvm_ad_mono_polarized", 1, True),
-                          ("rgb_polarized", 3, True), ("scalar_rgb", 3, False)):
+                          ("rgb_polarized", 3, True), ("scalar_rgb", 3, False),
+                          ("spectral", 4, False), ("spectral_polarized", 4, True),
+                          ("llvm_ad_spectral", 4, False)):
         mt.set_variant(name)
         mj.set_variant(name)
         v = mt.current_variant()
         assert (v.n_channels, v.polarized) == (nc, pol)
         assert mt.variant() == mj.variant()
-    for name in ("spectral", "spectral_polarized", "llvm_ad_spectral"):
-        with pytest.raises(NotImplementedError):
-            mt.set_variant(name)
     with pytest.raises(ValueError):
         mt.set_variant("no_such_variant")
 

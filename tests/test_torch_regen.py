@@ -111,12 +111,18 @@ def test_regen_matches_standard_and_jax(name, jax_regen):
 
 
 def test_regen_refusals():
-    """What regeneration still refuses: the spectral variants, which are not
-    ported. The PRB integrators (prb, prb_basic) and the polarized variants
-    take ``regenerate`` and render with it (their gradients:
-    tests/test_torch_regen_prb.py)."""
-    with pytest.raises(NotImplementedError):
-        mt.set_variant("spectral")
+    """Regeneration refuses nothing any more: the PRB integrators (prb,
+    prb_basic), the polarized and the spectral variants take
+    ``regenerate`` and render with it (their gradients:
+    tests/test_torch_regen_prb.py, tests/test_torch_spectral_regen.py); in
+    spectral the surface path tracer renders its plain passes, as the JAX
+    package's does."""
+    mt.set_variant("spectral")
+    try:
+        img = mt.render(mt.load_dict(cbox(True), device="cpu"), spp=2, seed=0)
+    finally:
+        mt.set_variant("rgb")
+    assert img.shape == (W, W, 3) and bool(torch.isfinite(img).all())
     for t in ("prb", "prb_basic"):
         d = cbox(True)
         d["integrator"]["type"] = t
