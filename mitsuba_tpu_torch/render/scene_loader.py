@@ -6,12 +6,15 @@ Accepted plugin types: ``scene``; the ``path``, ``prb``, ``prb_basic``,
 ``volpathaos``, ``prb_volpathaos``, ``direct``, ``depth``, ``aov``,
 ``stokes`` and ``moment`` integrators; the ``perspective`` and ``radiancemeter``
 (with an optional ``wavelength``) sensors with an ``independent`` sampler
-and an ``hdrfilm`` with a ``gaussian``, ``box`` or ``tent`` filter; the
+and an ``hdrfilm`` (or a ``specfilm``, whose nested spectra are its
+channels' sensor response functions) with a ``gaussian``, ``box`` or
+``tent`` filter; the
 ``diffuse``, ``null``, ``dielectric``, ``thindielectric``, ``roughdielectric``,
 ``conductor``, ``roughconductor`` (a ``material`` preset or ``eta`` and
 ``k``), ``roughplastic``, ``pplastic``, ``polarizer``, ``circular``,
-``retarder``, ``twosided``, ``mask`` and ``blendbsdf`` BSDFs with ``rgb``
-or scalar textures (``normalmap``, ``bumpmap``, ``plastic`` and the
+``retarder``, ``twosided``, ``mask`` and ``blendbsdf`` BSDFs with ``rgb``,
+scalar or spectrum (``uniform``, ``singleton``, ``d65``, ``blackbody``,
+``regular``, ``irregular``) textures (``normalmap``, ``bumpmap``, ``plastic`` and the
 principled, measured and hair BSDFs raise ``NotImplementedError``);
 ``rectangle``, ``cube``, ``obj``, ``ply`` and
 raw-array ``mesh`` shapes, with an ``interior`` and ``exterior`` medium;
@@ -25,7 +28,8 @@ raises ``NotImplementedError``: it is not yet ported (``serialized`` and
 ``blender`` meshes among them).
 
 The scene takes the channel count and polarization of the current variant
-(``set_variant``): ``mono`` scenes carry one channel, ``rgb`` three.
+(``set_variant``): ``mono`` scenes carry one channel, ``rgb`` three,
+``spectral`` four wavelengths a lane.
 
 An ``obj`` or ``ply`` ``filename`` is an absolute path or one relative to
 the working directory: the reference's file-resolver search path is not

@@ -38,9 +38,10 @@ class PerspectiveCamera:
 @dataclass
 class RadiancemeterSensor:
     """A single-direction radiance probe: every film sample shares one ray
-    origin and direction. ``wavelength`` (<= 0: unset) pins the lanes'
-    wavelength in the spectral variants, which are not yet ported; in the
-    mono and rgb variants it changes nothing, as in the reference."""
+    origin and direction. ``wavelength`` (<= 0: unset) pins all four of
+    each lane's wavelengths in the spectral variants, with pdf 1
+    (render_api.wavefront_for); in the mono and rgb variants it changes
+    nothing, as in the reference."""
 
     to_world_m: torch.Tensor   # [4,4]
     wavelength: torch.Tensor   # []
