@@ -290,6 +290,8 @@ SPECTRAL_RTOL = 1e-3
 SPECTRAL_RENDERS = 2
 SPECTRAL_ATMO_PASSES = 2
 SPECTRAL_REGEN_RES, SPECTRAL_REGEN_SPP = 32, 8
+# an rgb environment, whose upsampled spectrum differs between wavelengths
+SPECTRAL_REGEN_RADIANCE = {"type": "rgb", "value": [0.4, 1.0, 1.6]}
 MATERIALS_RES, MATERIALS_SPP, MATERIALS_PASSES = 256, 64, 2
 MATERIALS_PRB_KEYS = ("large-box.bsdf.alpha", "floor.bsdf.weight.value")
 POLARIMETER_SPP_PER_PASS, POLARIMETER_RENDERS = 16, 1
@@ -2085,9 +2087,10 @@ def phase_vol32_regen_prb(mi, K1, K2, K3):
                 k1_bitwise_vs_plain=bitwise, k1_step_ms=k_ms, k1_step_bound_ms=b_ms)
 
 
-def rayleigh_slab(mi, integrator, regenerate, res, spp):
+def rayleigh_slab(mi, integrator, regenerate, res, spp, radiance=1.0):
     """tests/test_regen.py:221-245's polarized scene: a thin Rayleigh slab
-    (sigma_t 1, albedo 0.9) under a constant environment, max_depth 4."""
+    (sigma_t 1, albedo 0.9) under a constant environment of `radiance`,
+    max_depth 4."""
     return mi.load_dict({
         "type": "scene",
         "integrator": {"type": integrator, "max_depth": 4, "regenerate": regenerate},
@@ -2097,7 +2100,7 @@ def rayleigh_slab(mi, integrator, regenerate, res, spp):
                    "film": {"type": "hdrfilm", "width": res, "height": res,
                             "rfilter": {"type": "box"}},
                    "sampler": {"type": "independent", "sample_count": spp}},
-        "light": {"type": "constant", "radiance": 1.0},
+        "light": {"type": "constant", "radiance": radiance},
         "slab": {"type": "cube", "to_world": [{"type": "scale", "value": [1.0, 1.0, 0.3]}],
                  "bsdf": {"type": "null"},
                  "interior": {"type": "homogeneous", "sigma_t": 1.0, "albedo": 0.9,
@@ -2105,15 +2108,18 @@ def rayleigh_slab(mi, integrator, regenerate, res, spp):
     })
 
 
-def regen_vs_wavefront_step(mi, K1, name, make, keys, spp):
+def regen_vs_wavefront_step(mi, K1, name, make, keys, spp, held=None):
     """One regenerative PRB step of make(True) and one wavefront step of
     make(False) at the same seeds, each through K1 alone: the gradients
     against each other (REGEN_GRAD_RTOL); K1's launches of the
-    regenerative step."""
+    regenerative step. With a list `held`, every K1 launch of the
+    regenerative step is held bit for bit against the plain version
+    (k1_held_to_plain) instead of only forbidding the plain route."""
     images = []
     loss = image_loss(images, spp)
     before = K1.smem_intersect.launches
-    with no_plain_closest_hit(K1, name):
+    guard = no_plain_closest_hit(K1, name) if held is None else k1_held_to_plain(K1, held)
+    with guard:
         _, grads, stats, wall, _ = prb_vol_step(mi, make(True), keys, loss, 0)
     k1 = K1.smem_intersect.launches - before
     _, grads_w, _, wall_w, _ = prb_vol_step(mi, make(False), keys, loss, 0)
@@ -2668,34 +2674,40 @@ def phase_atmo_spectral(mi, K1, K2, K3):
 
 def phase_spectral_regen(mi, K1, K2, K3):
     """Reduced regeneration in spectral on the Rayleigh slab
-    (SPECTRAL_REGEN_RES^2 @ SPECTRAL_REGEN_SPP): the regenerative volpath
-    render (the sRGB conversion at each flush) with every K1 launch held
-    bit for bit, against the wavefront render (REGEN_RTOL / REGEN_ATOL); the
-    regenerative prbvolpath step (the conversion's adjoint at each sample's
-    primal radiance and wavelengths) against the wavefront step
-    (REGEN_GRAD_RTOL)."""
-    res, spp = SPECTRAL_REGEN_RES, SPECTRAL_REGEN_SPP
+    (SPECTRAL_REGEN_RES^2 @ SPECTRAL_REGEN_SPP) under an rgb environment
+    (SPECTRAL_REGEN_RADIANCE, so the emitted spectrum differs from one
+    wavelength to another): the regenerative volpath render (the sRGB
+    conversion at each flush) against the wavefront render (REGEN_RTOL /
+    REGEN_ATOL); the regenerative prbvolpath step (the conversion's adjoint
+    at each sample's primal radiance and wavelengths) against the wavefront
+    step (REGEN_GRAD_RTOL). Every K1 launch of the regenerative render and
+    of the regenerative step is held bit for bit against the plain
+    version."""
+    res, spp, rad = SPECTRAL_REGEN_RES, SPECTRAL_REGEN_SPP, SPECTRAL_REGEN_RADIANCE
     mi.set_variant("spectral")
     try:
         name = f"spectral-regen Rayleigh slab volpath {res}x{res} @ {spp} spp"
         held = []
         before = K1.smem_intersect.launches
         with k1_held_to_plain(K1, held):
-            img_r, wall_r = render_timed(mi, rayleigh_slab(mi, "volpath", True, res, spp), spp,
-                                         0)
+            img_r, wall_r = render_timed(
+                mi, rayleigh_slab(mi, "volpath", True, res, spp, rad), spp, 0)
         k1 = K1.smem_intersect.launches - before
         bitwise = k1_held_summary(name, held)
-        img_w, wall_w = render_timed(mi, rayleigh_slab(mi, "volpath", False, res, spp), spp, 0)
+        img_w, wall_w = render_timed(mi, rayleigh_slab(mi, "volpath", False, res, spp, rad),
+                                     spp, 0)
         close = torch.isclose(img_r, img_w, rtol=REGEN_RTOL, atol=REGEN_ATOL)
         log(f"== {name}: regenerative {wall_r:.3f} s (K1 held), wavefront {wall_w:.3f} s, K1 "
             f"launches {k1}, image {tuple(img_r.shape)}: {close.float().mean().item():.5%} of "
             f"values within rtol {REGEN_RTOL} / atol {REGEN_ATOL} of the wavefront image")
         if k1 == 0 or not bool(close.all()) or tuple(img_r.shape) != (res, res, 3):
             raise AssertionError(f"{name}: the regenerative image differs")
+        name_prb = f"spectral-regen Rayleigh slab {res}x{res} @ {spp} spp, prbvolpath"
+        held_prb = []
         prb = regen_vs_wavefront_step(
-            mi, K1, f"spectral-regen Rayleigh slab {res}x{res} @ {spp} spp, prbvolpath",
-            lambda r: rayleigh_slab(mi, "prbvolpath", r, res, spp),
-            ["slab.interior_medium.albedo.value.value"], spp)
+            mi, K1, name_prb, lambda r: rayleigh_slab(mi, "prbvolpath", r, res, spp, rad),
+            ["slab.interior_medium.albedo.value.value"], spp, held_prb)
+        prb["k1_bitwise_vs_plain"] = k1_held_summary(f"{name_prb} regenerative step", held_prb)
     finally:
         mi.set_variant("rgb")
     return dict(volpath=dict(wall=wall_r, wavefront_wall=wall_w, k1=k1,
@@ -2883,7 +2895,9 @@ def main():
                         "cbox render": spectral["k1_bitwise_vs_plain"],
                         "cbox-prb step": spectral_prb["k1_bitwise_vs_plain"],
                         "atmo-spectral pass": atmo_spectral["k1_bitwise_vs_plain"],
-                        "regen volpath render": spectral_regen["volpath"]["k1_bitwise_vs_plain"]},
+                        "regen volpath render": spectral_regen["volpath"]["k1_bitwise_vs_plain"],
+                        "regen prbvolpath step":
+                            spectral_regen["prbvolpath"]["k1_bitwise_vs_plain"]},
                     spectral_render_ms=spectral["k1_render_ms"],
                     spectral_render_back_to_back_ms=spectral["k1_render_back_to_back_ms"],
                     spectral_render_bound_ms=spectral["k1_render_bound_ms"],

@@ -177,8 +177,8 @@ def srgb_to_spectral_coeff(rgb):
     i = torch.argmax(rgb, dim=-1)
     z = torch.gather(rgb, -1, i[..., None])[..., 0]
     # a true division (a Python number over a tensor is a reciprocal and
-    # a product in PyTorch)
-    sc = torch.div(torch.tensor(float(res - 1), device=dev), torch.clamp(z, min=1e-10))
+    # a product in PyTorch), with no host-to-device copy of the numerator
+    sc = torch.full_like(z, float(res - 1)) / torch.clamp(z, min=1e-10)
     x = torch.gather(rgb, -1, ((i + 1) % 3)[..., None])[..., 0] * sc
     y = torch.gather(rgb, -1, ((i + 2) % 3)[..., None])[..., 0] * sc
     # float -> int truncates toward 0, as astype(int32) does on these
@@ -224,8 +224,9 @@ def blackbody_radiance(wl_nm, temperature):
     c = 2.99792458e8
     kb = 1.380649e-23
     lam = wl_nm * 1e-9
-    hc = torch.tensor(h * c, dtype=torch.float32, device=lam.device)
-    num = torch.tensor(2 * h * c * c, dtype=torch.float32, device=lam.device)
+    # true divisions by float32 constants made on lam's device (no copy)
+    hc = torch.full_like(lam, h * c)
+    num = torch.full_like(lam, 2 * h * c * c)
     p = num / (lam ** 5 * (torch.exp(hc / (lam * kb * temperature)) - 1.0))
     return p * 1e-9
 

@@ -135,13 +135,13 @@ def to_sensor_mueller(ray_d, L):
 
 
 def render_lanes(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx=0,
-                 measure=False):
+                 raw=False):
     """Radiance [n, C] (polarized: [n, C, 4] in the sensor frame) of lanes
     [lane0, lane0 + n) of a pass, and the pass's counters (n_rays,
-    n_invalid, n_negative). In the spectral variants (unpolarized), with
-    `measure` the lanes' spectra become the film's channels
-    (film.spectral_to_film); without it they stay raw, as render_1 returns
-    them."""
+    n_invalid, n_negative). In the spectral variants (unpolarized) the
+    lanes' spectra become the film's channels (film.spectral_to_film);
+    with `raw` they stay the wavelength channels, as render_1 returns them
+    (the same flag as prb_pass's)."""
     scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
     rng, ray, wavelengths, wl_pdf, _ = make_wavefront(
         scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx, with_wavelengths=True
@@ -154,7 +154,7 @@ def render_lanes(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_i
         L = to_sensor_mueller(ray.d, L)
     L, inv_stats = warn_invalid(
         L, stokes, clamp_negative=not getattr(scene.integrator, "signed_output", False))
-    if measure and wavelengths is not None and not scene.polarized:
+    if not raw and wavelengths is not None and not scene.polarized:
         L = spectral_to_film(scene.film, L, wavelengths, wl_pdf)
     return L, {**aux, **inv_stats}
 
@@ -207,7 +207,7 @@ def _passes(scene, sensor, seed, spp, spp_per_pass, seed_grad, spp_grad, stats):
                               stats)
         else:
             L, aux = render_lanes(scene, seed, 0, film.n_pixels * this_spp, done, this_spp, spp,
-                                  sensor, measure=True)
+                                  sensor)
         acc = accumulate(film, L, this_spp, acc)
         done += this_spp
         yield done, acc, aux
@@ -328,7 +328,7 @@ def _one_pass_lanes(scene, seed, spp, sensor, stats=None):
         scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
         return prb_pass(scene, seed, derive_seed_grad(seed), 0, spp, spp, sensor, stats=stats,
                         raw=True)
-    return render_lanes(scene, seed, 0, scene.film.n_pixels * spp, 0, spp, spp, sensor)
+    return render_lanes(scene, seed, 0, scene.film.n_pixels * spp, 0, spp, spp, sensor, raw=True)
 
 
 def render_test(scene, params=None, sensor=0, seed=0, spp=None, sensor_count=1):

@@ -19,7 +19,6 @@ import torch
 
 import mitsuba_tpu as mj
 from mitsuba_tpu.core import spectrum as JS
-from mitsuba_tpu.render_api import make_wavefront as j_make_wavefront
 from mitsuba_tpu.render_api import render_lanes as j_render_lanes
 
 import mitsuba_tpu_torch as mt
@@ -73,6 +72,21 @@ def cbox(integrator, w=W, max_depth=4):
     return d
 
 
+@pytest.fixture(scope="module")
+def jax_cbox_lanes():
+    """(L [N, 4], wavelengths, wl_pdf, aux) of one pass of the JAX
+    package's spectral cbox (path max_depth 4, 16x16 @ 4 spp, seed 0), its
+    render_lanes compiled with the scene closed over, shared by the tests
+    of this file."""
+    mj.set_variant("spectral")
+    try:
+        js = mj.load_dict(cbox("path"))
+        out = jax.jit(lambda s: j_render_lanes(js, s, 0, N, 0, SPP, SPP, 0))(jnp.uint32(0))
+        return tuple(np.asarray(x) for x in out[:3]) + (out[3],)
+    finally:
+        mj.set_variant("rgb")
+
+
 # ---------------------------------------------------------------------------
 # core/spectrum.py
 # ---------------------------------------------------------------------------
@@ -82,6 +96,7 @@ def test_rgb2spec_matches_jax():
     rows, with their +-inf, exactly) and the model's values within 1e-6 of
     the JAX package's, on 4,096 seeded rgb triples and wavelengths."""
     rgb, wl = _inputs()
+    # op by op: the compiled fetch rounds some rows differently
     cj = np.asarray(JS.srgb_to_spectral_coeff(jnp.asarray(rgb)))
     ct = TS.srgb_to_spectral_coeff(torch.from_numpy(rgb)).numpy()
     np.testing.assert_array_equal(ct[:18], cj[:18])
@@ -151,7 +166,7 @@ def test_monochromatic_rgb2spec_gradient_matches_jax():
     def jf(x):
         return JS.rgb_reflectance_eval(jnp.stack([x, x, x], -1)[None, None, :], wl)[0, 0]
 
-    gj = np.asarray(jax.vmap(jax.grad(jf))(jnp.asarray(v)))
+    gj = np.asarray(jax.jit(jax.vmap(jax.grad(jf)))(jnp.asarray(v)))
     x = torch.from_numpy(v).requires_grad_()
     TS.rgb_reflectance_eval(torch.stack([x, x, x], -1)[:, None, :],
                             torch.from_numpy(wl)).sum().backward()
@@ -161,18 +176,17 @@ def test_monochromatic_rgb2spec_gradient_matches_jax():
     np.testing.assert_allclose(gt, gj, rtol=1e-5)
 
 
-def test_hero_wavelengths_bitwise_jax():
+def test_hero_wavelengths_bitwise_jax(jax_cbox_lanes):
     """The hero wavelengths and their pdf of a spectral pass's lanes equal
-    the JAX package's bit for bit (its make_wavefront compiled, as its
+    the JAX package's bit for bit (its render_lanes compiled, as its
     renders run it); a radiancemeter's wavelength pins all four, pdf 1."""
     _variant("spectral")
     d = cbox("path")
-    js, ts = mj.load_dict(d), mt.load_dict(d, device="cpu")
-    _, _, wj, pj, _ = jax.jit(lambda s: j_make_wavefront(js, s, 0, N, 0, SPP, SPP, 0))(
-        jnp.uint32(5))
-    _, _, wt, pt, _ = t_make_wavefront(ts, 5, 0, N, 0, SPP, SPP, with_wavelengths=True)
-    np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
-    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    ts = mt.load_dict(d, device="cpu")
+    _, wj, pj, _ = jax_cbox_lanes
+    _, _, wt, pt, _ = t_make_wavefront(ts, 0, 0, N, 0, SPP, SPP, with_wavelengths=True)
+    np.testing.assert_array_equal(wt.numpy(), wj)
+    np.testing.assert_array_equal(pt.numpy(), pj)
     assert float(wt.min()) >= 360.0 and float(wt.max()) < 830.0
     _variant("spectral_polarized")
     ts = mt.load_dict(mt.atmo_scene(res=4, spp=4), device="cpu")
@@ -187,28 +201,26 @@ def test_hero_wavelengths_bitwise_jax():
 # the slice: the spectral cbox, its PRB gradient, config 4
 # ---------------------------------------------------------------------------
 
-def test_spectral_cbox_matches_jax():
+def test_spectral_cbox_matches_jax(jax_cbox_lanes):
     """The spectral cbox at 16x16 @ 4 spp, path max_depth 4: every lane's
     raw spectral radiance [N, 4] within rtol 1e-4, atol 1e-5 of the JAX
     package's (tests/test_torch_render.py's cbox bound; no lane parts),
-    n_rays equal, and the sRGB image [16, 16, 3] within the same bound."""
+    n_rays equal, and the sRGB image [16, 16, 3] finite and lit (the
+    image against the JAX package's: test_spectral_prb_gradient_matches_jax)."""
     _variant("spectral")
-    d = cbox("path")
-    js, ts = mj.load_dict(d), mt.load_dict(d, device="cpu")
-    Lj, _, _, aux_j = jax.jit(lambda s: j_render_lanes(js, s, 0, N, 0, SPP, SPP, 0))(
-        jnp.uint32(0))
-    Lt, aux_t = t_render_lanes(ts, 0, 0, N, 0, SPP, SPP, 0)
+    ts = mt.load_dict(cbox("path"), device="cpu")
+    Lj, _, _, aux_j = jax_cbox_lanes
+    Lt, aux_t = t_render_lanes(ts, 0, 0, N, 0, SPP, SPP, 0, raw=True)
     assert Lt.shape == (N, 4)
-    np.testing.assert_allclose(Lt.numpy(), np.asarray(Lj), **LANE_TOL)
+    np.testing.assert_allclose(Lt.numpy(), Lj, **LANE_TOL)
     assert int(aux_t["n_rays"]) == int(float(aux_j["n_rays"]))
-    img_j = np.asarray(mj.render(js, spp=SPP, seed=0))
     img_t = mt.render(ts, spp=SPP, seed=0).numpy()
-    assert img_t.shape == (W, W, 3) and img_t.mean() > 0
-    np.testing.assert_allclose(img_t, img_j, **LANE_TOL)
+    assert img_t.shape == (W, W, 3) and np.isfinite(img_t).all() and img_t.mean() > 0
 
 
 def test_spectral_prb_gradient_matches_jax():
-    """The spectral cbox with prb (16x16 @ 4 spp, max_depth 4): the loss,
+    """The spectral cbox with prb (16x16 @ 4 spp, max_depth 4): the sRGB
+    image [16, 16, 3] within the cbox bound of the JAX package's, the loss,
     the mean of the sRGB image, within 1e-5 and its gradient for
     white.reflectance.value within GRAD_RTOL of jax.jit(jax.value_and_grad)
     of the JAX package's; the gradient goes through the XYZ -> sRGB
@@ -232,6 +244,8 @@ def test_spectral_prb_gradient_matches_jax():
     img_t = mt.render(p.update({key: v}), spp=SPP, seed=0, stats=st)
     img_t.mean().backward()
     np.testing.assert_allclose(float(img_t.detach().mean()), float(lj), rtol=1e-5)
+    assert img_t.shape == (W, W, 3)
+    np.testing.assert_allclose(img_t.detach().numpy(), np.asarray(img_j), **LANE_TOL)
     np.testing.assert_allclose(v.grad.numpy(), np.asarray(gj), rtol=GRAD_RTOL)
     assert st["n_rays_grad"] > st["n_rays"] > 0
 
@@ -293,8 +307,9 @@ def _env_scene(film):
 def test_specfilm_band_integration():
     """tests/test_plugins_extra.py:191-220 in the port: two flat SRFs
     (1 and 0.5) under a uniform emitter both give the emitter's radiance
-    (rtol 0.02); and a 2-SRF film (a regular green band, a flat one) on
-    the spectral cbox within the cbox bound of the JAX package's image."""
+    (rtol 0.02); a 2-SRF film (a regular green band, a flat one) has the
+    JAX package's SRF norms (its render against the JAX package's:
+    tests/test_torch_spectral_regen.py)."""
     _variant("spectral")
     film = {"type": "specfilm", "width": 8, "height": 8, "rfilter": {"type": "box"},
             "band_flat": {"type": "uniform", "value": 1.0},
@@ -310,10 +325,8 @@ def test_specfilm_band_integration():
                            "band_flat": {"type": "uniform", "value": 1.0}}
     js, ts = mj.load_dict(d), mt.load_dict(d, device="cpu")
     np.testing.assert_allclose(ts.film.srf_norms, js.film.srf_norms, rtol=1e-5)
-    img_j = np.asarray(mj.render(js, spp=SPP, seed=2))
     img_t = mt.render(ts, spp=SPP, seed=2).numpy()
-    assert img_t.shape == (8, 8, 2)
-    np.testing.assert_allclose(img_t, img_j, **LANE_TOL)
+    assert img_t.shape == (8, 8, 2) and np.isfinite(img_t).all() and img_t.mean() > 0
 
 
 SPECTRA = {
