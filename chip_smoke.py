@@ -71,7 +71,22 @@ user entry points, and checks that each went through its kernels:
   optics checked (DoLP behind the polarizer, V behind the retarder); its
   PRB step (prb_polarized, reduced to 64x64 @ 16 spp) for the plastic's
   diffuse reflectance; and the direct, depth, aov and moment integrators
-  on the materials scene at 256x256 @ 64 spp.
+  on the materials scene at 256x256 @ 64 spp;
+- the last integrators and the visibility gradients, through K1: the
+  particle tracer (ptracer) on the cbox at 256x256 @ 64 spp (4,194,304
+  particles, max_depth 8), its mean below the light held against path's;
+  volpathmis on the het-vol configuration (96x96 @ 16 spp), its means
+  against volpath's, and tests/test_volpathmis.py's furnace; the
+  projective gradients (prb_projective on the cbox at 256x256, max_depth 4,
+  the small box scaled; direct_projective on tests/test_projective.py's
+  silhouette and point-shadow scenes and on a flat cube), each held
+  against central differences, the flat cube's one vertex copy against a
+  one-sided difference, with every K1 launch of an AD step bitwise against
+  the plain version and every K1 backward (hit_vjp) against torch.func.vjp
+  of the plain Moller-Trumbore; and the two physics golds
+  (tests/test_rayleigh_slab_gold.py in mono_polarized at 16,384 spp,
+  tests/test_chandrasekhar_gold.py in mono at 8,192 spp), each within its
+  test's bound.
 
 Any failure raises and exits non-zero.
 
@@ -90,6 +105,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -2714,6 +2730,614 @@ def phase_spectral_regen(mi, K1, K2, K3):
                              k1_bitwise_vs_plain=bitwise), prbvolpath=prb)
 
 
+# ---------------------------------------------------------------------------
+# the last integrators (ptracer, volpathmis), the projective boundary
+# gradients of moving meshes and the two physics golds
+# ---------------------------------------------------------------------------
+
+PTRACER_SPP, PTRACER_DEPTH = 64, 8
+# tests/test_ptracer.py skips the light fixture's rows, 6 of 24: here the
+# top quarter, 64 of 256; the rest's mean within 5% of path's
+PTRACER_SKIP_ROWS, PTRACER_MEAN_RTOL = 64, 0.05
+VOLPATHMIS_MEAN_RTOL = 0.02
+FURNACE_SIGMA, FURNACE_RTOL = [4.0, 1.0, 0.08], 0.03
+PROJ_SPP, PROJ_FD_SPP, PROJ_FD_EPS, PROJ_SEEDS = 64, 256, 1e-2, (7, 11)
+# tests/test_projective.py's bounds against central differences; the cube
+# (a closed mesh whose faces do not share vertices) takes the silhouette's.
+# The cbox's gradient is not held to its central difference: the JAX
+# package's estimator, which the port follows, has no term for the creases
+# of a flat-shaded mesh (the box's edges between two faces the camera sees,
+# across which the shading jumps), and the cbox's boxes are all creases
+# (PERF.md, ROADMAP Queue 3); its AD and FD are printed side by side
+PROJ_RTOL = {"cbox": None, "silhouette": 0.08, "shadow": 0.12, "cube": 0.08}
+# the flat cube's one vertex copy moved alone (cube_copy_check): the step
+# in world units (~0.16 px), AD over 8 seeds, FD at 2,048 spp, held within
+# the silhouette's 8% (2.1% on the CPU at these settings)
+PROJ_COPY_EPS, PROJ_COPY_FD_SPP, PROJ_COPY_RTOL = 1e-2, 2048, 0.08
+PROJ_COPY_SEEDS = (7, 11, 13, 17, 19, 23, 29, 31)
+# The JAX package's d sum(image) / d scale of the cbox's small box
+# (scale_offset) at 64x64, prb_projective max_depth 4, spp 16, seed 7, on
+# the port's edge tables (the JAX geometry's edge_v, edge_f and edge_shape
+# replaced by mitsuba_tpu_torch's welded ones: ROADMAP's standing
+# differences), computed once with mitsuba_tpu on the CPU
+# (XLA_FLAGS=--xla_backend_optimization_level=1):
+# jax.jit(jax.grad(loss))(0.0), loss(t) = sum(mi.render(_tree_set(scene,
+# path, base + t * off), spp=16, seed=7)), for (sppp, sppi) = (0, 0), the
+# interior term (the PRB node and the tape pass); (4, 0), with the primary
+# silhouettes; (4, 4), the whole, with the indirect pass (17.1, 29.9 and
+# 35.1 s). The port on the CPU (cbox64_held_to_jax): -19.290163040161133,
+# 81.0760269165039, -560.6885986328125. The interior term is held as the PRB gradients are;
+# the boundary terms at 1%: a probe 0.05 px or 5e-3 rad from a curve can
+# classify a lane differently on the card, and a parted lane carries its
+# whole weight.
+JAX_CBOX64_PROJ_GRAD = {(0, 0): -19.290164947509766, (4, 0): 81.07600402832031,
+                        (4, 4): -560.6887817382812}
+PROJ_CBOX64_RTOL = {(0, 0): 1e-3, (4, 0): 1e-2, (4, 4): 1e-2}
+RAYLEIGH_SPP, CHANDRA_SPP, CHANDRA_OMEGA = 16384, 8192, 0.8
+
+
+def phase_ptracer(mi, K1, K2, K3):
+    """The particle tracer on the cbox at 256x256 @ 64 spp (4,194,304
+    particles), max_depth 8: one render with CUDA events around each K1
+    launch and every launch held bit for bit against the plain version,
+    two timed renders; the mean over the rows below the light against
+    path's at the same size (tests/test_ptracer.py's 5%)."""
+    d = mi.cornell_box()
+    d["integrator"] = {"type": "ptracer", "max_depth": PTRACER_DEPTH}
+    scene = mi.load_dict(d)
+    res = scene.film.width
+    name = (f"ptracer cbox {res}x{res} @ {PTRACER_SPP} spp ({scene.film.n_pixels * PTRACER_SPP} "
+            f"particles), max_depth {PTRACER_DEPTH}")
+
+    def render(seed, stats):
+        return mi.render(scene, spp=PTRACER_SPP, seed=seed, stats=stats)
+
+    n_k1, k_ms, b2b_ms, b_ms, by, bitwise = k1_in_place_and_held(K1, name, lambda: render(2, {}))
+    walls, per, stats, img, peak = timed_calls(K1, K2, K3, name, render, 2, warm_up=False)
+    if tuple(img.shape) != (res, res, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{name}: image {tuple(img.shape)} not finite")
+    d["integrator"] = {"type": "path", "max_depth": PTRACER_DEPTH}
+    ref = mi.render(mi.load_dict(d), spp=PTRACER_SPP, seed=1)
+    a = float(ref[PTRACER_SKIP_ROWS:].mean())
+    b = float(img[PTRACER_SKIP_ROWS:].mean())
+    rel = abs(a - b) / a
+    log(f"== main path: {name}: walls {[round(w, 4) for w in walls]} s, {stats['n_rays']} rays, "
+        f"K1 launches per render {per}, peak memory {peak / 2**30:.3f} GiB; one render with events "
+        f"around each K1 launch: {n_k1} launches, {k_ms:.3f} ms in K1 in place, {b2b_ms:.4f} ms "
+        f"back to back, summed bound {b_ms:.4f} ms {by}; mean below row {PTRACER_SKIP_ROWS} "
+        f"{b:.6f} against path's {a:.6f}: {rel:.4%} (rtol {PTRACER_MEAN_RTOL})")
+    if not rel <= PTRACER_MEAN_RTOL:
+        raise AssertionError(f"{name}: mean {b} against path's {a}")
+    return dict(walls=walls, n_rays=stats["n_rays"], k1_per_render=per[0], peak=peak,
+                mean=b, path_mean=a, rel=rel, k1_render_ms=k_ms, k1_render_back_to_back_ms=b2b_ms,
+                k1_render_bound_ms=b_ms, k1_bound_by=by, k1_bitwise_vs_plain=bitwise)
+
+
+def _furnace_dict(mi):
+    """tests/test_volpathmis.py's furnace: an albedo-1 medium with a
+    strongly spectral sigma_t in a null cube under a unit environment."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "volpathmis", "max_depth": 48, "rr_depth": 64},
+        "sensor": {"type": "perspective", "fov": 10,
+                   "to_world": [{"type": "look_at", "origin": [0, 0, 6], "target": [0, 0, 0],
+                                 "up": [0, 1, 0]}],
+                   "film": {"type": "hdrfilm", "width": 12, "height": 12,
+                            "rfilter": {"type": "box"}}},
+        "medium1": {"type": "homogeneous", "sigma_t": {"type": "rgb", "value": FURNACE_SIGMA},
+                    "albedo": 1.0, "phase": {"type": "isotropic"}},
+        "bounds": {"type": "cube", "bsdf": {"type": "null"},
+                   "interior": {"type": "ref", "id": "medium1"}},
+        "env": {"type": "constant", "radiance": 1.0},
+    }
+
+
+def phase_volpathmis(mi, K1, K2, K3):
+    """volpathmis on the het-vol configuration (96x96 @ 16 spp, max_depth
+    12, in rgb): one render with every K1 launch held bit for bit and events
+    around each, two timed renders; its means against volpath's of the same
+    dict; the furnace of tests/test_volpathmis.py (12x12 @ 200 spp, every
+    channel within 3% of 1)."""
+    from mitsuba_tpu_torch.render.scene_loader import het_vol_scene
+
+    spp = 16
+    d = het_vol_scene(spp=spp)
+    d["integrator"] = {"type": "volpathmis", "max_depth": d["integrator"]["max_depth"]}
+    scene = mi.load_dict(d)
+    res = scene.film.width
+    name = f"volpathmis het-vol {res}x{res} @ {spp} spp, max_depth 12"
+
+    def render(seed, stats):
+        return mi.render(scene, spp=spp, seed=seed, stats=stats)
+
+    n_k1, k_ms, b2b_ms, b_ms, by, bitwise = k1_in_place_and_held(K1, name, lambda: render(1, {}))
+    walls, per, stats, img, peak = timed_calls(K1, K2, K3, name, render, 2, warm_up=False)
+    means = img.mean(dim=(0, 1)).tolist()
+    ref = mi.render(mi.load_dict(het_vol_scene(spp=spp)), spp=spp, seed=0).mean(dim=(0, 1))
+    rel = max(abs(m - r) / r for m, r in zip(means, ref.tolist()))
+    log(f"== main path: {name}: walls {[round(w, 4) for w in walls]} s, {stats['n_rays']} rays "
+        f"({stats['n_rays'] / min(walls) / 1e6:.3f} Mrays/s), K1 launches per render {per}, peak "
+        f"memory {peak / 2**30:.3f} GiB; one render with events around each K1 launch: {n_k1} "
+        f"launches, {k_ms:.3f} ms in place, {b2b_ms:.4f} ms back to back, bound {b_ms:.4f} ms "
+        f"{by}; means {means} against volpath's {ref.tolist()}: {rel:.4%} (rtol "
+        f"{VOLPATHMIS_MEAN_RTOL})")
+    if not bool(torch.isfinite(img).all()) or not rel <= VOLPATHMIS_MEAN_RTOL:
+        raise AssertionError(f"{name}: means {means} against volpath's {ref.tolist()}")
+    furnace = mi.load_dict(_furnace_dict(mi))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_plain_closest_hit(K1, "volpathmis furnace"):
+        f_means = mi.render(furnace, spp=200, seed=3).mean(dim=(0, 1)).tolist()
+    torch.cuda.synchronize()
+    f_wall = time.perf_counter() - t0
+    f_rel = max(abs(m - 1.0) for m in f_means)
+    log(f"  furnace 12x12 @ 200 spp, sigma_t {FURNACE_SIGMA}, albedo 1, max_depth 48: "
+        f"{f_wall:.3f} s, means {f_means}: within {f_rel:.4%} of 1 (rtol {FURNACE_RTOL})")
+    if not f_rel <= FURNACE_RTOL:
+        raise AssertionError(f"volpathmis furnace: means {f_means}")
+    return dict(walls=walls, n_rays=stats["n_rays"], k1_per_render=per[0], peak=peak, means=means,
+                volpath_means=ref.tolist(), rel=rel, furnace_means=f_means, furnace_wall=f_wall,
+                k1_render_ms=k_ms, k1_render_back_to_back_ms=b2b_ms, k1_render_bound_ms=b_ms,
+                k1_bound_by=by, k1_bitwise_vs_plain=bitwise)
+
+
+# K1's backward (hit_vjp, the closed form of the planar hit's VJP) against
+# torch.func.vjp of the plain Moller-Trumbore on each lane's hit triangle:
+# two float32 evaluations of one derivative, which part by rounding on
+# lanes that hit near grazing; a wrong term parts on most lanes
+VJP_RTOL, VJP_PART_SHARE = 1e-3, 1e-3
+
+
+def mt_autograd_vjp(K1, table, prim, o, d, g_t, g_u, g_v):
+    """(table, o, d) cotangents of the hits prim for the output cotangents
+    (None for none), by torch.func.vjp of K1.moller_trumbore on each hit
+    lane's own triangle row: a derivative independent of hit_vjp's closed
+    form. Misses get 0."""
+    hit = (prim >= 0).nonzero()[:, 0]
+    p = prim[hit].to(torch.int64)
+
+    def planar_hit(tab, oo, dd):
+        t, u, v, _, _ = K1.moller_trumbore(oo, dd, tab[p][:, None, :])
+        return t[:, 0], u[:, 0], v[:, 0]
+
+    _, pull = torch.func.vjp(planar_hit, table, o[hit], d[hit])
+    zero = torch.zeros(hit.shape[0], dtype=o.dtype, device=o.device)
+    ct_tab, ct_o, ct_d = pull(tuple(zero if g is None else g[hit] for g in (g_t, g_u, g_v)))
+    return (ct_tab, torch.zeros_like(o).index_copy_(0, hit, ct_o),
+            torch.zeros_like(d).index_copy_(0, hit, ct_d))
+
+
+@contextlib.contextmanager
+def k1_vjp_held_to_autograd(K1, held):
+    """Inside, the rays of every K1 launch made for a differentiable hit
+    are kept, and every hit_vjp (K1's backward) is held against
+    mt_autograd_vjp on the same hits: `held` gets (hit lanes, lanes whose
+    o or d cotangent parts by more than VJP_RTOL of its norm, the largest
+    such part, the table cotangent's part in norm) per backward."""
+    fn, vjp = K1.smem_intersect, K1.hit_vjp
+    rays = {}
+
+    def launch(*args):
+        out = fn(*args)
+        if any(a.requires_grad for a in args[:3]):
+            rays[out[0].data_ptr()] = (out[0], args[1].detach())
+        return out
+
+    def held_vjp(table, prim, t, u, v, d, g_t, g_u, g_v):
+        out = vjp(table, prim, t, u, v, d, g_t, g_u, g_v)
+        t_k, o = rays.get(t.data_ptr(), (None, None))
+        if o is None or t_k.shape != t.shape:
+            raise AssertionError("hit_vjp of a hit that no held K1 launch made")
+        ref = mt_autograd_vjp(K1, table, prim, o, d, g_t, g_u, g_v)
+        hits = prim >= 0
+        rel = torch.zeros_like(t)
+        for a, b in zip(out[1:], ref[1:]):
+            rel = torch.maximum(rel, (a - b).norm(dim=1) / b.norm(dim=1).clamp(min=1e-30))
+        rel = torch.where(hits, rel, 0.0)
+        tab = (out[0] - ref[0]).norm() / ref[0].norm().clamp(min=1e-30)
+        held.append((hits.sum(), (rel > VJP_RTOL).sum(), rel.max(), tab))
+        return out
+
+    launch.launches = fn.launches
+    K1.smem_intersect, K1.hit_vjp = launch, held_vjp
+    try:
+        yield
+    finally:
+        fn.launches = launch.launches
+        K1.smem_intersect, K1.hit_vjp = fn, vjp
+
+
+def k1_vjp_held_summary(name, held):
+    """{"calls", "hit_lanes", "lanes_parted", "worst_lane", "table"} of the
+    backward calls k1_vjp_held_to_autograd held; raises past the bounds."""
+    lanes = int(sum(n for n, _, _, _ in held))
+    out = dict(calls=len(held), hit_lanes=lanes,
+               lanes_parted=int(sum(x for _, x, _, _ in held)),
+               worst_lane=max((float(r) for _, _, r, _ in held), default=0.0),
+               table=max((float(x) for _, _, _, x in held), default=0.0))
+    log(f"  {name}: K1's backward (hit_vjp) held against torch.func.vjp of the plain "
+        f"Moller-Trumbore: {out['calls']} calls, {lanes} hit lanes, {out['lanes_parted']} "
+        f"parted by more than {VJP_RTOL:g} of their norm (worst {out['worst_lane']:.3e}), the "
+        f"table's cotangent {out['table']:.3e} of its norm apart")
+    if (not held or not lanes or out["lanes_parted"] > VJP_PART_SHARE * lanes
+            or out["table"] > VJP_RTOL):
+        raise AssertionError(f"{name}: hit_vjp against the autograd VJP: {out}")
+    return out
+
+
+def projective_scenes(mi):
+    """The projective configurations: the cbox (prb_projective max_depth 4,
+    sppp 4, sppi 4, the small box scaled), tests/test_projective.py's
+    silhouette and point-light shadow scenes (direct_projective, 24x24),
+    and the silhouette scene with a flat cube for its occluder (a closed
+    mesh whose faces do not share vertices; one face turned to the camera,
+    so that no crease shows, and turned so that the lowest-numbered copy of
+    each of that face's corners lies in a face turned away)."""
+    cbox = mi.cornell_box()
+    cbox["integrator"] = {"type": "prb_projective", "max_depth": 4, "sppp": 4, "sppi": 4}
+    film = {"type": "hdrfilm", "width": 24, "height": 24, "rfilter": {"type": "box"}}
+    T = mi.Transform
+    sil = {
+        "type": "scene", "integrator": {"type": "direct_projective", "sppp": 16, "sppi": 0},
+        "sensor": {"type": "perspective", "fov": 40.0, "film": film,
+                   "to_world": {"type": "look_at", "origin": [0, 0, 4], "target": [0, 0, 0],
+                                "up": [0, 1, 0]}},
+        "bg": {"type": "rectangle", "to_world": T.translate([0, 0, -1]) @ T.scale([6, 6, 1]),
+               "emitter": {"type": "area", "radiance": {"type": "rgb", "value": [1.0, 0.8, 0.6]}}},
+        "occluder": {"type": "rectangle",
+                     "to_world": T.translate([0.3, 0.0, 1.0]) @ T.scale([0.6, 0.6, 1]),
+                     "bsdf": {"type": "diffuse",
+                              "reflectance": {"type": "rgb", "value": [0.1, 0.1, 0.1]}}},
+    }
+    shadow = {
+        "type": "scene", "integrator": {"type": "direct_projective", "sppp": 0, "sppi": 16},
+        "sensor": {"type": "perspective", "fov": 30.0, "film": film,
+                   "to_world": {"type": "look_at", "origin": [0, 0, 5], "target": [0, 0, 0],
+                                "up": [0, 1, 0]}},
+        "floor": {"type": "rectangle", "to_world": T.scale([8, 8, 1]),
+                  "bsdf": {"type": "diffuse",
+                           "reflectance": {"type": "rgb", "value": [0.7, 0.7, 0.7]}}},
+        "occluder": {"type": "rectangle",
+                     "to_world": T.translate([2.5, 1.0, 2.0]) @ T.scale([0.9, 0.9, 1]),
+                     "bsdf": {"type": "diffuse",
+                              "reflectance": {"type": "rgb", "value": [0.2, 0.2, 0.2]}}},
+        "light": {"type": "point", "position": [5.0, 2.0, 4.5], "intensity": 60.0},
+    }
+    cube = dict(sil, occluder=dict(sil["occluder"], type="cube",
+                                   to_world=sil["occluder"]["to_world"] @ T.rotate([1, 0, 0], 90)
+                                   @ T.scale([1, 1, 0.2])))
+    return {"cbox": (cbox, "small-box.vertex_positions", PROJ_SPP, PROJ_FD_SPP),
+            "silhouette": (sil, "occluder.vertex_positions", 64, 512),
+            "shadow": (shadow, "occluder.vertex_positions", 64, 512),
+            "cube": (cube, "occluder.vertex_positions", 64, 512)}
+
+
+def scale_offset(mi, scene, key):
+    """(the shape's vertices, their offset from the point the scale keeps):
+    a uniform scale moves every silhouette edge outward. A floating shape
+    scales about its centre; the cbox's small box, which stands on the
+    floor, about the centre of its bottom face, so that it keeps standing
+    on the floor (scaled about its centre it would sink into the floor, and
+    the line where its faces cut the floor, which no mesh edge follows,
+    would move)."""
+    base = mi.traverse(scene)[key].detach().clone()
+    anchor = base.mean(dim=0, keepdim=True)
+    if key == "small-box.vertex_positions":
+        anchor[0, 1] = base[:, 1].min()
+    return base, base - anchor
+
+
+def projective_ad(mi, scene, key, spp, seed, stats=None):
+    """d sum(image) / d scale through the projective backward."""
+    base, off = scale_offset(mi, scene, key)
+    t = torch.zeros((), device=base.device, requires_grad=True)
+    img = mi.render(mi.traverse(scene).update({key: base + t * off}), spp=spp, seed=seed,
+                    stats=stats)
+    img.sum().backward()
+    return float(t.grad)
+
+
+def projective_fd(mi, scene, key, spp, seed):
+    """Central difference of sum(image) in the scale, rendered by the base
+    integrator in passes of at most 64 spp."""
+    base, off = scale_offset(mi, scene, key)
+    integ = scene.integrator.base
+
+    def loss(s):
+        sc = mi.traverse(scene).update({key: base + s * off})
+        return float(mi.render(sc, spp=spp, seed=seed, integrator=integ,
+                               spp_per_pass=min(spp, 64)).sum())
+
+    return (loss(PROJ_FD_EPS) - loss(-PROJ_FD_EPS)) / (2 * PROJ_FD_EPS)
+
+
+def cube_copy_check(mi, scene, key, spp):
+    """Where the flat cube's silhouette cotangent goes. Its faces do not
+    share vertices, so each corner has three copies; the one that moves
+    the silhouette is the copy in the face the camera sees (moved alone
+    outward, that face grows over the background, while the copies in the
+    faces turned away stay hidden behind it). For the seen face's corner
+    farthest along +x+y: AD, d sum(image) / d that copy along its outward
+    direction u in the image plane (the mean over PROJ_COPY_SEEDS), against
+    FD, the forward difference of moving that copy alone by PROJ_COPY_EPS
+    along u (one-sided: the mesh opens there) at PROJ_COPY_FD_SPP; the
+    other copies' AD along u, which must be 0."""
+    g = scene.geometry
+    _, lo, hi = dict(scene.param_paths)[key][-1]
+    T = g.n_real_tris
+    faces = g.tri_face[:T]
+    mine = ((faces >= lo) & (faces < hi)).all(dim=1)
+    cam = scene.sensors[0].position
+    centroid = g.tri_v0 + (g.tri_e1 + g.tri_e2) / 3.0
+    seen = mine & (torch.sum(g.tri_ng * (cam - centroid), -1) > 0)[:T]
+    face_v = torch.unique(faces[seen]) - lo
+    base = mi.traverse(scene)[key].detach().clone()
+    c = int(face_v[torch.argmax(base[face_v, 0] + base[face_v, 1])])
+    copies = (base == base[c]).all(dim=1).nonzero()[:, 0]
+    if copies.numel() != 3 or int(copies.min()) == c:
+        raise AssertionError(f"cube copies {copies.tolist()} of corner {c}: the check would not "
+                             "tell the copies apart")
+    view = cam - base[c]
+    u = base[c] - base[face_v].mean(dim=0)
+    u = u - torch.dot(u, view) / torch.dot(view, view) * view
+    u = u / u.norm()
+    grads = []
+    for seed in PROJ_COPY_SEEDS:
+        v = base.clone().requires_grad_()
+        mi.render(mi.traverse(scene).update({key: v}), spp=spp, seed=seed).sum().backward()
+        grads.append(v.grad @ u)
+    ad_all = torch.stack(grads).mean(dim=0)
+    integ = scene.integrator.base
+
+    def loss(eps):
+        moved = base.clone()
+        moved[c] += eps * u
+        sc = mi.traverse(scene).update({key: moved})
+        return float(mi.render(sc, spp=PROJ_COPY_FD_SPP, seed=PROJ_SEEDS[0], integrator=integ,
+                               spp_per_pass=64).sum())
+
+    l0 = loss(0.0)
+    fd, fd_in = (loss(PROJ_COPY_EPS) - l0) / PROJ_COPY_EPS, (l0 - loss(-PROJ_COPY_EPS)) / PROJ_COPY_EPS
+    ad = float(ad_all[c])
+    others = [float(ad_all[i]) for i in copies.tolist() if i != c]
+    out = dict(corner=c, copies=copies.tolist(), ad=ad, ad_others=others, fd_out=fd,
+               fd_in=fd_in, rel=abs(ad - fd) / abs(fd))
+    log(f"  projective cube: vertex copy {c} of copies {copies.tolist()} (the face seen), along "
+        f"its outward direction: AD {ad:.6g} (the others {others}) against the one-sided FD "
+        f"{fd:.6g} ({out['rel']:.4%}, rtol {PROJ_COPY_RTOL}; inward {fd_in:.6g})")
+    if any(x != 0.0 for x in others) or not out["rel"] <= PROJ_COPY_RTOL:
+        raise AssertionError(f"projective cube: the vertex copies' cotangent {out}")
+    return out
+
+
+def cbox64_held_to_jax(mi):
+    """The cbox's projective gradient at 64x64 (its configuration at a
+    smaller film, 16 spp, seed 7) against the JAX package's,
+    JAX_CBOX64_PROJ_GRAD: the interior term alone, with the primary
+    silhouettes, and the whole."""
+    d, key, _, _ = projective_scenes(mi)["cbox"]
+    d["sensor"]["film"].update(width=64, height=64)
+    out = {}
+    for (sppp, sppi), want in JAX_CBOX64_PROJ_GRAD.items():
+        d["integrator"] = dict(d["integrator"], sppp=sppp, sppi=sppi)
+        scene = mi.load_dict(d)
+        label = f"projective cbox 64x64 @ 16 spp, sppp {sppp}, sppi {sppi}"
+        got = projective_ad(mi, scene, key, 16, 7)
+        rel = abs(got - want) / abs(want)
+        tol = PROJ_CBOX64_RTOL[(sppp, sppi)]
+        log(f"  {label}: AD {got:.9g} against the JAX package's {want:.9g}: {rel:.3e} (rtol {tol})")
+        if not rel <= tol:
+            raise AssertionError(f"{label}: AD {got} against the JAX package's {want}")
+        out[f"{sppp},{sppi}"] = dict(ad=got, jax=want, rel=rel)
+    return out
+
+
+def phase_projective(mi, K1, K2, K3):
+    """The projective gradients on the card, each the derivative of
+    sum(image) for a uniform scale of a shape (scale_offset), AD the mean
+    over seeds 7 and 11 (as tests/test_projective.py averages), FD a central
+    difference (eps 1e-2) at the same seed 7. The cbox at 256x256,
+    prb_projective max_depth 4, sppp 4, sppi 4, the small box, AD at 64
+    spp and FD at 256 (printed, not held against FD: PROJ_RTOL), and at
+    64x64 held against the JAX package's gradient, part by part
+    (cbox64_held_to_jax); the silhouette and point-shadow scenes of
+    tests/test_projective.py and the flat cube (24x24, direct_projective,
+    AD 64 spp, FD 512) within 8%, 12% and 8%, and the flat cube's vertex
+    copies (cube_copy_check). The first AD step of each has every K1
+    forward launch held bit for bit against the plain version and every K1
+    backward (hit_vjp, in the tape passes) against torch.func.vjp of the
+    plain Moller-Trumbore (k1_vjp_held_to_autograd); its peak memory is
+    read."""
+    out = {}
+    for name, (d, key, spp, fd_spp) in projective_scenes(mi).items():
+        scene = mi.load_dict(d)
+        res = scene.film.width
+        label = (f"projective {name} {res}x{res}, {d['integrator']['type']}, AD {spp} spp, FD "
+                 f"{fd_spp} spp")
+        held, held_vjp, stats = [], [], {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(K1, K2, K3)
+        t0 = time.perf_counter()
+        with k1_held_to_plain(K1, held), k1_vjp_held_to_autograd(K1, held_vjp):
+            ads = [projective_ad(mi, scene, key, spp, PROJ_SEEDS[0], stats)]
+        torch.cuda.synchronize()
+        held_wall = time.perf_counter() - t0
+        k1 = K1.smem_intersect.launches
+        peak = torch.cuda.max_memory_allocated()
+        others = K2.bvh_sweep_intersect.launches + K3.mxu_intersect.launches
+        bitwise = k1_held_summary(f"{label}, AD step", held)
+        vjp_held = k1_vjp_held_summary(f"{label}, AD step", held_vjp)
+        if others:
+            raise AssertionError(f"{label}: K2/K3 ran ({others})")
+        walls = []
+        for seed in PROJ_SEEDS[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with no_plain_closest_hit(K1, label):
+                ads.append(projective_ad(mi, scene, key, spp, seed))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        ad = sum(ads) / len(ads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_plain_closest_hit(K1, label):
+            fd = projective_fd(mi, scene, key, fd_spp, PROJ_SEEDS[0])
+        fd_wall = time.perf_counter() - t0
+        rel = abs(ad - fd) / abs(fd)
+        log(f"== main path: {label}: AD {ads} (mean {ad:.6g}) against FD {fd:.6g}: {rel:.4%} "
+            f"({'rtol ' + str(PROJ_RTOL[name]) if PROJ_RTOL[name] else 'not held: no crease term'}); AD step {held_wall:.3f} s with K1 held, "
+            f"{[round(w, 4) for w in walls]} s timed, FD {fd_wall:.3f} s; K1 launches in the held "
+            f"step {k1}, peak memory {peak / 2**30:.3f} GiB; forward rays {stats.get('n_rays')}")
+        if not all(math.isfinite(a) for a in ads) or (
+                PROJ_RTOL[name] is not None and not rel <= PROJ_RTOL[name]):
+            raise AssertionError(f"{label}: AD {ad} against FD {fd}")
+        out[name] = dict(ad=ads, fd=fd, rel=rel, held_step_wall=held_wall, step_walls=walls,
+                         fd_wall=fd_wall, k1_per_step=k1, peak=peak, k1_bitwise_vs_plain=bitwise,
+                         hit_vjp_held=vjp_held)
+        with no_plain_closest_hit(K1, label):
+            if name == "cube":
+                out[name]["vertex_copy"] = cube_copy_check(mi, scene, key, spp)
+            elif name == "cbox":
+                out[name]["held_to_jax_64"] = cbox64_held_to_jax(mi)
+    return out
+
+
+def rayleigh_gold_dict(tau, theta_deg, max_depth):
+    """tests/test_rayleigh_slab_gold.py's scene: a zenith sun over a
+    conservative Rayleigh slab, a radiancemeter looking up at theta."""
+    st, ct = np.sin(np.radians(theta_deg)), np.cos(np.radians(theta_deg))
+    return {
+        "type": "scene",
+        "integrator": {"type": "volpath", "max_depth": max_depth},
+        "sun": {"type": "directional", "direction": [0, 0, -1], "irradiance": 1.0},
+        "slab": {"type": "cube", "to_world": [{"type": "scale", "value": [2000.0, 2000.0, 0.5]}],
+                 "bsdf": {"type": "null"},
+                 "interior": {"type": "homogeneous", "sigma_t": tau, "albedo": 1.0,
+                              "phase": {"type": "rayleigh", "depolarization": 0.0}}},
+        "sensor": {"type": "radiancemeter", "wavelength": 550.0,
+                   "to_world": [{"type": "look_at", "origin": [0.0, 0.0, -2.0],
+                                 "target": [2.0 * st, 0.0, -2.0 + 2.0 * ct], "up": [0, 1, 0]}],
+                   "film": {"type": "hdrfilm", "width": 4, "height": 4,
+                            "rfilter": {"type": "box"}}},
+    }
+
+
+def chandrasekhar_dict(theta_deg, theta0_deg):
+    """tests/test_chandrasekhar_gold.py's scene: a semi-infinite isotropic
+    slab (tau 30, albedo 0.8) under a directional light, seen from above."""
+    s, c = np.sin(np.radians(theta_deg)), np.cos(np.radians(theta_deg))
+    s0, c0 = np.sin(np.radians(theta0_deg)), np.cos(np.radians(theta0_deg))
+    return {
+        "type": "scene",
+        "integrator": {"type": "volpath", "max_depth": 48, "rr_depth": 16, "track_steps": 8,
+                       "nee_steps": 8},
+        "light": {"type": "directional", "direction": [s0, 0.0, -c0], "irradiance": 1.0},
+        "slab": {"type": "cube", "to_world": [{"type": "scale", "value": [2000.0, 2000.0, 10.0]}],
+                 "bsdf": {"type": "null"},
+                 "interior": {"type": "homogeneous", "sigma_t": 1.5, "albedo": CHANDRA_OMEGA,
+                              "phase": {"type": "isotropic"}}},
+        "sensor": {"type": "radiancemeter",
+                   "to_world": [{"type": "look_at", "origin": [0.0, 0.0, 12.0],
+                                 "target": [2.0 * s, 0.0, 12.0 - 2.0 * c], "up": [0, 1, 0]}],
+                   "film": {"type": "hdrfilm", "width": 4, "height": 4,
+                            "rfilter": {"type": "box"}}},
+    }
+
+
+def h_at(mu_eval, omega, n_nodes=64, iters=800):
+    """Chandrasekhar's H at mu_eval from its fixed point on Gauss-Legendre
+    nodes (tests/test_chandrasekhar_gold.py's solver)."""
+    x, w = np.polynomial.legendre.leggauss(n_nodes)
+    mu, wq = 0.5 * (x + 1.0), 0.5 * w
+    H = np.ones(n_nodes)
+    for _ in range(iters):
+        H = 1.0 / (1.0 - 0.5 * omega * mu * ((H * wq)[None, :] / (mu[:, None] + mu[None, :])).sum(-1))
+    return 1.0 / (1.0 - 0.5 * omega * mu_eval * ((H * wq) / (mu_eval + mu)).sum())
+
+
+def phase_golds(mi, K1, K2, K3):
+    """The two physics golds at their tests' sample counts, each within its
+    test's own bound: the Rayleigh slab in mono_polarized at 16,384 spp,
+    single scattering (the analytic Stokes vector: I within 3%, DoLP within
+    0.02) and multiple scattering (the adding-doubling solution,
+    mitsuba_tpu_torch/utils/doubling.py: I within 3%, Q within 0.02 I);
+    Chandrasekhar's semi-infinite reflection in mono at 8,192 spp (within
+    5%). Every render through K1 alone; the first one's launches held bit
+    for bit against the plain version."""
+    from mitsuba_tpu_torch.utils.doubling import doubling_slab
+
+    out, held = {}, []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        before = K1.smem_intersect.launches
+        t0 = time.perf_counter()
+        val = fn()
+        torch.cuda.synchronize()
+        return val, time.perf_counter() - t0, K1.smem_intersect.launches - before
+
+    mi.set_variant("mono_polarized")
+    try:
+        cases = [("single", tau, th, 2) for tau, th in ((0.25, 60.0), (0.5, 40.0), (0.1, 75.0))]
+        cases += [("multiple", tau, th, 64) for tau, th in ((0.25, 60.0), (0.5, 40.0))]
+        for i, (kind, tau, th, depth) in enumerate(cases):
+            scene = mi.load_dict(rayleigh_gold_dict(tau, th, depth))
+            seed = 1 if kind == "single" else 3
+            if i == 0:
+                with k1_held_to_plain(K1, held):
+                    stokes, wall, k1 = timed(lambda: mi.render_1(scene, spp=RAYLEIGH_SPP,
+                                                                 seed=seed))
+            else:
+                with no_plain_closest_hit(K1, "golds"):
+                    stokes, wall, k1 = timed(lambda: mi.render_1(scene, spp=RAYLEIGH_SPP,
+                                                                 seed=seed))
+            I, Q, U, V = stokes[:, 0].tolist()
+            mu = float(np.cos(np.radians(th)))
+            if kind == "single":
+                I_ref = tau * 3.0 / (16.0 * np.pi) * (1.0 + mu * mu) * np.exp(-tau) * (
+                    np.exp(tau * (mu - 1.0) / mu) - 1.0) / (tau * (mu - 1.0))
+                Q_ref = -I_ref * (1.0 - mu * mu) / (1.0 + mu * mu)
+            else:
+                I_ref, Q_ref = (float(x) for x in
+                                doubling_slab(tau, [mu], n_gauss=24, nphi=64)["trans"][0])
+            errs = dict(I=abs(I - I_ref) / I_ref, dolp=abs(abs(Q) / I - abs(Q_ref) / I_ref),
+                        Q=abs(Q - Q_ref) / I_ref, U=abs(U) / I, V=abs(V) / I)
+            ok = (errs["I"] < 0.03 and errs["dolp"] < 0.02 and Q < 0 and errs["U"] < 0.02
+                  and errs["V"] < 0.01 and (kind == "single" or errs["Q"] < 0.02))
+            key = f"rayleigh {kind} tau {tau} theta {th}"
+            log(f"  golds {key}, mono_polarized 4x4 @ {RAYLEIGH_SPP} spp, max_depth {depth}: "
+                f"{wall:.3f} s, K1 {k1}; I, Q, U, V {[I, Q, U, V]} against I {I_ref:.6g}, Q "
+                f"{Q_ref:.6g}: {({k: round(v, 5) for k, v in errs.items()})}")
+            if not ok:
+                raise AssertionError(f"golds {key}: {errs}")
+            out[key] = dict(stokes=[I, Q, U, V], ref=[I_ref, Q_ref], errs=errs, wall=wall, k1=k1)
+    finally:
+        mi.set_variant("rgb")
+    bitwise = k1_held_summary("golds rayleigh single render", held)
+    mi.set_variant("mono")
+    try:
+        for th, th0 in ((0.0, 30.0), (45.0, 30.0)):
+            scene = mi.load_dict(chandrasekhar_dict(th, th0))
+            with no_plain_closest_hit(K1, "golds"):
+                img, wall, k1 = timed(lambda: mi.render(scene, spp=CHANDRA_SPP, seed=11))
+            mu, mu0 = np.cos(np.radians(th)), np.cos(np.radians(th0))
+            want = (CHANDRA_OMEGA / (4.0 * np.pi) * mu0 / (mu + mu0)
+                    * h_at(mu, CHANDRA_OMEGA) * h_at(mu0, CHANDRA_OMEGA))
+            got = float(img.mean())
+            rel = abs(got - want) / want
+            key = f"chandrasekhar theta {th} theta0 {th0}"
+            log(f"  golds {key}, mono 4x4 @ {CHANDRA_SPP} spp: {wall:.3f} s, K1 {k1}; {got:.6g} "
+                f"against {want:.6g}: {rel:.4%} (rtol 0.05)")
+            if not rel < 0.05:
+                raise AssertionError(f"golds {key}: {got} against {want}")
+            out[key] = dict(got=got, want=want, rel=rel, wall=wall, k1=k1)
+    finally:
+        mi.set_variant("rgb")
+    out["k1_bitwise_vs_plain"] = bitwise
+    return out
+
+
 PHASE_S = {}
 
 
@@ -2803,6 +3427,14 @@ def main():
     atmo_spectral = timed_phase("atmo_spectral", phase_atmo_spectral, mi, K1, K2, K3)
     torch.cuda.empty_cache()
     spectral_regen = timed_phase("spectral_regen", phase_spectral_regen, mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    ptracer = timed_phase("ptracer", phase_ptracer, mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    volpathmis = timed_phase("volpathmis", phase_volpathmis, mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    projective = timed_phase("projective", phase_projective, mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    golds = timed_phase("golds", phase_golds, mi, K1, K2, K3)
 
     per_path = f"{PRB_ITERS} iterations"
     k1_entry["launches"] = cbox_launches
@@ -2847,7 +3479,15 @@ def main():
                                     "spectral-regen volpath render":
                                         spectral_regen["volpath"]["k1"],
                                     "spectral-regen prbvolpath step":
-                                        spectral_regen["prbvolpath"]["k1"]}
+                                        spectral_regen["prbvolpath"]["k1"],
+                                    "ptracer cbox render 256x256 @ 64 spp":
+                                        ptracer["k1_per_render"],
+                                    "volpathmis het-vol render 96x96 @ 16 spp":
+                                        volpathmis["k1_per_render"],
+                                    **{f"projective {k} AD step": v["k1_per_step"]
+                                       for k, v in projective.items()},
+                                    **{f"golds {k}": v["k1"] for k, v in golds.items()
+                                       if isinstance(v, dict) and "k1" in v}}
     k1_entry.update(step_k1)
     k1_entry.update(hetvol_pass_launches=hetvol["k1_pass_launches"],
                     hetvol_pass_ms=hetvol["k1_pass_ms"],
@@ -2906,7 +3546,17 @@ def main():
                                                     spectral_prb["k1_backward_primal"],
                                                 "replay": spectral_prb["k1_replay"]},
                     **{f"spectral_prb_{k}": spectral_prb[f"k1_{k}"]
-                       for k in ("step_ms", "step_back_to_back_ms", "step_bound_ms")})
+                       for k in ("step_ms", "step_back_to_back_ms", "step_bound_ms")},
+                    **{f"{name}_render_{k}": r[f"k1_render_{k}"]
+                       for name, r in (("ptracer", ptracer), ("volpathmis", volpathmis))
+                       for k in ("ms", "back_to_back_ms", "bound_ms")},
+                    new_paths_bitwise_vs_plain={
+                        "ptracer render": ptracer["k1_bitwise_vs_plain"],
+                        "volpathmis render": volpathmis["k1_bitwise_vs_plain"],
+                        **{f"projective {k} AD step": v["k1_bitwise_vs_plain"]
+                           for k, v in projective.items()},
+                        "golds rayleigh render": golds["k1_bitwise_vs_plain"]},
+                    hit_vjp_held_to_autograd={k: v["hit_vjp_held"] for k, v in projective.items()})
     k3_entry.update(step_k3)
     k3_entry["launches"] = l_mma["K3"]
     k3_entry["launches_by_path"] = {f"cbox prb, K3 route, {per_path}": l_mma["K3"],
@@ -2943,6 +3593,10 @@ def main():
         "spectral_prb": spectral_prb,
         "atmo_spectral": atmo_spectral,
         "spectral_regen": spectral_regen,
+        "ptracer": ptracer,
+        "volpathmis": volpathmis,
+        "projective": projective,
+        "golds": golds,
         "phase_s": PHASE_S}
     log(f"== chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -1,9 +1,17 @@
 """Integrator construction from a scene-dict spec (counterpart of
 mitsuba_tpu/integrators/__init__.py): ``path``, ``prb``, ``prb_basic``,
-``volpath``, ``prbvolpath`` (alias ``prb_unpolarized``), ``prb_polarized``,
-``volpathaos``, ``prb_volpathaos``, ``direct``, ``depth``, ``aov``,
-``stokes`` and ``moment``. Any other type raises ``NotImplementedError``:
-it is not yet ported.
+``volpath``, ``volpathmis``, ``prbvolpath`` (alias ``prb_unpolarized``),
+``prb_polarized``, ``volpathaos``, ``prb_volpathaos``, ``direct``,
+``depth``, ``aov``, ``stokes``, ``moment``, ``ptracer``,
+``direct_projective`` and ``prb_projective``. Any other type raises
+``NotImplementedError``: it is not yet ported.
+
+``volpathmis`` with ``use_spectral_mis: False`` is ``volpath``; in a
+polarized variant it raises ValueError when it renders. The projective
+integrators (ad/projective.py) wrap a base: ``direct`` for
+``direct_projective``, ``prb`` for ``prb_projective``, or, in a polarized
+variant, ``prb_polarized``, where ``direct_projective`` raises
+ValueError.
 
 ``stokes`` and ``moment`` wrap the integrator of their child dict (the
 last child that has a ``type``), by default ``volpath`` at the wrapper's
@@ -28,9 +36,9 @@ from __future__ import annotations
 
 from ..variant import current_variant
 
-TYPES = ("path", "prb", "prb_basic", "volpath", "prbvolpath", "prb_unpolarized",
+TYPES = ("path", "prb", "prb_basic", "volpath", "volpathmis", "prbvolpath", "prb_unpolarized",
          "prb_polarized", "volpathaos", "prb_volpathaos", "direct", "depth", "aov", "stokes",
-         "moment")
+         "moment", "ptracer", "direct_projective", "prb_projective")
 
 
 def make_integrator(spec):
@@ -77,6 +85,22 @@ def make_integrator(spec):
         hide_emitters=bool(spec.get("hide_emitters", False)),
         regenerate=regenerate,
     )
+    if t == "ptracer":
+        from .ptracer import PTracerIntegrator
+
+        return PTracerIntegrator(max_depth=kw["max_depth"], rr_depth=kw["rr_depth"])
+    if t == "volpathmis":
+        base = {k: kw[k] for k in ("max_depth", "rr_depth", "hide_emitters")}
+        if not bool(spec.get("use_spectral_mis", True)):
+            from .volpath import VolPathIntegrator
+
+            return VolPathIntegrator(**base)
+        from .volpathmis import VolPathMisIntegrator
+
+        return VolPathMisIntegrator(**base)
+    if t in ("direct_projective", "prb_projective"):
+        return _projective(t, spec, {k: kw[k] for k in ("max_depth", "rr_depth", "hide_emitters")},
+                           polarized)
     if t == "volpath":
         from .volpath import VolPathIntegrator
 
@@ -112,3 +136,27 @@ def make_integrator(spec):
 
     # prb_basic is the pure BSDF-sampling estimator: no NEE, no MIS
     return PRBIntegrator(**kw, use_nee=(t == "prb"))
+
+
+def _projective(t, spec, kw, polarized):
+    """A ProjectiveIntegrator over its base (see the module docstring)."""
+    from ..ad.projective import ProjectiveIntegrator
+
+    if polarized:
+        if t == "direct_projective":
+            raise ValueError("direct_projective is unpolarized; use prb_projective in the "
+                             "*_polarized variants")
+        from ..ad.prb_polarized import PRBPolarizedVolpathIntegrator
+
+        base = PRBPolarizedVolpathIntegrator(**kw)
+    elif t == "direct_projective":
+        from .direct import DirectIntegrator
+
+        base = DirectIntegrator()
+    else:
+        from ..ad.prb import PRBIntegrator
+
+        base = PRBIntegrator(**kw)
+    return ProjectiveIntegrator(base=base, sppp=int(spec.get("sppp", 4)),
+                                sppi=int(spec.get("sppi", 4)),
+                                boundary_depth=int(spec.get("boundary_depth", 0)))

@@ -56,11 +56,13 @@ class PathIntegrator:
     def regen_render(self, scene, seed, spp, sensor_idx, record_samples=False):
         return path_regen_render(self, scene, seed, spp, sensor_idx, record_samples)
 
-    def sample(self, scene, rng, ray, active, wavelengths=None):
+    def sample(self, scene, rng, ray, active, wavelengths=None, depth_limit=None):
         """Radiance [N, C] along each ray and {"n_rays": rays cast}: one
         closest-hit per active lane and one shadow ray per NEE-active lane.
         `wavelengths` [N, 4] are the lanes' wavelengths in the spectral
-        variants (None elsewhere)."""
+        variants (None elsewhere). `depth_limit` (an int64 tensor [N])
+        caps each lane's depth below max_depth: the projective indirect
+        pass's radiance probes carry the primal's remaining depth."""
         n = ray.o.shape[0]
         nc = scene.n_channels
         dev = ray.o.device
@@ -89,7 +91,8 @@ class PathIntegrator:
             else:
                 si = scene.ray_intersect(cur_ray, active)
             b = path_bounce(self, scene, si, rng, ray_d, L, beta, eta, active, prev_pdf,
-                            prev_delta, prev_p, depth, max_depth, defer, wavelengths)
+                            prev_delta, prev_p, depth, max_depth, defer, wavelengths,
+                            depth_limit)
             if defer:
                 # the shadow ray rides the next bounce's fused launch
                 pend = spawn_ray(si.p, si.n, b.ds.d, maxt=b.ds.dist * (1.0 - 1e-3))
@@ -132,13 +135,14 @@ def _lanes(cond, mask):
 
 
 def path_bounce(integrator, scene, si, rng, ray_d, L, beta, eta, active, prev_pdf, prev_delta,
-                prev_p, depth, max_depth, defer, wavelengths=None):
+                prev_p, depth, max_depth, defer, wavelengths=None, depth_limit=None):
     """One bounce of the path tracer after its closest hit `si`: emitter
     hits and escapes with MIS, NEE, the BSDF sample and Russian roulette,
     drawing 4 x next_2d in this order. `depth` is the bounce's index, one
     int for every lane (the wavefront) or an int64 tensor per lane
-    (regeneration). With `defer` the NEE shadow ray is not traced and its
-    contribution is left out of L, for the caller to trace later."""
+    (regeneration); `depth_limit` [N], where given, caps it per lane. With
+    `defer` the NEE shadow ray is not traced and its contribution is left
+    out of L, for the caller to trace later."""
     nee = integrator.use_nee
 
     # ---- emitter hits and escaped rays, MIS against the BSDF pdf ----
@@ -153,6 +157,8 @@ def path_bounce(integrator, scene, si, rng, ray_d, L, beta, eta, active, prev_pd
                             0.0)
 
     active_next = active & si.is_valid & (depth + 1 < max_depth)
+    if depth_limit is not None:
+        active_next = active_next & (depth + 1 < depth_limit)
 
     # ---- random numbers: always 4 x next_2d, in this order ----
     u0, u2a_x, rng = rng.next_2d()

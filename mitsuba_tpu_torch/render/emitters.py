@@ -1,5 +1,6 @@
 """Emitters (counterpart of mitsuba_tpu/render/emitters.py): the area
-light, the constant environment and the directional sun.
+light, the constant environment, the directional sun and the point light
+(one, or many fused into one ``PointEmitterArray``).
 
 As in the reference: sample_direction(ref_p, u2, geom, emitter_index,
 n_channels, wavelengths) returns (DirectionSample, weight) with weight =
@@ -7,7 +8,7 @@ radiance / pdf ([N, C]), pdf_direction is a solid-angle density, and
 eval(si, n_channels, wavelengths) is the radiance of a ray that hits the
 emitter; `wavelengths` [N, 4] are the lanes' wavelengths in the spectral
 variants, None elsewhere. A delta emitter
-(the sun) is never hit: its samples have pdf 1 and ``delta`` set, and MIS
+(the sun, a point light) is never hit: its samples have pdf 1 and ``delta`` set, and MIS
 gives them weight 1.
 
 An area light samples its shape's triangles by area (an inverse-cdf lookup
@@ -27,6 +28,7 @@ from ..core import warp
 from ..core.frame import dot, normalize
 from ..core.math import INV_FOUR_PI
 from .records import DirectionSample
+from .textures import to_channels
 
 
 def area_cdf(geometry, shape_index):
@@ -201,6 +203,107 @@ class DirectionalEmitter:
             uv=uv,
         )
         return ds, self.irradiance.eval(uv, n_channels, wavelengths)
+
+    def pdf_direction(self, ref_p, si):
+        return torch.zeros(ref_p.shape[:-1], dtype=torch.float32, device=ref_p.device)
+
+    def parameters_changed(self, geometry):
+        return self
+
+
+def _delta_sample(p, ref_p, d, dist, emitter_index, uv=None):
+    """The DirectionSample of a delta position (pdf 1, ``delta`` set)."""
+    n_lanes, dev = ref_p.shape[0], ref_p.device
+    return DirectionSample(
+        p=p, n=-d, d=d, dist=dist, pdf=torch.ones(n_lanes, dtype=torch.float32, device=dev),
+        delta=torch.ones(n_lanes, dtype=torch.bool, device=dev),
+        emitter_index=torch.full((n_lanes,), emitter_index, dtype=torch.int32, device=dev),
+        uv=torch.zeros(n_lanes, 2, dtype=torch.float32, device=dev) if uv is None else uv,
+    )
+
+
+def _toward(pos, ref_p):
+    """(dist^2, dist, unit direction) from each ref_p to pos."""
+    to_p = pos - ref_p
+    dist2 = dot(to_p, to_p)
+    dist = torch.sqrt(torch.clamp(dist2, min=1e-20))
+    return dist2, dist, to_p / dist[..., None]
+
+
+@dataclass
+class PointEmitter:
+    """Isotropic point light of radiant intensity `intensity` at
+    `position`."""
+
+    intensity: object           # texture
+    position: torch.Tensor      # [3]
+
+    is_environment = False
+    is_delta = True
+
+    def eval(self, si, n_channels, wavelengths=None):
+        return torch.zeros(si.p.shape[:-1] + (n_channels,), dtype=torch.float32,
+                           device=si.p.device)
+
+    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels, wavelengths=None):
+        dist2, dist, d = _toward(self.position, ref_p)
+        uv = torch.zeros(ref_p.shape[0], 2, dtype=torch.float32, device=ref_p.device)
+        weight = self.intensity.eval(uv, n_channels, wavelengths) / dist2[..., None]
+        return _delta_sample(self.position.expand(ref_p.shape), ref_p, d, dist,
+                             emitter_index), weight
+
+    def eval_sample_value(self, ds, n_channels, wavelengths=None):
+        return self.intensity.eval(ds.uv, n_channels, wavelengths)
+
+    def pdf_direction(self, ref_p, si):
+        return torch.zeros(ref_p.shape[:-1], dtype=torch.float32, device=ref_p.device)
+
+    def parameters_changed(self, geometry):
+        return self
+
+
+@dataclass
+class PointEmitterArray:
+    """Many point lights fused into one emitter: the light is drawn by an
+    inverse cdf over the lights' luminances (detached), the intensities
+    [K, Ct] stay one parameter. A lane's light index rides in its sample's
+    uv[..., 0]."""
+
+    values: torch.Tensor        # [K, Ct] rgb (Ct 3) or mono (Ct 1) intensities
+    positions: torch.Tensor     # [K, 3]
+
+    is_environment = False
+    is_delta = True
+
+    def eval(self, si, n_channels, wavelengths=None):
+        return torch.zeros(si.p.shape[:-1] + (n_channels,), dtype=torch.float32,
+                           device=si.p.device)
+
+    def _sel_cdf(self):
+        from ..core import spectrum as spec
+
+        v = self.values.detach()
+        lum = spec.luminance(v) if v.shape[-1] == 3 else v[..., 0]
+        cdf = torch.cumsum(torch.clamp(lum, min=1e-12), dim=0)
+        return cdf / cdf[-1]
+
+    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels, wavelengths=None):
+        K = self.positions.shape[0]
+        cdf = self._sel_cdf()
+        k = torch.clamp(torch.searchsorted(cdf, u2[..., 0].contiguous(), right=True), 0, K - 1)
+        cdf_lo = torch.cat([torch.zeros_like(cdf[:1]), cdf[:-1]])
+        pk = torch.clamp(cdf[k] - cdf_lo[k], min=1e-12)
+        pos = self.positions[k]
+        dist2, dist, d = _toward(pos, ref_p)
+        val = to_channels(self.values[k], n_channels, wavelengths, True)
+        uv = torch.stack([k.to(torch.float32), torch.zeros_like(dist)], dim=-1)
+        return _delta_sample(pos, ref_p, d, dist, emitter_index, uv), val / (dist2 * pk)[..., None]
+
+    def eval_sample_value(self, ds, n_channels, wavelengths=None):
+        """The intensity of the light recorded in ds.uv[..., 0], attached
+        (the PRB replay's recompute)."""
+        k = ds.uv[..., 0].to(torch.int64)
+        return to_channels(self.values[k], n_channels, wavelengths, True)
 
     def pdf_direction(self, ref_p, si):
         return torch.zeros(ref_p.shape[:-1], dtype=torch.float32, device=ref_p.device)

@@ -10,8 +10,12 @@ A medium answers, for points p [N, 3]:
 Free-flight sampling (delta and ratio tracking) lives in
 integrators/volpath.py, as in the reference.
 
-Not yet ported: the two-state medium of the recursive control variates
-(TwoStateMedium), which nothing outside its module uses in the reference.
+``TwoStateMedium`` holds a medium's current state and an older one, the
+pair that recursive control variates evaluate together (the fork's
+medium.h sample_interaction_twostates / transmittance_eval_pdf_old hooks):
+every query answers from the current state, the ``*_old`` ones from the
+old state. ``TwoStateMedium.wrap(m)`` is the reference's default (old ==
+current).
 """
 from __future__ import annotations
 
@@ -123,6 +127,52 @@ def transmittance_eval_pdf(mi_t, si_t, mint, combined_extinction):
     tr = torch.exp(-t * combined_extinction)
     pdf = torch.where((si_t < mi_t)[..., None], tr, tr * combined_extinction)
     return tr, pdf
+
+
+@dataclass
+class TwoStateMedium:
+    """A medium with a current and an old parameter state."""
+
+    current: object
+    old: object
+
+    @property
+    def is_homogeneous(self):
+        return self.current.is_homogeneous
+
+    @property
+    def phase_index(self):
+        return self.current.phase_index
+
+    def get_majorant(self, p, n_channels):
+        return self.current.get_majorant(p, n_channels)
+
+    def get_majorant_spectrum(self, p, n_channels):
+        return self.current.get_majorant_spectrum(p, n_channels)
+
+    def get_scattering_coefficients(self, p, n_channels):
+        return self.current.get_scattering_coefficients(p, n_channels)
+
+    def intersect_aabb(self, ray):
+        return self.current.intersect_aabb(ray)
+
+    def parameters_changed(self):
+        return dataclasses.replace(self, current=self.current.parameters_changed())
+
+    def get_scattering_coefficients_old(self, p, n_channels):
+        return self.old.get_scattering_coefficients(p, n_channels)
+
+    def transmittance_eval_pdf(self, mi_t, si_t, mint, p, n_channels):
+        _, _, st = self.current.get_scattering_coefficients(p, n_channels)
+        return transmittance_eval_pdf(mi_t, si_t, mint, st)
+
+    def transmittance_eval_pdf_old(self, mi_t, si_t, mint, p, n_channels):
+        _, _, st = self.old.get_scattering_coefficients(p, n_channels)
+        return transmittance_eval_pdf(mi_t, si_t, mint, st)
+
+    @staticmethod
+    def wrap(medium, old=None):
+        return TwoStateMedium(current=medium, old=medium if old is None else old)
 
 
 def parse_phase(spec, param_paths, phase_prefix, phase_path_root, device):

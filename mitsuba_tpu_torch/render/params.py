@@ -10,6 +10,15 @@ dict made from the JAX package's ``mi.traverse(scene)`` carries across:
 old one as it was. After a vertex write it re-derives the triangle tables
 (Geometry.refresh) and the area emitters' cdfs from them; after a write to
 a medium, its majorant (the reference's parameters_changed).
+
+The meshes share one vertex buffer, where the reference gives each mesh
+its own. A ``<shape>.vertex_positions`` write therefore rebuilds the
+buffer from its values, detached, and the rows written in this update:
+those keep their values' graphs, and no update carries the graph of an
+earlier one. A shape written in an earlier update keeps its value and
+loses its graph, so an optimisation loop writes every shape it
+differentiates in the update before each render (writing one shape once
+and then another in a loop that calls backward works).
 """
 from __future__ import annotations
 
@@ -101,15 +110,24 @@ class SceneParameters:
         scene = self._scene
         geometry_touched = False
         media_touched = set()
+        rows = {}            # shared buffer's path -> [(row slice, value)] written now
         for key, value in self._pending.items():
             path = self._paths[key]
             old = _tree_get(scene, path)
             value = value.to(old.device).expand(old.shape).clone(memory_format=torch.contiguous_format)
-            scene = _tree_set(scene, path, value)
+            if _is_slice(path[-1]):
+                rows.setdefault(path[:-1], []).append((path[-1], value))
+            else:
+                scene = _tree_set(scene, path, value)
             geometry_touched |= path[0] == "geometry"
             if path[0] == "media":
                 media_touched.add(path[:2])
         self._pending.clear()
+        for root, written in rows.items():
+            buf = _tree_get(scene, root).detach().clone()
+            for (_, lo, hi), value in written:
+                buf[lo:hi] = value
+            scene = _tree_set(scene, root, buf)
         for root in sorted(media_touched):
             # a medium re-derives its majorant from its new coefficients
             scene = _tree_set(scene, root, _tree_get(scene, root).parameters_changed())

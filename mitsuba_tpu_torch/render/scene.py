@@ -193,7 +193,9 @@ class Scene:
         nc = self.n_channels
         out = torch.zeros(ds.d.shape[0], nc, dtype=torch.float32, device=ds.d.device)
         for i, em in enumerate(self.emitters):
-            if em.is_environment:
+            if hasattr(em, "eval_sample_value"):
+                v = em.eval_sample_value(ds, nc, wavelengths)
+            elif em.is_environment:
                 v = em.eval_escaped(ds.d, nc, wavelengths)
             elif hasattr(em, "radiance"):
                 v = em.radiance.eval(ds.uv, nc, wavelengths)

@@ -2,9 +2,10 @@
 of mitsuba_tpu/render/scene_loader.py).
 
 Accepted plugin types: ``scene``; the ``path``, ``prb``, ``prb_basic``,
-``volpath``, ``prbvolpath`` (``prb_unpolarized``), ``prb_polarized``,
-``volpathaos``, ``prb_volpathaos``, ``direct``, ``depth``, ``aov``,
-``stokes`` and ``moment`` integrators; the ``perspective`` and ``radiancemeter``
+``volpath``, ``volpathmis``, ``prbvolpath`` (``prb_unpolarized``),
+``prb_polarized``, ``volpathaos``, ``prb_volpathaos``, ``direct``,
+``depth``, ``aov``, ``stokes``, ``moment``, ``ptracer``,
+``direct_projective`` and ``prb_projective`` integrators; the ``perspective`` and ``radiancemeter``
 (with an optional ``wavelength``) sensors with an ``independent`` sampler
 and an ``hdrfilm`` (or a ``specfilm``, whose nested spectra are its
 channels' sensor response functions) with a ``gaussian``, ``box`` or
@@ -22,8 +23,11 @@ raw-array ``mesh`` shapes, with an ``interior`` and ``exterior`` medium;
 fields, the ``isotropic``, ``hg``, ``sggx``, ``rayleigh``, ``mie`` (with a
 ``monodisperse``, ``gamma``, ``lognormal`` or ``powerlaw`` size
 distribution), ``tabphase_polarized`` and ``blendphase`` phase functions);
-``area`` emitters, the ``constant`` environment emitter and the
-``directional`` sun; ``ref`` to a named BSDF or medium. Any other type
+``area`` emitters, the ``constant`` environment emitter, the
+``directional`` sun and ``point`` lights (more than four with a constant
+intensity are fused into one ``PointEmitterArray``, as in the JAX
+package; ``fuse_point_lights`` True or False at the root of the dict
+forces it either way); ``ref`` to a named BSDF or medium. Any other type
 raises ``NotImplementedError``: it is not yet ported (``serialized`` and
 ``blender`` meshes among them).
 
@@ -49,7 +53,8 @@ from .. import native
 from ..core.transform import Transform, build_transform
 from . import bsdfs as B
 from ..variant import current_variant
-from .emitters import AreaEmitter, ConstantEmitter, DirectionalEmitter
+from .emitters import (AreaEmitter, ConstantEmitter, DirectionalEmitter, PointEmitter,
+                       PointEmitterArray)
 from .film import Film, srf_norms
 from .media import MEDIUM_TYPES, parse_medium
 from .scene import Scene
@@ -66,8 +71,8 @@ BSDF_TYPES = ("diffuse", "null", "roughdielectric", "dielectric", "thindielectri
 BSDF_TYPES_NOT_PORTED = ("normalmap", "bumpmap", "plastic", "principled", "principledthin",
                          "principled_thin", "measured", "measured_polarized", "hair")
 ALL_BSDF_TYPES = BSDF_TYPES + BSDF_TYPES_NOT_PORTED
-# the reference's environment and delta emitters; "constant" and
-# "directional" are ported
+# the reference's environment and delta emitters; "constant",
+# "directional" and "point" are ported
 EMITTER_TYPES = ("constant", "point", "directional", "envmap", "spot", "projector")
 SENSOR_TYPES = ("perspective", "radiancemeter")
 FILM_KEYS_NOT_PORTED = ("crop_offset_x", "crop_offset_y", "crop_width", "crop_height")
@@ -371,8 +376,9 @@ def parse_sensor(spec, device):
     return cam, film, spp
 
 
-INTEGRATOR_TYPES = ("path", "prb", "prb_basic", "volpath", "prbvolpath", "prb_unpolarized",
-                    "prb_polarized", "volpathaos", "prb_volpathaos")
+INTEGRATOR_TYPES = ("path", "prb", "prb_basic", "volpath", "volpathmis", "prbvolpath",
+                    "prb_unpolarized", "prb_polarized", "volpathaos", "prb_volpathaos", "ptracer",
+                    "direct_projective", "prb_projective")
 
 
 def load_dict(d, device=None, intersector="smem"):
@@ -391,6 +397,7 @@ def load_dict(d, device=None, intersector="smem"):
     d = dict(d)
     if d.pop("type", "scene") != "scene":
         raise ValueError("the root of a scene dict must have type 'scene'")
+    fuse_point_lights = d.pop("fuse_point_lights", None)   # None: fuse more than four
 
     named_bsdfs = {}      # id -> index
     bsdf_list = []
@@ -461,7 +468,7 @@ def load_dict(d, device=None, intersector="smem"):
         elif t in SENSOR_TYPES:
             sensor, film, spp = parse_sensor(spec, device)
         elif t in EMITTER_TYPES:
-            if t not in ("constant", "directional"):
+            if t not in ("constant", "directional", "point"):
                 raise _not_ported(f"emitter type {t!r}")
             env_specs.append((name, spec))
         elif t in SHAPE_TYPES:
@@ -522,8 +529,14 @@ def load_dict(d, device=None, intersector="smem"):
         shape_records[shape_index]["emitter"] = e_idx
     env_emitter = -1
     scene_radius = torch.tensor(radius, dtype=torch.float32, device=device)
+    env_specs = _fuse_point_lights(env_specs, fuse_point_lights, emitters, param_paths, device)
     for name, spec in env_specs:
         e_idx = len(emitters)
+        if spec["type"] == "point":
+            tex, leaf = parse_texture(spec.get("intensity", 1.0), device, emissive=True)
+            emitters.append(PointEmitter(intensity=tex, position=_point_position(spec, device)))
+            param_paths.append((f"{name}.intensity.{leaf}", ("emitters", e_idx, "intensity", leaf)))
+            continue
         if spec["type"] == "directional":
             tex, leaf = parse_texture(spec.get("irradiance", 1.0), device, emissive=True)
             dirn = np.asarray(spec.get("direction", [0, 0, -1]), np.float32)
@@ -577,6 +590,48 @@ def load_dict(d, device=None, intersector="smem"):
         n_channels=var.n_channels,
         polarized=var.polarized,
     )
+
+
+def _point_position(spec, device):
+    """A point light's position: the translation of its to_world, else
+    `position` (the origin by default)."""
+    p = spec.get("position", [0, 0, 0])
+    if "to_world" in spec:
+        p = np.asarray(build_transform(spec["to_world"]).m)[:3, 3]
+    return torch.from_numpy(np.asarray(p, np.float32)).to(device)
+
+
+def _bakeable_intensity(spec):
+    """The rgb intensity [3] of a point light with a constant one, else
+    None."""
+    i = spec.get("intensity", 1.0)
+    if isinstance(i, (int, float)):
+        return [float(i)] * 3
+    if isinstance(i, (list, tuple)) and len(i) in (1, 3):
+        v = [float(x) for x in i]
+        return v * 3 if len(v) == 1 else v
+    if isinstance(i, dict) and i.get("type") in ("rgb", "uniform"):
+        v = i.get("value", 1.0)
+        return [float(v)] * 3 if isinstance(v, (int, float)) else [float(x) for x in v]
+    return None
+
+
+def _fuse_point_lights(env_specs, fuse, emitters, param_paths, device):
+    """Append one PointEmitterArray of the point lights with a constant
+    intensity to `emitters` when there are more than four of them (or any,
+    when `fuse` is True; none when it is False), as the JAX package's
+    loader does; returns the entries left to load one by one."""
+    group = [(name, spec, _bakeable_intensity(spec)) for name, spec in env_specs
+             if spec["type"] == "point" and _bakeable_intensity(spec) is not None]
+    if not (len(group) > 4 if fuse is None else (fuse and group)):
+        return env_specs
+    names = {name for name, _, _ in group}
+    e_idx = len(emitters)
+    emitters.append(PointEmitterArray(
+        values=torch.from_numpy(np.asarray([v for _, _, v in group], np.float32)).to(device),
+        positions=torch.stack([_point_position(spec, device) for _, spec, _ in group])))
+    param_paths.append(("point_lights.values", ("emitters", e_idx, "values")))
+    return [(name, spec) for name, spec in env_specs if name not in names]
 
 
 def cornell_box():

@@ -1,5 +1,5 @@
 """Sensors (counterpart of mitsuba_tpu/render/sensors.py): the perspective
-camera and the radiancemeter.
+camera (with its inverse, ``project``) and the radiancemeter.
 
 ``sample_ray`` makes one camera ray per lane from a film-plane sample in
 [0,1]^2 (u right, v down: film row 0 is the top of the image). A sensor
@@ -33,6 +33,26 @@ class PerspectiveCamera:
         # d = d_cam @ R.T, written out so the summation order is fixed
         d = d_cam[..., 0:1] * R[:, 0] + d_cam[..., 1:2] * R[:, 1] + d_cam[..., 2:3] * R[:, 2]
         return Ray.make(o, d)
+
+    def project(self, p):
+        """World points [N, 3] -> (film uv [N, 2] in [0, 1)^2, valid [N]):
+        the inverse of sample_ray, differentiable in p (the projective
+        gradients' curve map)."""
+        R = self.to_world_m[:3, :3]
+        q = p - self.to_world_m[:3, 3]
+        # q @ R (camera frame; R is orthonormal), written out
+        pc = q[..., 0:1] * R[0] + q[..., 1:2] * R[1] + q[..., 2:3] * R[2]
+        z = pc[..., 2]
+        valid = z > 1e-6
+        zs = torch.where(valid, z, 1.0)
+        u = 0.5 * (1.0 - pc[..., 0] / (zs * self.tan_half_fov_x))
+        v = 0.5 * (1.0 - pc[..., 1] * self.aspect / (zs * self.tan_half_fov_x))
+        valid = valid & (u >= 0) & (u < 1) & (v >= 0) & (v < 1)
+        return torch.stack([u, v], dim=-1), valid
+
+    @property
+    def position(self):
+        return self.to_world_m[:3, 3]
 
 
 @dataclass

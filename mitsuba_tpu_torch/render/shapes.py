@@ -68,6 +68,17 @@ class Geometry:
     # 16-byte rows (ops/bvh_sweep.py:kernel_rows), without a gradient; built
     # with the tables, so that no launch pads the table again
     bvh_rows: torch.Tensor | None = None
+    # the unique mesh edges, for silhouette sampling (ad/projective.py):
+    # endpoint vertex indices [E, 2] int64, the one or two adjacent
+    # triangles [E, 2] int64 (-1: an open edge) and the shape [E] int32 (-1
+    # on the one pad row of an empty scene); built once, with the tables.
+    # edge_fv [E, 2, 2] int64: the same endpoints as the vertices of each
+    # of the two triangles (the first's where the edge is open), which
+    # differ from edge_v where a mesh splits its vertices at the edge
+    edge_v: torch.Tensor | None = None
+    edge_f: torch.Tensor | None = None
+    edge_shape: torch.Tensor | None = None
+    edge_fv: torch.Tensor | None = None
 
     @property
     def has_bvh(self):
@@ -197,6 +208,8 @@ def build_geometry(tri_meshes, device, intersector="smem"):
     def dev(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
+    edge_v, edge_f, edge_shape, edge_fv = edge_table(tri["tri_face"][:T], tri["tri_shape"][:T],
+                                                     cat(verts_all, (1, 3)))
     geom = Geometry(
         vertices=dev(cat(verts_all, (1, 3))),
         vertex_normals=dev(cat(vnorms_all, (1, 3))),
@@ -208,9 +221,63 @@ def build_geometry(tri_meshes, device, intersector="smem"):
         mesh_vertex_slices=tuple(vslices),
         intersector=intersector,
         n_real_tris=T,
+        edge_v=dev(edge_v),
+        edge_f=dev(edge_f),
+        edge_shape=dev(edge_shape),
+        edge_fv=dev(edge_fv),
     )
     return dataclasses.replace(geom, tri_vn=geom._shading_normals(geom.tri_ng),
                                bvh_rows=geom._bvh_rows(geom.tri_v0, geom.tri_e1, geom.tri_e2))
+
+
+def weld(vertices, faces, tri_shape):
+    """faces [T, 3] with each vertex replaced by the lowest-numbered vertex
+    of the same shape at the same position (bit for bit)."""
+    V = vertices.shape[0]
+    vshape = np.full(V, -1, np.int64)
+    vshape[faces.reshape(-1)] = np.repeat(tri_shape.astype(np.int64), 3)
+    key = np.concatenate([vshape[:, None].astype(np.float64),
+                          vertices.astype(np.float64)], axis=1)
+    _, first, inverse = np.unique(key, axis=0, return_index=True, return_inverse=True)
+    return first[inverse.reshape(-1)][faces]
+
+
+def edge_table(faces, tri_shape, vertices, weld_vertices=True):
+    """The unique edges of the triangles `faces` [T, 3] (in the table's
+    order, so after a BVH's permutation): (edge_v [E, 2], the canonical
+    (low, high) vertex pairs in ascending order; edge_f [E, 2], the first
+    and second triangle that holds each, -1 where only one does; edge_shape
+    [E], the shape of the first; edge_fv [E, 2, 2], the endpoints of
+    edge_v as vertices of each of the two triangles, the first's twice on
+    an open edge). With `weld_vertices`, an edge is a pair of positions of
+    one shape (``weld``): a mesh whose faces do not share their vertices
+    (the cube, a mesh split at its normal or uv seams) has each edge once,
+    with its two faces, and edge_fv names each face's copies of its
+    endpoints. Without it, an edge is a pair of vertex indices, as the JAX
+    package keys it: such a mesh has each edge twice, open. An empty scene
+    gets one pad row (shape -1)."""
+    T = faces.shape[0]
+    if T == 0:
+        return (np.zeros((1, 2), np.int64), np.full((1, 2), -1, np.int64),
+                np.full((1,), -1, np.int32), np.zeros((1, 2, 2), np.int64))
+    raw = faces.astype(np.int64)
+    faces = weld(vertices, faces, tri_shape) if weld_vertices else raw
+    pairs = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]], axis=0)
+    raw_pairs = np.concatenate([raw[:, [0, 1]], raw[:, [1, 2]], raw[:, [2, 0]]], axis=0)
+    # each face's copies of the endpoints, in the order of (low, high)
+    raw_pairs = np.where((pairs[:, 0] <= pairs[:, 1])[:, None], raw_pairs, raw_pairs[:, ::-1])
+    owner = np.tile(np.arange(T, dtype=np.int64), 3)
+    key = pairs.min(axis=1).astype(np.int64) * np.int64(1 << 32) + pairs.max(axis=1)
+    order = np.argsort(key, kind="stable")
+    key_s, owner_s, raw_s = key[order], owner[order], raw_pairs[order]
+    uniq, start = np.unique(key_s, return_index=True)
+    nxt = np.minimum(start + 1, key_s.shape[0] - 1)
+    has2 = (key_s[nxt] == uniq) & (nxt != start)
+    edge_v = np.stack([uniq // (1 << 32), uniq % (1 << 32)], axis=-1).astype(np.int64)
+    edge_f = np.stack([owner_s[start], np.where(has2, owner_s[nxt], -1)], axis=-1)
+    edge_fv = np.stack([raw_s[start], np.where(has2[:, None], raw_s[nxt], raw_s[start])], axis=1)
+    return (edge_v, edge_f.astype(np.int64), tri_shape[owner_s[start]].astype(np.int32),
+            edge_fv.astype(np.int64))
 
 
 def ray_intersect_preliminary(geom: Geometry, ray: Ray, active=None):

@@ -225,7 +225,10 @@ def render(scene, params=None, sensor=0, seed=0, spp=None, spp_per_pass=None,
     lane per pixel, all spp in one pass (spp_per_pass, spp_grad, timeout
     and cancel have no effect), and `stats` also gets wavefront_iters, the
     loop's steps; with a PRB integrator the loop is one PRB node whose
-    backward replays it (ad/render_ad.py:prb_regen_px).
+    backward replays it (ad/render_ad.py:prb_regen_px). The particle
+    tracer (``ptracer``) and the projective integrators
+    (``direct_projective``, ``prb_projective``: ad/projective.py) also
+    render all spp in one pass, with the same arguments ignored.
 
     `timeout` (seconds of wall clock) and `cancel` (a CancelToken) stop
     the passes early, at a pass boundary after the first, and return the
@@ -253,6 +256,12 @@ def render(scene, params=None, sensor=0, seed=0, spp=None, spp_per_pass=None,
     film = scene.film
     spp = spp or scene.spp
     seed_grad = derive_seed_grad(seed, seed_grad)
+    if getattr(scene.integrator, "is_ptracer", False):
+        return _render_ptracer(scene, seed, spp, sensor, stats)
+    if getattr(scene.integrator, "is_projective", False):
+        from .ad.projective import projective_render
+
+        return projective_render(scene, seed, spp, sensor, stats)
     if regenerates(scene):
         if getattr(scene.integrator, "is_prb", False):
             return _render_regen_prb(scene, seed, seed_grad, spp, sensor, stats)
@@ -292,9 +301,12 @@ def render_progressive(scene, sensor=0, seed=0, spp=None, spp_per_pass=None):
     """Generator of (samples done, the image of the samples done) after
     every pass of passes of spp_per_pass samples (by default max(1, spp //
     8)): the last image is render(spp_per_pass=...)'s. A regenerative
-    integrator renders all its samples in one loop and yields once."""
+    integrator, the particle tracer and the projective integrators render
+    all their samples in one go and yield once."""
     spp = spp or scene.spp
-    if regenerates(scene):
+    integ = scene.integrator
+    if (regenerates(scene) or getattr(integ, "is_ptracer", False)
+            or getattr(integ, "is_projective", False)):
         yield spp, render(scene, sensor=sensor, seed=seed, spp=spp)
         return
     spp_per_pass = min(spp_per_pass or max(1, spp // 8), spp)
@@ -380,6 +392,21 @@ def _render_regen_prb(scene, seed, seed_grad, spp, sensor_idx, stats=None):
     if stats is not None:
         stats.update({k: int(v) for k, v in aux.items()})
     return _regen_image(scene.film, L_px, spp)
+
+
+def _render_ptracer(scene, seed, spp, sensor_idx, stats=None):
+    """Adjoint particle tracing: W * H * spp particles splatted onto the
+    film, the image their sums over the particle count (rgb and mono)."""
+    if scene.polarized or scene.n_channels == 4:
+        raise ValueError("ptracer renders in the rgb and mono variants only")
+    film = scene.film
+    scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
+    n = film.n_pixels * spp
+    rng = RNG(seed, torch.arange(n, dtype=torch.int64, device=scene.device))
+    acc, aux = scene.integrator.trace_particles(scene, rng, n, sensor_idx)
+    if stats is not None:
+        stats.update({k: int(v) for k, v in aux.items()})
+    return (acc / n).reshape(film.height, film.width, -1)
 
 
 def render_forward(scene, tangent=None, key=None, sensor=0, seed=0, spp=None):

@@ -223,9 +223,13 @@ def test_integrator_types():
         "PRBVolpathIntegrator"
     assert type(mt.load_dict(_cbox("direct"), device="cpu").integrator).__name__ == \
         "DirectIntegrator"
-    for t in ("ptracer", "volpathmis"):
-        with pytest.raises(NotImplementedError):
-            mt.load_dict(_cbox(t), device="cpu")
+    for t, cls in (("ptracer", "PTracerIntegrator"), ("volpathmis", "VolPathMisIntegrator"),
+                   ("direct_projective", "ProjectiveIntegrator"),
+                   ("prb_projective", "ProjectiveIntegrator")):
+        assert type(mt.load_dict(_cbox(t), device="cpu").integrator).__name__ == cls
+    bases = {t: type(mt.load_dict(_cbox(t), device="cpu").integrator.base).__name__
+             for t in ("direct_projective", "prb_projective")}
+    assert bases == {"direct_projective": "DirectIntegrator", "prb_projective": "PRBIntegrator"}
 
 
 # ---------------------------------------------------------------------------

@@ -287,6 +287,24 @@ def test_port_imports_and_renders_without_jax(tmp_path):
             vol["integrator"]["regenerate"] = regen
             img = mt.render(mt.load_dict(vol, device="cpu"), spp=2, seed=0)
             assert img.shape == (8, 8, 3) and bool(img.isfinite().all()) and float(img.mean()) > 0
+        # the last integrators and the boundary gradients: ptracer,
+        # volpathmis, prb_projective on vertex_positions, LargeSteps, and
+        # the adding-doubling solver
+        from mitsuba_tpu_torch.ad import projective, largesteps
+        from mitsuba_tpu_torch.integrators import ptracer, volpathmis
+        from mitsuba_tpu_torch.utils import doubling
+        d["integrator"] = {"type": "ptracer", "max_depth": 2}
+        assert bool(mt.render(mt.load_dict(d, device="cpu"), spp=1, seed=0).isfinite().all())
+        vol["integrator"] = {"type": "volpathmis", "max_depth": 2}
+        assert bool(mt.render(mt.load_dict(vol, device="cpu"), spp=1, seed=0).isfinite().all())
+        d["integrator"] = {"type": "prb_projective", "max_depth": 2, "sppp": 1, "sppi": 1}
+        params = mt.traverse(mt.load_dict(d, device="cpu"))
+        v = params["small-box.vertex_positions"].clone().requires_grad_()
+        mt.render(params.update({"small-box.vertex_positions": v}), spp=1, seed=0).mean().backward()
+        assert bool(v.grad.isfinite().all()) and float(v.grad.abs().sum()) > 0
+        ls = ad.LargeSteps(v.detach(), [[0, 1, 2], [0, 2, 3]])
+        assert bool((ls.from_differential(ls.to_differential(v.detach())) - v).abs().max() < 1e-4)
+        assert doubling.doubling_slab(0.25, [0.5], n_gauss=8, nphi=8)["e"] > 0
         assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         print("OK")
     """)
@@ -317,7 +335,7 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
     d = _cbox()
-    d["integrator"] = {"type": "volpathmis"}
+    d["env"] = {"type": "envmap", "filename": "sky.exr"}
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
     d = _cbox()

@@ -400,7 +400,7 @@ def test_volume_scene_refusals():
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
     d = het_vol_scene()
-    d["lamp"] = {"type": "point", "position": [0, 2, 0]}
+    d["lamp"] = {"type": "spot", "position": [0, 2, 0]}
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
     assert get_ops(True).polarized
