@@ -86,7 +86,19 @@ user entry points, and checks that each went through its kernels:
   of the plain Moller-Trumbore; and the two physics golds
   (tests/test_rayleigh_slab_gold.py in mono_polarized at 16,384 spp,
   tests/test_chandrasekhar_gold.py in mono at 8,192 spp), each within its
-  test's bound.
+  test's bound;
+- the material preview and the new emitters and sensors: spheres_scene
+  (three analytic spheres, a sphere light, a spot, an envmap, a thin lens,
+  a mitchell filter) at 256x256 @ 64 spp through K1 and the sphere pass,
+  every K1 launch of one render held bit for bit, a crop window bit for
+  bit the full render's window, the 64x64 @ 16 spp means against the JAX
+  package's; its prb step (the envmap's data and a sphere's reflectance),
+  the 64x64 gradients at max_depth 4 against the JAX package's; the cbox
+  lit by 8 fused panels through path and ptracer (and a collimated
+  panel); the orthographic, batch (render_test), distant and
+  irradiancemeter (over config 4's atmosphere) sensors and the projector;
+  and the large mesh with an analytic sphere and the envmap through K2,
+  every K2 launch of one render held bit for bit against the plain walk.
 
 Any failure raises and exits non-zero.
 
@@ -547,7 +559,7 @@ def phase_k1(mi, K1, make_wavefront):
     geom = scene.geometry.refresh()
     table64 = K1.build_tri_table(geom)
     table = table64[:geom.n_real_tris]
-    _, ray, _ = make_wavefront(scene, 0, 0, n, 0, spp, spp)
+    _, ray, _, _, _ = make_wavefront(scene, 0, 0, n, 0, spp, spp)
     # bounce 0's fused launch: the camera rays, then the N pending shadow
     # slots, all disabled on the first bounce
     o = torch.cat([ray.o, ray.o]).contiguous()
@@ -1160,7 +1172,7 @@ def mesh_batches(scene, make_wavefront, shapes_mod, warp, spawn_ray):
     directions off the bounce-0 hits), each [n] with disabled lanes where
     the camera ray missed."""
     n = scene.film.n_pixels * MESH_SPP
-    _, ray, _ = make_wavefront(scene, 0, 0, n, 0, MESH_SPP, MESH_SPP)
+    _, ray, _, _, _ = make_wavefront(scene, 0, 0, n, 0, MESH_SPP, MESH_SPP)
     geom = scene.geometry.refresh()
     si = shapes_mod.compute_surface_interaction(
         geom, ray, shapes_mod.ray_intersect_preliminary(geom, ray))
@@ -2280,12 +2292,18 @@ def k1_in_place_and_held(K1, name, fn, reps=5):
     return len(per), sum(m for m, _ in per), b2b, sum(b["ms"] for _, b in per), by, bitwise
 
 
-def timed_calls(K1, K2, K3, name, fn, n, warm_up=True):
+def timed_calls(K1, K2, K3, name, fn, n, warm_up=True, kernel="K1"):
     """fn(seed 0, stats) n times after a warm-up fn(1, {}) (unless the
-    caller warmed up), each ending in a synchronise: (walls, K1 launches of
-    each call, the last stats, the last result, the peak memory); fails
-    unless K1 alone ran, the same number of times in each call, and never
-    its plain version."""
+    caller warmed up), each ending in a synchronise, with the counts set to
+    0 before the first: (walls, launches of `kernel` in each call (K2: its
+    closest-hit and any-hit launches together), the last stats, the last
+    result, the peak memory); fails unless `kernel` alone ran, the same
+    number of times in each call, and never K1's plain version."""
+    def launched():
+        return {"K1": K1.smem_intersect.launches,
+                "K2": K2.bvh_sweep_intersect.launches + K2.bvh_sweep_occluded.launches,
+                "K3": K3.mxu_intersect.launches}
+
     if warm_up:
         fn(1, {})
     torch.cuda.synchronize()
@@ -2293,18 +2311,18 @@ def timed_calls(K1, K2, K3, name, fn, n, warm_up=True):
     reset_launches(K1, K2, K3)
     walls, per_call = [], []
     for _ in range(n):
-        before, stats = K1.smem_intersect.launches, {}
+        before, stats = launched()[kernel], {}
         with no_plain_closest_hit(K1, name):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(0, stats)
             torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        per_call.append(K1.smem_intersect.launches - before)
-    others = K2.bvh_sweep_intersect.launches + K2.bvh_sweep_occluded.launches \
-        + K3.mxu_intersect.launches
+        per_call.append(launched()[kernel] - before)
+    others = sum(v for k, v in launched().items() if k != kernel)
     if min(per_call) == 0 or len(set(per_call)) != 1 or others:
-        raise AssertionError(f"{name}: K1 launches per call {per_call}, K2 and K3 {others}")
+        raise AssertionError(f"{name}: {kernel} launches per call {per_call}, the other "
+                             f"closest-hit kernels {others}")
     return walls, per_call, stats, out, torch.cuda.max_memory_allocated()
 
 
@@ -3338,6 +3356,452 @@ def phase_golds(mi, K1, K2, K3):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the material preview (PR 13): analytic spheres, the envmap, spot,
+# projector, fused and collimated area lights; the thin lens, the
+# orthographic, irradiancemeter, distant and batch sensors; the crop window
+# and the negative-lobe filters
+# ---------------------------------------------------------------------------
+
+SPHERES_RES, SPHERES_SPP, SPHERES_RENDERS = 256, 64, 2
+# the other new phases' film, and the films of their checks against the JAX
+# package
+SLICE13_RES, SLICE13_RES64 = 256, 64
+# a crop window of the spheres render: (x, y) offset and (width, height)
+SPHERES_CROP = ((64, 96), (96, 64))
+SPHERES_PRB_KEYS = ("sky.data", "diffuse-ball.bsdf.reflectance.value")
+PTRACER_INTEGRATOR = {"type": "ptracer", "max_depth": 8}
+MANYLIGHTS_SPP = 64
+SENSORS_SPP = 16
+ATMO_SENSOR_RES, ATMO_SENSOR_SPP = 32, 64
+SPHERES_MESH_SPP = 16
+# the new phases' 64x64 means and gradients against the JAX package's
+SLICE13_RTOL = 1e-3
+SLICE13_SPP64 = 16
+# path and ptracer estimate the same image; their 64 spp means agree to
+# the noise of the particles (tests/test_ptracer.py's 5%)
+MANYLIGHTS_ESTIMATORS_RTOL = 0.05
+# The JAX package's values, computed once with mitsuba_tpu on the CPU by
+# scripts/torch_slice13_constants.py (its docstring says how each is
+# made; ~10 minutes), at seed 0, 64x64 @ 16 spp unless said:
+# - spheres_scene (path max_depth 8, mitchell): the pixels within the
+#   filter's radius of a lane whose path parts between the packages (the
+#   JAX package op by op against the port on the CPU), and the JAX
+#   package's means over the others (as PR 10 held the materials scene):
+SPHERES64_PARTING_PIXELS = (
+    1669, 1670, 1671, 1672, 1673, 1689, 1690, 1691, 1692, 1693, 1733, 1734, 1735, 1736, 1737,
+    1753, 1754, 1755, 1756, 1757, 1763, 1764, 1765, 1766, 1767, 1797, 1798, 1799, 1800, 1801,
+    1817, 1818, 1819, 1820, 1821, 1827, 1828, 1829, 1830, 1831, 1857, 1858, 1859, 1860, 1861,
+    1862, 1863, 1864, 1865, 1881, 1882, 1883, 1884, 1885, 1891, 1892, 1893, 1894, 1895, 1914,
+    1915, 1916, 1917, 1918, 1921, 1922, 1923, 1924, 1925, 1926, 1927, 1928, 1929, 1945, 1946,
+    1947, 1948, 1949, 1954, 1955, 1956, 1957, 1958, 1959, 1968, 1969, 1970, 1971, 1972, 1973,
+    1974, 1975, 1976, 1977, 1978, 1979, 1980, 1981, 1982, 1985, 1986, 1987, 1988, 1989, 2007,
+    2008, 2009, 2010, 2011, 2018, 2019, 2020, 2021, 2022, 2023, 2026, 2027, 2028, 2029, 2030,
+    2032, 2033, 2034, 2035, 2036, 2037, 2038, 2039, 2040, 2041, 2042, 2043, 2044, 2045, 2046,
+    2049, 2050, 2051, 2052, 2053, 2069, 2070, 2071, 2072, 2073, 2074, 2075, 2082, 2083, 2084,
+    2085, 2086, 2090, 2091, 2092, 2093, 2094, 2096, 2097, 2098, 2099, 2100, 2101, 2102, 2103,
+    2104, 2105, 2106, 2107, 2108, 2109, 2110, 2113, 2114, 2115, 2116, 2117, 2128, 2129, 2130,
+    2131, 2132, 2133, 2134, 2135, 2136, 2137, 2138, 2139, 2146, 2147, 2148, 2149, 2150, 2154,
+    2155, 2156, 2157, 2158, 2159, 2160, 2161, 2162, 2163, 2164, 2165, 2166, 2167, 2168, 2169,
+    2170, 2171, 2172, 2173, 2174, 2192, 2193, 2194, 2195, 2196, 2197, 2198, 2199, 2200, 2201,
+    2202, 2203, 2210, 2211, 2212, 2213, 2214, 2218, 2219, 2220, 2221, 2222, 2223, 2224, 2225,
+    2226, 2227, 2228, 2229, 2230, 2231, 2232, 2233, 2255, 2256, 2257, 2258, 2259, 2260, 2261,
+    2262, 2263, 2264, 2265, 2266, 2267, 2282, 2283, 2284, 2285, 2286, 2287, 2316, 2317, 2318,
+    2319, 2320, 2321, 2322, 2323, 2324, 2325, 2326, 2327, 2328, 2329, 2347, 2348, 2349, 2350,
+    2351, 2380, 2381, 2382, 2383, 2384, 2385, 2386, 2387, 2388, 2389, 2390, 2391, 2392, 2393,
+    2394, 2395, 2396, 2397, 2398, 2411, 2412, 2413, 2414, 2415, 2444, 2445, 2446, 2447, 2448,
+    2449, 2450, 2451, 2452, 2453, 2454, 2455, 2456, 2457, 2458, 2459, 2460, 2461, 2462, 2498,
+    2499, 2500, 2501, 2502, 2508, 2509, 2510, 2511, 2512, 2513, 2514, 2515, 2516, 2517, 2518,
+    2519, 2520, 2521, 2522, 2523, 2524, 2525, 2526, 2562, 2563, 2564, 2565, 2566, 2567, 2568,
+    2569, 2570, 2572, 2573, 2574, 2575, 2576, 2577, 2578, 2579, 2580, 2581, 2582, 2583, 2584,
+    2585, 2586, 2587, 2588, 2589, 2590, 2626, 2627, 2628, 2629, 2630, 2631, 2632, 2633, 2634,
+    2635, 2636, 2637, 2638, 2640, 2641, 2642, 2643, 2644, 2645, 2646, 2647, 2648, 2649, 2650,
+    2651, 2652, 2653, 2654, 2690, 2691, 2692, 2693, 2694, 2695, 2696, 2697, 2698, 2699, 2700,
+    2701, 2702, 2703, 2704, 2705, 2706, 2707, 2708, 2712, 2713, 2714, 2715, 2716, 2717, 2718,
+    2719, 2754, 2755, 2756, 2757, 2758, 2759, 2760, 2761, 2762, 2763, 2764, 2765, 2766, 2767,
+    2777, 2778, 2779, 2780, 2781, 2782, 2783, 2822, 2823, 2824, 2825, 2826, 2827, 2828, 2829,
+    2830, 2831, 2841, 2842, 2843, 2844, 2845, 2846, 2847, 2886, 2887, 2888, 2889, 2890, 2891,
+    2892, 2893, 2894, 2895, 2905, 2906, 2907, 2908, 2909, 2910, 2911, 2950, 2951, 2952, 2953,
+    2954, 2955, 2956, 2957, 2958, 2959, 2970, 2971, 2972, 2973, 2974, 2975)
+JAX_SPHERES64_KEPT_MEANS = (0.47568437457084656, 0.47659072279930115, 0.5380203723907471)
+# (the whole image's means (0.45725053548812866, 0.45442354679107666, 0.514112651348114))
+# - the same with prb max_depth 4: the image mean's gradient for the
+#   envmap's data (its sum, and its 8 largest texels (flat index, value))
+#   and for the diffuse sphere's reflectance:
+JAX_SPHERES_PRB64_ENV_SUM = 0.6571254470629322
+JAX_SPHERES_PRB64_ENV_TOP = (
+    (48345, 0.0005544176092371345),
+    (48347, 0.0005544103332795203),
+    (48346, 0.0005544081213884056),
+    (47647, 0.0005455861683003604),
+    (47646, 0.0005455861683003604),
+    (47648, 0.0005455014179460704),
+    (49886, 0.0005340577918104827),
+    (49884, 0.0005340577918104827),
+)
+JAX_SPHERES_PRB64_REFLECTANCE = (0.012964059598743916, 0.014849632047116756, 0.019113406538963318)
+# - manylights_scene: path, ptracer (max_depth 8), and ptracer with the
+#   collimated panel:
+JAX_MANYLIGHTS64_MEANS = {
+    "path": (0.23527120053768158, 0.1385444700717926, 0.05887692794203758),
+    "ptracer": (0.2338198572397232, 0.13802234828472137, 0.058666497468948364),
+    "ptracer_beam": (0.24392056465148926, 0.14240671694278717, 0.0620056614279747),
+}
+# - the cbox through orthographic_dict; render_test of batch_dict's two
+#   views; projector_scene:
+JAX_ORTHO64_MEANS = (0.2003616839647293, 0.09401460736989975, 0.03769419342279434)
+JAX_BATCH64_VIEWS = (
+    (0.21746046841144562, 0.134737029671669, 0.05642932280898094),
+    (0.2299264818429947, 0.12829086184501648, 0.05599765479564667),
+)
+JAX_PROJECTOR64_MEANS = (0.2566309869289398, 0.15611697733402252, 0.07388084381818771)
+# - mono_polarized, render_1 of atmo_sensor_dict at 32x32 @ 64 spp: the
+#   Stokes vectors I, Q, U, V:
+JAX_ATMO_DISTANT_STOKES = (0.15025874972343445, -0.0003628835256677121, 4.064658423885703e-05, 2.723799354953371e-07)
+JAX_ATMO_IRRADIANCEMETER_STOKES = (0.3586234152317047, -0.05528111010789871, -1.0919757187366486e-05, 1.1950707630603574e-05)
+# - spheres_mesh_dict at 64x64 @ 4 spp (the BVH's plain walk on the CPU):
+JAX_SPHERES_MESH64_MEANS = (0.2600877285003662, 0.17333519458770752, 0.10427005589008331)
+
+
+def orthographic_dict(mi, res, spp):
+    """The cbox seen by an orthographic sensor from (0, 0, 3.9) along -z,
+    its film's [-1, 1]^2 square the box's front."""
+    d = mi.cornell_box()
+    d["sensor"] = {"type": "orthographic",
+                   "to_world": [{"type": "look_at", "origin": [0, 0, 3.9], "target": [0, 0, 0],
+                                 "up": [0, 1, 0]}],
+                   "film": {"type": "hdrfilm", "width": res, "height": res},
+                   "sampler": {"type": "independent", "sample_count": spp}}
+    return d
+
+
+def batch_dict(mi, res, spp):
+    """The cbox seen by a batch of two perspectives side by side on one
+    2 res x res film (from x = -0.6 and 0.6), render_test's views."""
+    d = mi.cornell_box()
+    views = {f"view{i}": {"type": "perspective", "fov": 40.0,
+                          "to_world": [{"type": "look_at", "origin": [x, 0.0, 3.9],
+                                        "target": [0, 0, 0], "up": [0, 1, 0]}],
+                          "film": {"type": "hdrfilm", "width": res, "height": res}}
+             for i, x in enumerate((-0.6, 0.6))}
+    d["sensor"] = {"type": "batch", "film": {"type": "hdrfilm", "width": 2 * res, "height": res},
+                   "sampler": {"type": "independent", "sample_count": spp}, **views}
+    return d
+
+
+def atmo_sensor_dict(mi, name):
+    """BASELINE config 4's atmosphere (atmo_scene) seen by a distant sensor
+    (direction (0.2, 0, -1) onto the origin: the top-of-atmosphere view) or
+    by an irradiancemeter at (0, 0, -1.5) under the slab looking up (the
+    downwelling flux), pinned to 550 nm, at ATMO_SENSOR_RES^2 @
+    ATMO_SENSOR_SPP."""
+    d = mi.atmo_scene(ATMO_SENSOR_RES, ATMO_SENSOR_SPP)
+    sensor = {"film": d["sensor"]["film"], "sampler": d["sensor"]["sampler"]}
+    if name == "distant":
+        sensor.update(type="distant", direction=[0.2, 0.0, -1.0], target=[0.0, 0.0, 0.0],
+                      wavelength=550.0)
+    else:
+        sensor.update(type="irradiancemeter",
+                      to_world=[{"type": "look_at", "origin": [0.0, 0.0, -1.5],
+                                 "target": [0.0, 0.0, 0.0], "up": [0, 1, 0]}])
+    d["sensor"] = sensor
+    return d
+
+
+def spheres_mesh_dict(mi, obj_path, res):
+    """mesh_scene (202,822 triangles on the BVH) with an analytic diffuse
+    sphere (radius 0.3 at (-0.45, -0.6, 0.3)) and spheres_scene's envmap."""
+    from mitsuba_tpu_torch.render.scene_loader import mesh_scene, sky_envmap
+
+    d = mesh_scene(obj_path, k=MESH_K, res=res)
+    d["ball"] = {"type": "sphere", "center": [-0.45, -0.6, 0.3], "radius": 0.3,
+                 "bsdf": {"type": "diffuse", "reflectance": {"type": "rgb",
+                                                             "value": [0.3, 0.6, 0.3]}}}
+    d["sky"] = {"type": "envmap", "data": sky_envmap(), "scale": 0.5}
+    return d
+
+
+def check_means(name, got, want):
+    """Each channel of `got` within SLICE13_RTOL of the JAX package's
+    `want`; returns the worst relative error."""
+    rtol = SLICE13_RTOL
+    got = [float(x) for x in got]
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    log(f"  {name}: {got} against the JAX package's {list(want)}: {rel:.3e} relative "
+        f"(tolerance {rtol})")
+    if not rel <= rtol:
+        raise AssertionError(f"{name}: {got} vs JAX {list(want)}")
+    return rel
+
+
+def check_stokes(name, stokes, want):
+    """A Stokes vector [4, 1] as the atmo phase holds it: I within
+    SLICE13_RTOL, Q, U, V within SLICE13_RTOL of I. Returns the worst
+    error."""
+    rtol = SLICE13_RTOL
+    I, Q, U, V = stokes[:, 0].tolist()
+    rel_i = abs(I - want[0]) / abs(want[0])
+    quv = max(abs(a - b) / I for a, b in zip((Q, U, V), want[1:]))
+    log(f"  {name}: Stokes {[I, Q, U, V]} against the JAX package's {list(want)}: I within "
+        f"{rel_i:.3e}, Q/U/V within {quv:.3e} of I (tolerance {rtol})")
+    if not (rel_i <= rtol and quv <= rtol and I > 0):
+        raise AssertionError(f"{name}: Stokes {[I, Q, U, V]} vs JAX {list(want)}")
+    return max(rel_i, quv)
+
+
+def timed_render(K1, K2, K3, name, fn, n=1):
+    """A main path's call fn(seed, stats) (a render, render_test or
+    render_1): one call at seed 1 with CUDA events around each K1 launch
+    and every launch held bit for bit against the plain version, then n
+    timed calls at seed 0 (timed_calls: walls, K1 launches, rays, Mrays/s,
+    peak memory). Fails on a result that is not finite or all zero.
+    Returns (the last result, summary dict)."""
+    n_k1, k_ms, b2b_ms, b_ms, by, bitwise = k1_in_place_and_held(K1, name, lambda: fn(1, {}))
+    walls, per, stats, res, peak = timed_calls(K1, K2, K3, name, fn, n, warm_up=False)
+    if not bool(torch.isfinite(res).all()) or not float(res.abs().max()) > 0:
+        raise AssertionError(f"{name}: result {tuple(res.shape)} not finite or all zero")
+    mrays = [stats["n_rays"] / w / 1e6 for w in walls]
+    log(f"== main path: {name}: walls {[round(w, 4) for w in walls]} s, {stats['n_rays']} rays, "
+        f"{[round(m, 2) for m in mrays]} Mrays/s, K1 launches per call {per}, peak memory "
+        f"{peak / 2**30:.3f} GiB; one call with events around each K1 launch: {n_k1} launches, "
+        f"{k_ms:.3f} ms in K1 in place, {b2b_ms:.4f} ms back to back, summed bound "
+        f"{b_ms:.4f} ms {by}")
+    return res, dict(walls=walls, mrays=mrays, n_rays=stats["n_rays"], k1_per_render=per[0],
+                     peak=peak, k1_render_ms=k_ms, k1_render_back_to_back_ms=b2b_ms,
+                     k1_render_bound_ms=b_ms, k1_bound_by=by, k1_bitwise_vs_plain=bitwise)
+
+
+def rendered(mi, scene, spp):
+    """fn(seed, stats) for timed_render: one render of `scene` at spp."""
+    return lambda seed, stats: mi.render(scene, spp=spp, seed=seed, stats=stats)
+
+
+def phase_spheres(mi, K1, K2, K3):
+    """The slice's main path: spheres_scene (three analytic spheres, a
+    sphere light, a spot, an envmap, a thin lens, a mitchell filter) at
+    256x256 @ 64 spp (4,194,304 lanes), path max_depth 8, through K1 and
+    the sphere pass: one render with every K1 launch held bit for bit,
+    SPHERES_RENDERS timed renders; a crop window bit for bit the full
+    render's window; the 64x64 @ 16 spp means against the JAX package's
+    over the pixels where no lane's path parts."""
+    scene = mi.load_dict(mi.spheres_scene(SPHERES_RES, SPHERES_SPP))
+    name = (f"spheres {SPHERES_RES}x{SPHERES_RES} @ {SPHERES_SPP} spp, thinlens, mitchell, path "
+            "max_depth 8")
+    img, out = timed_render(K1, K2, K3, name, rendered(mi, scene, SPHERES_SPP), SPHERES_RENDERS)
+    if tuple(img.shape) != (SPHERES_RES, SPHERES_RES, 3):
+        raise AssertionError(f"{name}: image {tuple(img.shape)}")
+    out["means"] = img.mean(dim=(0, 1)).tolist()
+    log(f"  {name}: means {out['means']}")
+    (x0, y0), (cw, ch) = SPHERES_CROP
+    d = mi.spheres_scene(SPHERES_RES, SPHERES_SPP)
+    d["sensor"]["film"].update(crop_offset_x=x0, crop_offset_y=y0, crop_width=cw, crop_height=ch)
+    crop_scene = mi.load_dict(d)
+    crop = mi.render(crop_scene, spp=SPHERES_SPP, seed=0)
+    window = img[y0:y0 + ch, x0:x0 + cw]
+    out["crop_bitwise"] = tuple(crop.shape) == tuple(window.shape) and bool(torch.equal(crop, window))
+    log(f"  {name}: the crop window {SPHERES_CROP} ({crop_scene.film.n_pixels * SPHERES_SPP} "
+        f"lanes with the filter's margin) bit for bit the full render's window: "
+        f"{out['crop_bitwise']}")
+    if not out["crop_bitwise"]:
+        raise AssertionError(f"{name}: the crop render differs from the full render's window")
+    img64 = mi.render(mi.load_dict(mi.spheres_scene(SLICE13_RES64, SLICE13_SPP64)), spp=SLICE13_SPP64, seed=0)
+    out["means64_rel_err"] = check_kept_means(
+        f"spheres {SLICE13_RES64}^2 @ {SLICE13_SPP64} spp", img64, SPHERES64_PARTING_PIXELS,
+        JAX_SPHERES64_KEPT_MEANS, SLICE13_RTOL)
+    return out
+
+
+def phase_spheres_prb(mi, K1, K2, K3):
+    """spheres_scene with prb at 256x256 @ 64 spp, max_depth 8: the image
+    mean's gradients for the envmap's data (the texel gather's backward
+    accumulates with atomics on the card) and the diffuse sphere's
+    reflectance (run_prb_vol: warm-up, timed steps, every K1 launch of a
+    step held bit for bit); the 64x64 @ 16 spp gradients at max_depth 4
+    against the JAX package's (allclose: the atomics' order)."""
+    keys = list(SPHERES_PRB_KEYS)
+    integ = {"type": "prb", "max_depth": 8}
+
+    def loss(mi, sc, seed, stats, spp=SPHERES_SPP):
+        return mi.render(sc, spp=spp, seed=seed, stats=stats).mean()
+
+    scene = mi.load_dict(mi.spheres_scene(SPHERES_RES, SPHERES_SPP, integ))
+    out = run_prb_vol(mi, K1, K2, K3, f"spheres-prb {SPHERES_RES}x{SPHERES_RES} @ {SPHERES_SPP} "
+                      "spp, prb max_depth 8", scene, keys, loss,
+                      SPHERES_RES * SPHERES_RES * SPHERES_SPP)
+    out["grads"] = {k: [float(v.sum()), float(v.abs().max())] for k, v in out["grads"].items()}
+    small = mi.load_dict(mi.spheres_scene(SLICE13_RES64, SLICE13_SPP64, dict(integ, max_depth=4)))
+    _, g64, _, _, _ = prb_vol_step(mi, small, keys,
+                                   lambda mi, sc, seed, st: loss(mi, sc, seed, st, SLICE13_SPP64), 0)
+    env = g64[keys[0]].reshape(-1)
+    rels = [check_rel("spheres-prb 64x64 @ 16 spp, max_depth 4, the sum of d mean / d sky.data",
+                      float(env.double().sum()), JAX_SPHERES_PRB64_ENV_SUM, SLICE13_RTOL)]
+    for i, want in JAX_SPHERES_PRB64_ENV_TOP:
+        rels.append(check_rel(f"  ... d mean / d sky.data texel {i}", float(env[i]), want,
+                              SLICE13_RTOL))
+    for c, want in enumerate(JAX_SPHERES_PRB64_REFLECTANCE):
+        rels.append(check_rel(f"  ... d mean / d {keys[1]}[{c}]", float(g64[keys[1]][c]), want,
+                              SLICE13_RTOL))
+    out["grad64_depth4_rel_err"] = max(rels)
+    return out
+
+
+def phase_manylights(mi, K1, K2, K3):
+    """The cbox lit by 8 constant panels, which the loader fuses into one
+    AreaEmitterArray, at 256x256 @ 64 spp: path (max_depth 8) and ptracer
+    (max_depth 8), each with every K1 launch of one render held bit for
+    bit and one timed render; their means against each other; the 64x64 @
+    16 spp means of both and of the ptracer with a collimated panel
+    (directionalarea) against the JAX package's."""
+    out = {}
+    imgs = {}
+    for integ in ("path", "ptracer"):
+        spec = {"type": "path", "max_depth": 8} if integ == "path" else PTRACER_INTEGRATOR
+        scene = mi.load_dict(mi.manylights_scene(SLICE13_RES, MANYLIGHTS_SPP, spec))
+        if type(scene.emitters[0]).__name__ != "AreaEmitterArray" or len(scene.emitters) != 1:
+            raise AssertionError(f"manylights: emitters {scene.emitters} not one fused array")
+        imgs[integ], out[integ] = timed_render(
+            K1, K2, K3, f"manylights {integ} {SLICE13_RES}^2 @ {MANYLIGHTS_SPP} spp, max_depth 8",
+            rendered(mi, scene, MANYLIGHTS_SPP))
+    a, b = float(imgs["path"][8:].mean()), float(imgs["ptracer"][8:].mean())
+    out["path_vs_ptracer_rel"] = abs(a - b) / a
+    log(f"  manylights: ptracer's mean below row 8 {b:.6f} against path's {a:.6f}: "
+        f"{out['path_vs_ptracer_rel']:.4%} (rtol {MANYLIGHTS_ESTIMATORS_RTOL})")
+    if not out["path_vs_ptracer_rel"] <= MANYLIGHTS_ESTIMATORS_RTOL:
+        raise AssertionError(f"manylights: ptracer {b} against path {a}")
+    rels = []
+    for key, spec, beam in (("path", {"type": "path", "max_depth": 8}, False),
+                            ("ptracer", PTRACER_INTEGRATOR, False),
+                            ("ptracer_beam", PTRACER_INTEGRATOR, True)):
+        img64 = mi.render(mi.load_dict(mi.manylights_scene(SLICE13_RES64, SLICE13_SPP64, spec, beam=beam)),
+                          spp=SLICE13_SPP64, seed=0)
+        rels.append(check_means(f"manylights {key} {SLICE13_RES64}^2 @ {SLICE13_SPP64} spp",
+                                img64.mean(dim=(0, 1)), JAX_MANYLIGHTS64_MEANS[key]))
+    out["means64_rel_err"] = max(rels)
+    return out
+
+
+def phase_sensors(mi, K1, K2, K3):
+    """The new sensors: the cbox through an orthographic sensor (256x256 @
+    16 spp) and a batch of two perspectives through render_test (2 x
+    128x128 @ 16 spp); BASELINE config 4's atmosphere (mono_polarized)
+    seen by a distant sensor and by an irradiancemeter, render_1 at 32x32
+    @ 64 spp; the projector throwing a 64x64 bitmap on the cbox's back
+    wall (256x256 @ 16 spp). Each with every K1 launch of one call held bit
+    for bit and one timed call; the 64x64 (atmo: 32x32) results against
+    the JAX package's."""
+    out = {}
+    _, out["orthographic"] = timed_render(
+        K1, K2, K3, f"sensors orthographic cbox {SLICE13_RES}^2 @ {SENSORS_SPP} spp",
+        rendered(mi, mi.load_dict(orthographic_dict(mi, SLICE13_RES, SENSORS_SPP)), SENSORS_SPP))
+    img64 = mi.render(mi.load_dict(orthographic_dict(mi, SLICE13_RES64, SLICE13_SPP64)), spp=SLICE13_SPP64,
+                      seed=0)
+    out["orthographic"]["rel_err"] = check_means(f"orthographic {SLICE13_RES64}^2", img64.mean(dim=(0, 1)),
+                                                 JAX_ORTHO64_MEANS)
+    _, out["projector"] = timed_render(
+        K1, K2, K3, f"sensors projector cbox {SLICE13_RES}^2 @ {SENSORS_SPP} spp",
+        rendered(mi, mi.load_dict(mi.projector_scene(SLICE13_RES, SENSORS_SPP)), SENSORS_SPP))
+    img64 = mi.render(mi.load_dict(mi.projector_scene(SLICE13_RES64, SLICE13_SPP64)), spp=SLICE13_SPP64, seed=0)
+    out["projector"]["rel_err"] = check_means(f"projector {SLICE13_RES64}^2", img64.mean(dim=(0, 1)),
+                                              JAX_PROJECTOR64_MEANS)
+
+    batch = mi.load_dict(batch_dict(mi, SLICE13_RES // 2, SENSORS_SPP))
+    _, out["batch"] = timed_render(
+        K1, K2, K3, f"sensors batch of two perspectives, render_test 2 x {SLICE13_RES // 2}^2 @ {SENSORS_SPP} spp",
+        lambda seed, st: mi.render_test(batch, spp=SENSORS_SPP, seed=seed, sensor_count=2,
+                                        stats=st))
+    views64 = mi.render_test(mi.load_dict(batch_dict(mi, SLICE13_RES64, SLICE13_SPP64)), spp=SLICE13_SPP64,
+                             seed=0, sensor_count=2)
+    out["batch"]["rel_err"] = max(check_means(f"batch view {i} {SLICE13_RES64}^2", views64[i], want)
+                                  for i, want in enumerate(JAX_BATCH64_VIEWS))
+    mi.set_variant("mono_polarized")
+    try:
+        for name, want in (("distant", JAX_ATMO_DISTANT_STOKES),
+                           ("irradiancemeter", JAX_ATMO_IRRADIANCEMETER_STOKES)):
+            scene = mi.load_dict(atmo_sensor_dict(mi, name))
+            stokes, out[f"atmo_{name}"] = timed_render(
+                K1, K2, K3, f"sensors atmo {name} (mono_polarized) {ATMO_SENSOR_RES}x{ATMO_SENSOR_RES} @ "
+                f"{ATMO_SENSOR_SPP} spp, render_1",
+                lambda seed, st, scene=scene: mi.render_1(scene, spp=ATMO_SENSOR_SPP, seed=seed,
+                                                          stats=st))
+            out[f"atmo_{name}"]["stokes"] = stokes[:, 0].tolist()
+            out[f"atmo_{name}"]["rel_err"] = check_stokes(f"atmo {name}", stokes, want)
+    finally:
+        mi.set_variant("rgb")
+    return out
+
+
+@contextlib.contextmanager
+def k2_held_to_plain(K2, held):
+    """Inside, every K2 call (closest hit and any hit) is held bit for bit
+    against the plain walk on the same inputs: `held` gets (any hit?,
+    lanes, differing elements as a 0-d tensor) per call."""
+    fn = K2.bvh_sweep
+
+    def wrapper(nodes, table, o, d, maxt, anyhit=False, rows=None):
+        out = fn(nodes, table, o, d, maxt, anyhit=anyhit, rows=rows)
+        ref = K2.bvh_sweep_reference(nodes, table.detach(), o.detach(), d.detach(),
+                                     maxt.detach(), anyhit)
+        held.append((anyhit, o.shape[0], k1_bits_differ(out, ref)))
+        return out
+
+    K2.bvh_sweep = wrapper
+    try:
+        yield
+    finally:
+        K2.bvh_sweep = fn
+
+
+def phase_spheres_mesh(mi, K1, K2, K3):
+    """The mesh scene (202,822 triangles on the BVH) with an analytic
+    sphere and the envmap at 256x256 @ 16 spp through K2 and the sphere
+    pass (its any hit ORed with the sphere pass's): one render with every
+    K2 launch held bit for bit against the plain walk, one timed render
+    (K2 closest-hit and any-hit launches, no K1); the 64x64 @ 4 spp means
+    against the JAX package's."""
+    import dataclasses
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        scene = mi.load_dict(spheres_mesh_dict(mi, str(Path(tmp) / "s.obj"), SLICE13_RES))
+        load_s = time.perf_counter() - t0
+    # the same geometry on the check's film (the camera's aspect is 1 on both)
+    scene64 = dataclasses.replace(scene, film=dataclasses.replace(
+        scene.film, width=SLICE13_RES64, height=SLICE13_RES64))
+    if not scene.geometry.has_bvh or scene.geometry.n_spheres != 1:
+        raise AssertionError("spheres-mesh: the scene is not on the BVH with one sphere")
+    name = f"spheres-mesh {SLICE13_RES}^2 @ {SPHERES_MESH_SPP} spp, path max_depth 8"
+    held = []
+    with k2_held_to_plain(K2, held):
+        mi.render(scene, spp=SPHERES_MESH_SPP, seed=1)
+    differing = int(sum(x for _, _, x in held))
+    n_any = sum(1 for a, _, _ in held if a)
+    log(f"  {name}: K2 held bit for bit against the plain walk on the path's own inputs: "
+        f"{len(held) - n_any} closest-hit + {n_any} any-hit launches, "
+        f"{sum(n for _, n, _ in held)} lanes, {differing} differing elements")
+    if not held or not n_any or differing:
+        raise AssertionError(f"{name}: K2 against the plain walk: {len(held)} calls, "
+                             f"{differing} differing")
+    walls, _, stats, img, peak = timed_calls(K1, K2, K3, name,
+                                             rendered(mi, scene, SPHERES_MESH_SPP), 1,
+                                             warm_up=False, kernel="K2")
+    wall = walls[0]
+    launches = dict(closest=K2.bvh_sweep_intersect.launches, anyhit=K2.bvh_sweep_occluded.launches,
+                    K1=K1.smem_intersect.launches, K3=K3.mxu_intersect.launches)
+    log(f"== main path: {name}: {wall:.4f} s wall (scene write + load {load_s:.2f} s), "
+        f"{stats['n_rays']} rays, {stats['n_rays'] / wall / 1e6:.2f} Mrays/s, launches "
+        f"{launches}, peak memory {peak / 2**30:.3f} GiB, means {img.mean(dim=(0, 1)).tolist()}")
+    if (not launches["closest"] or not launches["anyhit"] or launches["K1"] or launches["K3"]
+            or not bool(torch.isfinite(img).all())):
+        raise AssertionError(f"{name}: launches {launches} or a non-finite image")
+    img64 = mi.render(scene64, spp=4, seed=0)
+    rel = check_means(f"spheres-mesh {SLICE13_RES64}^2 @ 4 spp", img64.mean(dim=(0, 1)),
+                      JAX_SPHERES_MESH64_MEANS)
+    return dict(wall=wall, load_s=load_s, n_rays=stats["n_rays"],
+                mrays=stats["n_rays"] / wall / 1e6, launches=launches, peak=peak,
+                k2_held_launches=len(held), k2_bitwise_vs_plain=differing == 0,
+                means64_rel_err=rel)
+
+
 PHASE_S = {}
 
 
@@ -3435,6 +3899,16 @@ def main():
     projective = timed_phase("projective", phase_projective, mi, K1, K2, K3)
     torch.cuda.empty_cache()
     golds = timed_phase("golds", phase_golds, mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    spheres = timed_phase("spheres", phase_spheres, mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    spheres_prb = timed_phase("spheres_prb", phase_spheres_prb, mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    manylights = timed_phase("manylights", phase_manylights, mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    sensors = timed_phase("sensors", phase_sensors, mi, K1, K2, K3)
+    torch.cuda.empty_cache()
+    spheres_mesh = timed_phase("spheres_mesh", phase_spheres_mesh, mi, K1, K2, K3)
 
     per_path = f"{PRB_ITERS} iterations"
     k1_entry["launches"] = cbox_launches
@@ -3487,7 +3961,16 @@ def main():
                                     **{f"projective {k} AD step": v["k1_per_step"]
                                        for k, v in projective.items()},
                                     **{f"golds {k}": v["k1"] for k, v in golds.items()
-                                       if isinstance(v, dict) and "k1" in v}}
+                                       if isinstance(v, dict) and "k1" in v},
+                                    "spheres render 256x256 @ 64 spp": spheres["k1_per_render"],
+                                    "spheres-prb step 256x256 @ 64 spp":
+                                        spheres_prb["k1_per_step"],
+                                    **{f"manylights {k} render 256x256 @ 64 spp":
+                                       manylights[k]["k1_per_render"]
+                                       for k in ("path", "ptracer")},
+                                    **{f"sensors {k}": v["k1_per_render"]
+                                       for k, v in sensors.items()},
+                                    "spheres-mesh render": spheres_mesh["launches"]["K1"]}
     k1_entry.update(step_k1)
     k1_entry.update(hetvol_pass_launches=hetvol["k1_pass_launches"],
                     hetvol_pass_ms=hetvol["k1_pass_ms"],
@@ -3555,7 +4038,22 @@ def main():
                         "volpathmis render": volpathmis["k1_bitwise_vs_plain"],
                         **{f"projective {k} AD step": v["k1_bitwise_vs_plain"]
                            for k, v in projective.items()},
-                        "golds rayleigh render": golds["k1_bitwise_vs_plain"]},
+                        "golds rayleigh render": golds["k1_bitwise_vs_plain"],
+                        "spheres render": spheres["k1_bitwise_vs_plain"],
+                        "spheres-prb step": spheres_prb["k1_bitwise_vs_plain"],
+                        **{f"manylights {k} render": manylights[k]["k1_bitwise_vs_plain"]
+                           for k in ("path", "ptracer")},
+                        **{f"sensors {k}": v["k1_bitwise_vs_plain"] for k, v in sensors.items()}},
+                    **{f"{name}_render_{k}": r[f"k1_render_{k}"]
+                       for name, r in (("spheres", spheres),
+                                       ("manylights_path", manylights["path"]),
+                                       ("manylights_ptracer", manylights["ptracer"]))
+                       for k in ("ms", "back_to_back_ms", "bound_ms")},
+                    spheres_prb_step_launches={"forward": spheres_prb["k1_forward"],
+                                               "backward_primal": spheres_prb["k1_backward_primal"],
+                                               "replay": spheres_prb["k1_replay"]},
+                    **{f"spheres_prb_{k}": spheres_prb[f"k1_{k}"]
+                       for k in ("step_ms", "step_back_to_back_ms", "step_bound_ms")},
                     hit_vjp_held_to_autograd={k: v["hit_vjp_held"] for k, v in projective.items()})
     k3_entry.update(step_k3)
     k3_entry["launches"] = l_mma["K3"]
@@ -3563,14 +4061,21 @@ def main():
                                     f"cbox prb, K1 route, {per_path}": l_smem["K3"]}
     k2 = {"route": "cuda", "source": "mitsuba_tpu_torch/csrc/bvh_sweep.cu",
           "replaces": "mitsuba_tpu/ops/bvh_sweep.py:108", "max_abs_err": err,
-          "library_ms": None, "bitwise_vs_plain": err == 0.0}
+          "library_ms": None, "bitwise_vs_plain": err == 0.0,
+          "spheres_mesh_bitwise_vs_plain": spheres_mesh["k2_bitwise_vs_plain"]}
     report = {"kernels": [
         k1_entry,
         dict(name="bvh_sweep_closest", launches=n_closest, **closest,
+             launches_by_path={"mesh path 256x256 @ 16 spp": n_closest,
+                               "spheres-mesh path 256x256 @ 16 spp":
+                                   spheres_mesh["launches"]["closest"]},
              batch="mesh bounce-0 camera rays", bounce1_ms=bounce1["ms"],
              bounce1_kernel_ms=bounce1["kernel_ms"], bounce1_bound_ms=bounce1["bound_ms"],
              **k2_pass["closest"], **k2),
         dict(name="bvh_sweep_anyhit", launches=n_any, **anyhit,
+             launches_by_path={"mesh path 256x256 @ 16 spp": n_any,
+                               "spheres-mesh path 256x256 @ 16 spp":
+                                   spheres_mesh["launches"]["anyhit"]},
              batch="mesh bounce-0 shadow rays", **k2_pass["anyhit"], **k2),
         k3_entry,
         k4_entry,
@@ -3597,6 +4102,11 @@ def main():
         "volpathmis": volpathmis,
         "projective": projective,
         "golds": golds,
+        "spheres": spheres,
+        "spheres_prb": spheres_prb,
+        "manylights": manylights,
+        "sensors": sensors,
+        "spheres_mesh": spheres_mesh,
         "phase_s": PHASE_S}
     log(f"== chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -30,6 +30,10 @@ a specfilm's response functions); BASELINE config 4 as BASELINE names it:
     mi.set_variant("spectral_polarized")
     stokes = mi.render_1(mi.load_dict(mi.atmo_scene()), spp=64)   # [4, 4] raw
 
+The material preview: analytic spheres under an envmap, through a lens:
+
+    img = mi.render(mi.load_dict(mi.spheres_scene()), spp=64)
+
 Gradients: write a parameter that requires grad and call backward, through
 the path integrator's tape or the PRB integrators' replay; BASELINE config
 5's retrieval gradient, the atmosphere's extinction seen through a rough
@@ -48,7 +52,8 @@ from .variant import set_variant, variant, variants, current_variant, Variant
 from .core.rng import RNG
 from .core.transform import Transform, build_transform
 from .render.scene_loader import (load_dict, cornell_box, atmo_scene, aos_scene, materials_scene,
-                                  polarimeter_scene)
+                                  polarimeter_scene, spheres_scene, manylights_scene,
+                                  projector_scene)
 from .render.params import traverse, SceneParameters
 from .render_api import (CancelToken, render, render_1, render_forward, render_progressive,
                          render_test)

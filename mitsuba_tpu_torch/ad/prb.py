@@ -159,7 +159,7 @@ class PRBIntegrator(PathIntegrator):
         scene_att, att = attach_scene(scene, leaves)
         grads = [torch.zeros_like(x) for x in leaves]
         dL, L_samples = dL_px.detach(), L_samples.detach()
-        rng0, ray0, _ = wavefront_for(scene_d, seed, pix, torch.zeros_like(pix), spp, sensor_idx)
+        rng0, ray0, _, _, _ = wavefront_for(scene_d, seed, pix, torch.zeros_like(pix), spp, sensor_idx)
         s = _Path(
             L=torch.zeros_like(L_samples[:, 0]), beta=torch.ones_like(L_samples[:, 0]),
             eta=torch.ones(n, device=dev), ray_o=ray0.o, ray_d=ray0.d, rng=lanes_rng(rng0, n),
@@ -173,7 +173,7 @@ class PRBIntegrator(PathIntegrator):
         iters = 0
         while iters < spp * max_depth + 1 and bool((s.active | (s_next < spp)).any()):
             regen = ~s.active & (s_next < spp)
-            rng_new, ray_new, _ = wavefront_for(scene_d, seed, pix, s_next, spp, sensor_idx)
+            rng_new, ray_new, _, _, _ = wavefront_for(scene_d, seed, pix, s_next, spp, sensor_idx)
             L_fresh = L_samples[pix, torch.clamp(s_next, max=spp - 1)]
             s = _Path(**restart(vars(s), regen, rng_new, ray_new, L_fresh))
             depth = torch.where(regen, 0, depth)

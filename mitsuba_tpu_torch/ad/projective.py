@@ -650,6 +650,7 @@ def _primal_image(scene, seed, spp, sensor_idx):
     from ..render_api import render_lanes
 
     L, aux = render_lanes(scene, seed, 0, scene.film.n_pixels * spp, 0, spp, spp, sensor_idx)
+    aux.pop("film_jitter")      # a weighted filter develops as a box here, as in the JAX package
     return stokes_major(accumulate(scene.film, L, spp) / spp), aux
 
 
@@ -751,12 +752,31 @@ def projective_render(scene, seed, spp, sensor_idx=0, stats=None):
     [H, W, 4, C]), differentiable in the scene's tensors that require grad,
     vertex buffers included (boundary-aware). `stats` gets the forward's
     n_rays; a PRB base's backward adds its rays to n_rays_grad."""
+    check_projective_scene(scene)
     args = dict(scene=scene, seed=int(seed) & MASK32, spp=spp, sensor_idx=sensor_idx,
                 stats=stats)
     img = ProjectiveRender.apply(args, *projective_leaves(scene))
     if stats is not None:
         stats.update({k: int(v) for k, v in args["aux"].items()})
     return img
+
+
+def check_projective_scene(scene):
+    """Raise NotImplementedError for what the boundary passes do not cover
+    yet: the silhouettes of analytic spheres, the shadow boundaries of spot
+    lights and projectors, and a cropped film."""
+    from ..render.emitters import ProjectorEmitter, SpotEmitter
+
+    if scene.geometry.n_spheres:
+        raise NotImplementedError("the projective terms of an analytic sphere are not yet "
+                                  "ported")
+    for em in scene.emitters:
+        if isinstance(em, (SpotEmitter, ProjectorEmitter)):
+            raise NotImplementedError(f"the projective terms of a {type(em).__name__} are not "
+                                      "yet ported")
+    if scene.film.crop_size is not None or scene.film.crop_offset != (0, 0):
+        raise NotImplementedError("a projective integrator over a crop window is not yet "
+                                  "ported")
 
 
 @dataclass(frozen=True)

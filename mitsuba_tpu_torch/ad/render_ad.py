@@ -76,7 +76,7 @@ def _primal(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx):
 
     with torch.no_grad():
         rng, ray, wl, wl_pdf, _ = make_wavefront(scene, seed, lane0, n, pass_base, spp_pass,
-                                                 spp_total, sensor_idx, with_wavelengths=True)
+                                                 spp_total, sensor_idx)
         active = torch.ones(n, dtype=torch.bool, device=scene.device)
         L, aux = scene.integrator.sample(scene, rng, ray, active, wl)
     return rng, ray, wl, wl_pdf, L, aux

@@ -263,7 +263,7 @@ def path_regen_render(integrator, scene, seed, spp, sensor_idx, record_samples=F
     dev = scene.device
     max_depth = integrator.max_depth if integrator.max_depth > 0 else 1024
     pix = torch.arange(n, dtype=torch.int64, device=dev)
-    rng0, ray0, _ = wavefront_for(scene, seed, pix, torch.zeros_like(pix), spp, sensor_idx)
+    rng0, ray0, _, _, _ = wavefront_for(scene, seed, pix, torch.zeros_like(pix), spp, sensor_idx)
     f32 = dict(dtype=torch.float32, device=dev)
     s = dict(
         n_rays=torch.zeros((), dtype=torch.int64, device=dev),
@@ -287,7 +287,7 @@ def path_regen_render(integrator, scene, seed, spp, sensor_idx, record_samples=F
     while iters < spp * max_depth + 1 and bool((s["active"] | (s["s_next"] < spp)).any()):
         # ---- regenerate the lanes whose path ended ----
         regen = ~s["active"] & (s["s_next"] < spp)
-        rng_new, ray_new, _ = wavefront_for(scene, seed, pix, s["s_next"], spp, sensor_idx)
+        rng_new, ray_new, _, _, _ = wavefront_for(scene, seed, pix, s["s_next"], spp, sensor_idx)
         if record_samples:
             # the flushed radiance is the sample the lane held before
             record_flush(L_samples, s["cur_sample"], regen & (s["s_next"] > 0), s["L"])

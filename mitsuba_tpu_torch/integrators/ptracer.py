@@ -17,9 +17,13 @@ with f the BSDF value toward the camera (cosine included), theta the
 angle to the camera's axis and A_pix the pixel's footprint on the z = 1
 image plane. The particle weights divide by the emitters' position and
 direction pdfs; area lights emit cosine-weighted, point lights uniformly
-over the sphere, and the environment and the sun emit no particles (their
-light reaches the camera through the surfaces the particles hit, as in
-the JAX package). Each particle draws 3 next_2d at its start and 2 a
+over the sphere, a fused group of area lights (AreaEmitterArray) from its
+power-weighted triangle cdf, a collimated panel (DirectionalAreaEmitter)
+exactly along its normal; the environments, the sun and the sphere lights
+emit no particles (as in the JAX package: the environment's and the
+sun's light reaches the camera through the surfaces the particles hit).
+A spot light emits as a point light of its intensity, as in the JAX
+package; a projector's particles are not yet ported. Each particle draws 3 next_2d at its start and 2 a
 bounce, in the JAX package's order, so every lane takes its numbers.
 """
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from ..core import warp
 from ..core.frame import coordinate_system, dot, normalize
+from ..render.emitters import AreaEmitterArray, ProjectorEmitter
 from ..render.records import Ray, spawn_ray
 
 
@@ -53,7 +58,21 @@ def _sample_emitter_ray(scene, u_sel, u_pos, u_dir, wavelengths=None):
     for i, em in enumerate(scene.emitters):
         m = sel == i
         m3 = m[..., None]
-        if hasattr(em, "tri_index"):            # area light
+        if isinstance(em, AreaEmitterArray):    # fused area lights
+            p_i, ng, light, p_area = em.sample_point(u_pos, geom)
+            p_area = torch.clamp(p_area, min=1e-20)
+            rad = em._rows(light, nc, wavelengths)
+            local = warp.square_to_cosine_hemisphere(u_dir)
+            s_ax, t_ax = coordinate_system(ng)
+            d_i = local[..., 0:1] * s_ax + local[..., 1:2] * t_ax + local[..., 2:3] * ng
+            p = torch.where(m3, p_i, p)
+            d = torch.where(m3, d_i, d)
+            n_emit = torch.where(m3, ng, n_emit)
+            # Le pi / pdf_pos (the cosine direction pdf cancels cos / pi)
+            weight = torch.where(m3, rad * (math.pi / p_area)[..., None], weight)
+            rad0 = torch.where(m3, rad, rad0)
+            inv_ppos = torch.where(m, 1.0 / p_area, inv_ppos)
+        elif hasattr(em, "tri_index"):          # area light
             scaled = u_pos[..., 0] * em.total_area
             K = em.tri_cdf.shape[0]
             k = torch.clamp(torch.searchsorted(em.tri_cdf, scaled.contiguous(), right=True), 0,
@@ -68,17 +87,25 @@ def _sample_emitter_ray(scene, u_sel, u_pos, u_dir, wavelengths=None):
             p_i = geom.tri_v0[tri] + bary[..., 0:1] * geom.tri_e1[tri] \
                 + bary[..., 1:2] * geom.tri_e2[tri]
             rad = em.radiance.eval(bary, nc, wavelengths)
+            p = torch.where(m3, p_i, p)
+            n_emit = torch.where(m3, ng, n_emit)
+            if getattr(em, "is_directional_area", False):
+                # a collimated panel emits along its normal: Le * A, and no
+                # depth-0 connection
+                d = torch.where(m3, ng, d)
+                weight = torch.where(m3, rad * em.total_area, weight)
+                continue
             # cosine-weighted emission around the normal: Le * A * pi
             local = warp.square_to_cosine_hemisphere(u_dir)
             s_ax, t_ax = coordinate_system(ng)
             d_i = local[..., 0:1] * s_ax + local[..., 1:2] * t_ax + local[..., 2:3] * ng
-            p = torch.where(m3, p_i, p)
             d = torch.where(m3, d_i, d)
-            n_emit = torch.where(m3, ng, n_emit)
             weight = torch.where(m3, rad * (em.total_area * math.pi), weight)
             rad0 = torch.where(m3, rad, rad0)
             inv_ppos = torch.where(m, em.total_area, inv_ppos)
-        elif hasattr(em, "position"):           # point light
+        elif isinstance(em, ProjectorEmitter):
+            raise NotImplementedError("particles from a projector are not yet ported")
+        elif hasattr(em, "position"):           # point light (a spot: its intensity)
             d_i = warp.square_to_uniform_sphere(u_dir)
             inten = em.intensity.eval(torch.zeros(n, 2, dtype=torch.float32, device=dev), nc,
                                       wavelengths)

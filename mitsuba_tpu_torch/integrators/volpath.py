@@ -485,8 +485,7 @@ def regen_fresh(scene, seed, spp, sensor_idx):
     pix = torch.arange(n, dtype=torch.int64, device=scene.device)
 
     def fresh(sidx):
-        rng_f, ray_f, wl, wl_pdf, _ = wavefront_for(scene, seed, pix, sidx, spp, sensor_idx,
-                                                    with_wavelengths=True)
+        rng_f, ray_f, wl, wl_pdf, _ = wavefront_for(scene, seed, pix, sidx, spp, sensor_idx)
         u_ch, _, rng_f = lanes_rng(rng_f, n).next_2d()
         return rng_f, ray_f, sample_channel(u_ch, scene.n_channels), wl, wl_pdf
 

@@ -1,6 +1,9 @@
 """Emitters (counterpart of mitsuba_tpu/render/emitters.py): the area
-light, the constant environment, the directional sun and the point light
-(one, or many fused into one ``PointEmitterArray``).
+light (on triangles; on an analytic sphere, ``SphereAreaEmitter``; many
+constant ones fused into one ``AreaEmitterArray``; the collimated
+``DirectionalAreaEmitter``), the constant and envmap environments, the
+directional sun, the point light (one, or many fused into one
+``PointEmitterArray``), the spot light and the projector.
 
 As in the reference: sample_direction(ref_p, u2, geom, emitter_index,
 n_channels, wavelengths) returns (DirectionSample, weight) with weight =
@@ -19,16 +22,17 @@ JAX package's loader derives it, so both packages hold the same bits.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..core import warp
-from ..core.frame import dot, normalize
-from ..core.math import INV_FOUR_PI
+from ..core.frame import coordinate_system, dot, normalize
+from ..core.math import INV_FOUR_PI, safe_sqrt
 from .records import DirectionSample
-from .textures import to_channels
+from .textures import gather_texels, to_channels
 
 
 def area_cdf(geometry, shape_index):
@@ -55,11 +59,11 @@ class AreaEmitter:
     is_environment = False
     is_delta = False
 
-    @staticmethod
-    def attach(radiance, shape_index, geometry):
+    @classmethod
+    def attach(cls, radiance, shape_index, geometry):
         tri_idx, cdf = area_cdf(geometry, shape_index)
         dev = geometry.tri_e1.device
-        return AreaEmitter(
+        return cls(
             radiance=radiance,
             shape_index=shape_index,
             tri_index=torch.from_numpy(tri_idx.astype(np.int64)).to(dev),
@@ -310,3 +314,420 @@ class PointEmitterArray:
 
     def parameters_changed(self, geometry):
         return self
+
+
+def _zeros_eval(si, n_channels):
+    return torch.zeros(si.p.shape[:-1] + (n_channels,), dtype=torch.float32, device=si.p.device)
+
+
+def _zero_pdf(ref_p):
+    return torch.zeros(ref_p.shape[:-1], dtype=torch.float32, device=ref_p.device)
+
+
+def _world_to_local(d, R):
+    """d @ R (R's transpose applied to d), written out."""
+    return d[..., 0:1] * R[0] + d[..., 1:2] * R[1] + d[..., 2:3] * R[2]
+
+
+def _local_to_world(d, R):
+    """d @ R.T, written out."""
+    return d[..., 0:1] * R[:, 0] + d[..., 1:2] * R[:, 1] + d[..., 2:3] * R[:, 2]
+
+
+@dataclass
+class SpotEmitter:
+    """Spot light: `intensity` at `position` along `direction`, full inside
+    the beam width, falling off linearly to 0 at the cutoff angle."""
+
+    intensity: object           # texture
+    position: torch.Tensor      # [3]
+    direction: torch.Tensor     # [3] propagation direction
+    cos_cutoff: torch.Tensor    # []
+    cos_beam_width: torch.Tensor  # []
+
+    is_environment = False
+    is_delta = True
+
+    def eval(self, si, n_channels, wavelengths=None):
+        return _zeros_eval(si, n_channels)
+
+    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels, wavelengths=None):
+        dist2, dist, d = _toward(self.position, ref_p)
+        cos_a = dot(-d, normalize(self.direction.expand(ref_p.shape)))
+        falloff = torch.clamp((cos_a - self.cos_cutoff)
+                              / torch.clamp(self.cos_beam_width - self.cos_cutoff, min=1e-6),
+                              0.0, 1.0)
+        uv = torch.zeros(ref_p.shape[0], 2, dtype=torch.float32, device=ref_p.device)
+        val = self.intensity.eval(uv, n_channels, wavelengths)
+        weight = val * (falloff / torch.clamp(dist2, min=1e-20))[..., None]
+        return _delta_sample(self.position.expand(ref_p.shape), ref_p, d, dist,
+                             emitter_index), weight
+
+    def pdf_direction(self, ref_p, si):
+        return _zero_pdf(ref_p)
+
+    def parameters_changed(self, geometry):
+        return self
+
+
+@dataclass
+class ProjectorEmitter:
+    """A point source at `position` projecting the texture `irradiance`
+    (times `scale`) through a perspective frustum of horizontal half-angle
+    tan_half_fov_x; a direction outside the frustum gets nothing."""
+
+    irradiance: object          # texture: the projected image
+    scale: torch.Tensor         # []
+    position: torch.Tensor      # [3]
+    to_world_r: torch.Tensor    # [3, 3] world <- projector frame
+    tan_half_fov_x: torch.Tensor  # []
+    aspect: float = 1.0
+
+    is_environment = False
+    is_delta = True
+
+    def eval(self, si, n_channels, wavelengths=None):
+        return _zeros_eval(si, n_channels)
+
+    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels, wavelengths=None):
+        dist2, dist, d = _toward(self.position, ref_p)
+        # the projection direction (projector -> ref) in the projector's frame
+        v = _world_to_local(-d, self.to_world_r)
+        z = v[..., 2]
+        zc = torch.clamp(z, min=1e-6)
+        tx = self.tan_half_fov_x
+        u = 0.5 * (1.0 - v[..., 0] / zc / tx)
+        w = 0.5 * (1.0 - v[..., 1] / zc / (tx / self.aspect))
+        on_film = (z > 1e-6) & (u >= 0) & (u < 1) & (w >= 0) & (w < 1)
+        val = self.irradiance.eval(torch.stack([u, 1.0 - w], dim=-1), n_channels,
+                                   wavelengths) * self.scale
+        weight = torch.where(on_film[..., None],
+                             val / torch.clamp(dist2, min=1e-20)[..., None], 0.0)
+        return _delta_sample(self.position.expand(ref_p.shape), ref_p, d, dist,
+                             emitter_index), weight
+
+    def pdf_direction(self, ref_p, si):
+        return _zero_pdf(ref_p)
+
+    def parameters_changed(self, geometry):
+        return self
+
+
+def build_envmap_tables(data):
+    """(row cdf [H], conditional cdf [H, W]) of a latitude-longitude map
+    [H, W, C]: each texel's channel sum times the sine of its row's polar
+    angle, summed along the row, then the rows' totals summed; in numpy,
+    as the JAX package builds them, detached."""
+    data = np.asarray(data, np.float32)
+    h = data.shape[0]
+    sin_theta = np.sin((np.arange(h) + 0.5) / h * np.pi)
+    cond_cdf = np.cumsum(data.sum(-1) * sin_theta[:, None], axis=1)
+    return np.cumsum(cond_cdf[:, -1]), cond_cdf
+
+
+def _lower_bound_rows(table, rows, x):
+    """For each lane, the count of entries of table[rows] (a nondecreasing
+    row of [H, W]) below x: a binary search of fixed depth, one gather an
+    iteration, so no [N, W] comparison is made."""
+    w = table.shape[1]
+    lo = torch.zeros_like(rows)
+    hi = torch.full_like(rows, w)
+    for _ in range(w.bit_length()):
+        mid = (lo + hi) // 2
+        below = (table[rows, torch.clamp(mid, max=w - 1)] < x) & (mid < hi)
+        lo = torch.where(below, mid + 1, lo)
+        hi = torch.where(below, hi, mid)
+    return lo
+
+
+@dataclass
+class EnvmapEmitter:
+    """Latitude-longitude environment map (``data`` [H, W, C], a
+    differentiable parameter, times `scale`; +y up, the map's u along
+    atan2(-x, z)), sampled by its detached row and column cdfs: a texel by
+    its luminance times the sine of its row, then a point uniform in it."""
+
+    data: torch.Tensor          # [H, W, C]
+    row_cdf: torch.Tensor       # [H]
+    cond_cdf: torch.Tensor      # [H, W]
+    scale: torch.Tensor         # []
+    scene_radius: torch.Tensor  # []
+    to_world_rot: torch.Tensor  # [3, 3]
+
+    is_environment = True
+    is_delta = False
+
+    def _texel(self, d_world):
+        """(row, column, polar angle) of each world direction's texel."""
+        d = _world_to_local(d_world, self.to_world_rot)
+        theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
+        phi = torch.atan2(-d[..., 0], d[..., 2])
+        h, w = self.data.shape[0], self.data.shape[1]
+        x = torch.clamp(((phi / (2 * math.pi) + 0.5) * w).to(torch.int64), 0, w - 1)
+        y = torch.clamp((theta / math.pi * h).to(torch.int64), 0, h - 1)
+        return y, x, theta
+
+    def eval_escaped(self, d, n_channels, wavelengths=None):
+        y, x, _ = self._texel(d)
+        return to_channels(gather_texels(self.data, y, x) * self.scale, n_channels, wavelengths)
+
+    def pdf_direction_escaped(self, d_world):
+        """The solid-angle density of the sampling below: a texel's mass
+        spread uniformly over it in (u, v),
+        h w lum sin(theta_c) / (2 pi^2 total sin(theta))."""
+        y, x, theta = self._texel(d_world)
+        h, w = self.data.shape[0], self.data.shape[1]
+        texel = gather_texels(self.data, y, x)
+        lum = texel[..., 0]
+        for c in range(1, texel.shape[-1]):
+            lum = lum + texel[..., c]
+        theta_c = (y.to(torch.float32) + 0.5) / h * math.pi
+        total = torch.clamp(self.row_cdf[-1], min=1e-20)
+        return (h * w) * lum * torch.sin(theta_c) / (
+            2.0 * math.pi ** 2 * total * torch.clamp(torch.sin(theta), min=1e-6))
+
+    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels, wavelengths=None):
+        n_lanes, dev = ref_p.shape[0], ref_p.device
+        h, w = self.data.shape[0], self.data.shape[1]
+        uy = u2[..., 0] * self.row_cdf[-1]
+        y = torch.clamp(torch.searchsorted(self.row_cdf, uy.contiguous(), right=True), 0, h - 1)
+        lo_y = torch.where(y > 0, self.row_cdf[torch.clamp(y - 1, min=0)], 0.0)
+        fy = torch.clamp((uy - lo_y) / torch.clamp(self.row_cdf[y] - lo_y, min=1e-20),
+                         0.0, 1.0 - 1e-6)
+        ux = u2[..., 1] * self.cond_cdf[y, -1]
+        x = torch.clamp(_lower_bound_rows(self.cond_cdf, y, ux), 0, w - 1)
+        lo_x = torch.where(x > 0, self.cond_cdf[y, torch.clamp(x - 1, min=0)], 0.0)
+        fx = torch.clamp((ux - lo_x) / torch.clamp(self.cond_cdf[y, x] - lo_x, min=1e-20),
+                         0.0, 1.0 - 1e-6)
+        theta = (y.to(torch.float32) + fy) / h * math.pi
+        phi = ((x.to(torch.float32) + fx) / w - 0.5) * 2 * math.pi
+        sin_t = torch.sin(theta)
+        d_local = torch.stack([-sin_t * torch.sin(phi), torch.cos(theta),
+                               sin_t * torch.cos(phi)], dim=-1)
+        d = _local_to_world(d_local, self.to_world_rot)
+        pdf = self.pdf_direction_escaped(d)
+        dist = torch.full((n_lanes,), 2.0, dtype=torch.float32, device=dev) * torch.clamp(
+            self.scene_radius, min=1.0)
+        val = self.eval_escaped(d, n_channels, wavelengths)
+        weight = torch.where((pdf > 0)[..., None],
+                             val / torch.clamp(pdf, min=1e-20)[..., None], 0.0)
+        ds = DirectionSample(
+            p=ref_p + d * dist[..., None], n=-d, d=d, dist=dist, pdf=pdf,
+            delta=torch.zeros(n_lanes, dtype=torch.bool, device=dev),
+            emitter_index=torch.full((n_lanes,), emitter_index, dtype=torch.int32, device=dev),
+            uv=torch.zeros(n_lanes, 2, dtype=torch.float32, device=dev),
+        )
+        return ds, weight
+
+    def parameters_changed(self, geometry):
+        return self
+
+
+@dataclass
+class SphereAreaEmitter:
+    """Diffuse area light on an analytic sphere, sampled uniformly in the
+    cone the sphere subtends (every sample hits it). The sphere is read
+    from the geometry at each use (``needs_geometry``), so that a moved
+    sphere's light moves with it."""
+
+    radiance: object            # texture
+    sphere_index: int
+    shape_index: int
+
+    is_environment = False
+    is_delta = False
+    needs_geometry = True
+
+    def eval(self, si, n_channels, wavelengths=None):
+        front = si.wi[..., 2] > 0
+        return torch.where(front[..., None], self.radiance.eval(si.uv, n_channels, wavelengths),
+                           0.0)
+
+    def _cone(self, ref_p, geom):
+        center = geom.sph_center[self.sphere_index]
+        radius = geom.sph_radius[self.sphere_index]
+        dc = center - ref_p
+        L2 = dot(dc, dc)
+        L = safe_sqrt(torch.clamp(L2, min=1e-20))
+        sin2_max = torch.clamp((radius / torch.clamp(L, min=1e-12)) ** 2, 0.0, 1.0 - 1e-7)
+        cos_max = safe_sqrt(1.0 - sin2_max)
+        solid = (2.0 * math.pi) * torch.clamp(1.0 - cos_max, min=1e-12)
+        return center, radius, dc, L2, dc / L[..., None], L > radius * 1.0001, cos_max, solid
+
+    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels, wavelengths=None):
+        n_lanes, dev = ref_p.shape[0], ref_p.device
+        center, radius, dc, L2, dh, outside, cos_max, solid = self._cone(ref_p, geom)
+        cos_t = 1.0 - u2[..., 0] * (1.0 - cos_max)
+        sin_t = safe_sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+        phi = (2.0 * math.pi) * u2[..., 1]
+        e1, e2 = coordinate_system(dh)
+        d = cos_t[..., None] * dh + sin_t[..., None] * (torch.cos(phi)[..., None] * e1
+                                                        + torch.sin(phi)[..., None] * e2)
+        # the near intersection along d
+        b = dot(d, dc)
+        dist = b - safe_sqrt(torch.clamp(b * b - (L2 - radius ** 2), min=0.0))
+        p = ref_p + dist[..., None] * d
+        n = normalize(p - center)
+        from .shapes import sphere_uv
+
+        uv = sphere_uv(n)
+        val = self.radiance.eval(uv, n_channels, wavelengths)
+        ds = DirectionSample(
+            p=p, n=n, d=d, dist=dist, pdf=torch.where(outside, 1.0 / solid, 0.0),
+            delta=torch.zeros(n_lanes, dtype=torch.bool, device=dev),
+            emitter_index=torch.full((n_lanes,), emitter_index, dtype=torch.int32, device=dev),
+            uv=uv,
+        )
+        return ds, torch.where(outside[..., None], val * solid[..., None], 0.0)
+
+    def pdf_direction(self, ref_p, si, geom):
+        """The cone pdf of a direction from ref_p that hits the sphere."""
+        *_, outside, _, solid = self._cone(ref_p, geom)
+        return torch.where(outside, 1.0 / solid, 0.0)
+
+    def parameters_changed(self, geometry):
+        return self
+
+
+def fused_area_tables(values, tri_index, tri_light, geometry):
+    """(tri_cdf [T] normalized to 1, area_pdf [K], total_power) of fused
+    constant area lights: triangle t of light k is drawn with probability
+    area_t lum_k / Z, lum_k the mean of light k's rgb (at least 1e-12), so
+    a point's area pdf is lum_k / Z. In numpy from the geometry's
+    triangles, each light's areas through its float32 area cdf, as the JAX
+    package's loader builds them; detached."""
+    e1 = geometry.tri_e1.detach().cpu().numpy()[tri_index]
+    e2 = geometry.tri_e2.detach().cpu().numpy()[tri_index]
+    raw = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
+    lums = np.maximum(np.asarray(values, np.float32).mean(-1), 1e-12)
+    w = np.zeros(tri_index.shape[0], np.float64)
+    for k in range(lums.shape[0]):
+        sel = tri_light == k
+        cdf = np.cumsum(raw[sel]).astype(np.float32)
+        w[sel] = np.diff(np.concatenate([[0.0], cdf])) * float(lums[k])
+    Z = max(float(w.sum()), 1e-30)
+    return (np.cumsum(w) / Z).astype(np.float32), (lums / Z).astype(np.float32), np.pi * Z
+
+
+@dataclass
+class AreaEmitterArray:
+    """Many diffuse area lights of constant radiance fused into one
+    emitter: a triangle is drawn from one cdf over the union of their
+    triangles, weighted by area times the light's luminance (uniform
+    within a light, power-weighted between them), and the radiance table
+    [K, 3] stays one parameter. A lane's light rides in its sample's
+    uv[..., 0]."""
+
+    values: torch.Tensor          # [K, 3] radiance rows
+    tri_index: torch.Tensor       # [T] int64 triangle ids in the geometry
+    tri_light: torch.Tensor       # [T] int64 light of each triangle
+    tri_cdf: torch.Tensor         # [T] selection cdf, normalized (detached)
+    area_pdf: torch.Tensor        # [K] area pdf lum_k / Z (detached)
+    shape_to_light: torch.Tensor  # [n_shapes] int64 light of each shape, -1 none
+    total_power: float = 1.0      # pi Z
+
+    is_environment = False
+    is_delta = False
+
+    def _rows(self, k, n_channels, wavelengths):
+        return to_channels(self.values[k], n_channels, wavelengths, True)
+
+    def _light_of(self, si):
+        k = self.shape_to_light[torch.clamp(si.shape_index, min=0).to(torch.int64)]
+        return torch.where(si.shape_index >= 0, k, -1)
+
+    def eval(self, si, n_channels, wavelengths=None):
+        k = self._light_of(si)
+        front = (si.wi[..., 2] > 0) & (k >= 0)
+        return torch.where(front[..., None],
+                           self._rows(torch.clamp(k, min=0), n_channels, wavelengths), 0.0)
+
+    def sample_point(self, u2, geom):
+        """(point, geometric normal, light, area pdf) of area samples u2."""
+        u = u2[..., 0].contiguous()
+        T = self.tri_cdf.shape[0]
+        t = torch.clamp(torch.searchsorted(self.tri_cdf, u, right=True), 0, T - 1)
+        tri = self.tri_index[t]
+        cdf_lo = torch.cat([torch.zeros_like(self.tri_cdf[:1]), self.tri_cdf[:-1]])
+        lo = cdf_lo[t]
+        u0r = torch.clamp((u - lo) / torch.clamp(self.tri_cdf[t] - lo, min=1e-20), 0.0, 1.0)
+        bary = warp.square_to_uniform_triangle(torch.stack([u0r, u2[..., 1]], dim=-1))
+        p = geom.tri_v0[tri] + bary[..., 0:1] * geom.tri_e1[tri] + bary[..., 1:2] * geom.tri_e2[tri]
+        k = self.tri_light[t]
+        return p, geom.tri_ng[tri], k, self.area_pdf[k]
+
+    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels, wavelengths=None):
+        n_lanes = ref_p.shape[0]
+        p, ng, k, p_area = self.sample_point(u2, geom)
+        to_p = p - ref_p
+        dist2 = dot(to_p, to_p)
+        dist = torch.sqrt(torch.clamp(dist2, min=1e-20))
+        d = to_p / dist[..., None]
+        cos_e = -dot(d, ng)
+        valid = cos_e > 1e-6
+        pdf = torch.where(valid, dist2 * p_area / torch.where(valid, cos_e, 1.0), 0.0)
+        val = self._rows(k, n_channels, wavelengths)
+        pos = pdf > 0
+        weight = torch.where(pos[..., None], val / torch.where(pos, pdf, 1.0)[..., None], 0.0)
+        ds = DirectionSample(
+            p=p, n=ng, d=d, dist=dist, pdf=pdf,
+            delta=torch.zeros(n_lanes, dtype=torch.bool, device=p.device),
+            emitter_index=torch.full((n_lanes,), emitter_index, dtype=torch.int32, device=p.device),
+            uv=torch.stack([k.to(torch.float32), torch.zeros_like(dist)], dim=-1),
+        )
+        return ds, weight
+
+    def eval_sample_value(self, ds, n_channels, wavelengths=None):
+        """The radiance of the light recorded in ds.uv[..., 0], attached."""
+        return self._rows(ds.uv[..., 0].to(torch.int64), n_channels, wavelengths)
+
+    def pdf_direction(self, ref_p, si):
+        """The solid-angle pdf of a hit on one of the fused lights (the
+        selection within the group included)."""
+        k = self._light_of(si)
+        p_area = self.area_pdf[torch.clamp(k, min=0)]
+        to_p = si.p - ref_p
+        dist2 = dot(to_p, to_p)
+        ok = (dist2 > 1e-18) & (k >= 0)
+        d = to_p * torch.rsqrt(torch.where(ok, dist2, 1.0))[..., None]
+        cos_e = -dot(d, si.n)
+        valid = ok & (cos_e > 1e-6)
+        return torch.where(valid, dist2 * p_area / torch.where(valid, cos_e, 1.0), 0.0)
+
+    def parameters_changed(self, geometry):
+        """Re-derive the selection tables after the triangles moved."""
+        cdf, area_pdf, power = fused_area_tables(
+            self.values.detach().cpu().numpy(), self.tri_index.cpu().numpy(),
+            self.tri_light.cpu().numpy(), geometry)
+        dev = self.tri_cdf.device
+        return dataclasses.replace(self, tri_cdf=torch.from_numpy(cdf).to(dev),
+                                   area_pdf=torch.from_numpy(area_pdf).to(dev),
+                                   total_power=power)
+
+
+@dataclass
+class DirectionalAreaEmitter(AreaEmitter):
+    """A collimated panel: a triangle shape emitting `radiance` along its
+    normal only. Delta in both position and direction, it is neither
+    sampled from a point nor hit by a path: the particle tracer carries its
+    light (integrators/ptracer.py)."""
+
+    is_delta = True
+    is_directional_area = True
+
+    def eval(self, si, n_channels, wavelengths=None):
+        return _zeros_eval(si, n_channels)
+
+    def sample_direction(self, ref_p, u2, geom, emitter_index, n_channels, wavelengths=None):
+        n_lanes, dev = ref_p.shape[0], ref_p.device
+        zero = torch.zeros(n_lanes, dtype=torch.float32, device=dev)
+        ds = DirectionSample(
+            p=ref_p, n=torch.zeros_like(ref_p), d=torch.zeros_like(ref_p), dist=zero, pdf=zero,
+            delta=torch.ones(n_lanes, dtype=torch.bool, device=dev),
+            emitter_index=torch.full((n_lanes,), emitter_index, dtype=torch.int32, device=dev),
+            uv=torch.zeros(n_lanes, 2, dtype=torch.float32, device=dev),
+        )
+        return ds, torch.zeros(n_lanes, n_channels, dtype=torch.float32, device=dev)
+
+    def pdf_direction(self, ref_p, si):
+        return _zero_pdf(ref_p)

@@ -2,7 +2,8 @@
 (counterpart of mitsuba_tpu/render/params.py).
 
 Keys are the reference's dotted names (``white.reflectance.value``,
-``light.emitter.radiance.value``, ``floor.vertex_positions``, ...), so a
+``light.emitter.radiance.value``, ``floor.vertex_positions``,
+``ball.center``, ``sky.data``, ...), so a
 dict made from the JAX package's ``mi.traverse(scene)`` carries across:
 ``traverse(scene).update({key: np.ndarray})``.
 
@@ -95,6 +96,12 @@ class SceneParameters:
     def __setitem__(self, key, value):
         if key not in self._paths:
             raise KeyError(key)
+        if (torch.is_tensor(value) and value.requires_grad
+                and self._paths[key][:2] in (("geometry", "sph_center"),
+                                             ("geometry", "sph_radius"))):
+            raise NotImplementedError(
+                f"the gradient of {key!r} (an analytic sphere's projective boundary terms) is "
+                "not yet ported; write the value without requires_grad to move the sphere")
         if torch.is_tensor(value):
             self._pending[key] = value.to(torch.float32)
         else:

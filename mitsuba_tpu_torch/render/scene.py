@@ -58,6 +58,10 @@ class Scene:
     env_emitter: int = -1           # index of the environment emitter or -1
     # Mueller throughput and Stokes radiance (the *_polarized variants)
     polarized: bool = False
+    # the emitters' selection weights [E] (the scene dict's
+    # "emitter_sampler": "power", render/scene_loader.py:emitter_power), or
+    # None for the uniform selection
+    emitter_pmf: torch.Tensor = None
     # the camera sits in vacuum
     camera_medium = -1
 
@@ -100,9 +104,10 @@ class Scene:
 
     def sample_emitter_direction(self, ref_p, u0, u2, active, test_visibility=True, ref_n=None,
                                  wavelengths=None):
-        """Pick an emitter uniformly, sample a direction toward it and, with
-        test_visibility, shadow-test it. The weight (radiance / pdf)
-        includes the 1/n_emitters selection factor."""
+        """Pick an emitter (uniformly, or by emitter_pmf), sample a
+        direction toward it and, with test_visibility, shadow-test it. The
+        weight (radiance / pdf) and the pdf include the selection's
+        probability."""
         n_lanes = ref_p.shape[0]
         E = self.n_emitters
         if E == 0:
@@ -116,7 +121,12 @@ class Scene:
             )
             return ds, torch.zeros(n_lanes, self.n_channels, dtype=torch.float32, device=ref_p.device)
 
-        sel = torch.clamp((u0 * E).to(torch.int32), 0, E - 1)
+        if self.emitter_pmf is None:
+            sel = torch.clamp((u0 * E).to(torch.int32), 0, E - 1)
+        else:
+            cdf = torch.cumsum(self.emitter_pmf, 0)
+            sel = torch.clamp(torch.searchsorted(cdf / cdf[-1], u0.contiguous(), right=True),
+                              0, E - 1).to(torch.int32)
         ds_out = w_out = None
         for i, em in enumerate(self.emitters):
             ds_i, w_i = em.sample_direction(ref_p, u2, self.geometry, i, self.n_channels,
@@ -137,9 +147,14 @@ class Scene:
                 uv=torch.where(m3, ds_i.uv, ds_out.uv),
             )
             w_out = torch.where(m3, w_i, w_out)
-        # uniform selection probability 1/E
-        ds_out.pdf = ds_out.pdf / E
-        w_out = w_out * E
+        if self.emitter_pmf is None:
+            # uniform selection probability 1/E
+            ds_out.pdf = ds_out.pdf / E
+            w_out = w_out * E
+        else:
+            sel_p = self._emitter_sel_pmf()[sel.to(torch.int64)]
+            ds_out.pdf = ds_out.pdf * sel_p
+            w_out = w_out / torch.clamp(sel_p, min=1e-20)[..., None]
 
         if test_visibility:
             sray = spawn_ray(
@@ -160,17 +175,26 @@ class Scene:
         if E == 0:
             return pdf
         em_idx = self._emitter_at(si)
-        sel_p = self._emitter_sel_pmf()
         for i, em in enumerate(self.emitters):
             if em.is_environment or em.is_delta:
                 continue
-            pdf = torch.where(em_idx == i, em.pdf_direction(ref_p, si) * sel_p, pdf)
+            if getattr(em, "needs_geometry", False):
+                p_i = em.pdf_direction(ref_p, si, self.geometry)
+            else:
+                p_i = em.pdf_direction(ref_p, si)
+            pdf = torch.where(em_idx == i, p_i * self._sel_p(i), pdf)
         return pdf
 
     def _emitter_sel_pmf(self):
-        """The selection probability of each emitter: uniform (the
-        reference's power-weighted selection is not yet ported)."""
-        return 1.0 / max(self.n_emitters, 1)
+        """The selection probabilities [E] of the emitters (emitter_pmf
+        normalized)."""
+        return self.emitter_pmf / torch.sum(self.emitter_pmf)
+
+    def _sel_p(self, i):
+        """The selection probability of emitter i."""
+        if self.emitter_pmf is None:
+            return 1.0 / max(self.n_emitters, 1)
+        return self._emitter_sel_pmf()[i]
 
     def eval_emitter_hit(self, si, wavelengths=None):
         """Radiance of the emitter (if any) at surface hit si."""
@@ -199,7 +223,9 @@ class Scene:
                 v = em.eval_escaped(ds.d, nc, wavelengths)
             elif hasattr(em, "radiance"):
                 v = em.radiance.eval(ds.uv, nc, wavelengths)
-            else:   # directional
+            elif hasattr(em, "intensity"):
+                v = em.intensity.eval(ds.uv, nc, wavelengths)
+            else:   # directional, projector
                 v = em.irradiance.eval(ds.uv, nc, wavelengths)
             out = torch.where((ds.emitter_index == i)[..., None], v, out)
         return out
@@ -216,7 +242,7 @@ class Scene:
         if self.env_emitter < 0 or self.n_emitters == 0:
             return torch.zeros(d.shape[:-1], dtype=torch.float32, device=d.device)
         em = self.emitters[self.env_emitter]
-        return em.pdf_direction_escaped(d) * self._emitter_sel_pmf()
+        return em.pdf_direction_escaped(d) * self._sel_p(self.env_emitter)
 
     # -- BSDF dispatch ------------------------------------------------------
     def bsdf_index_at(self, si):

@@ -5,29 +5,39 @@ Accepted plugin types: ``scene``; the ``path``, ``prb``, ``prb_basic``,
 ``volpath``, ``volpathmis``, ``prbvolpath`` (``prb_unpolarized``),
 ``prb_polarized``, ``volpathaos``, ``prb_volpathaos``, ``direct``,
 ``depth``, ``aov``, ``stokes``, ``moment``, ``ptracer``,
-``direct_projective`` and ``prb_projective`` integrators; the ``perspective`` and ``radiancemeter``
-(with an optional ``wavelength``) sensors with an ``independent`` sampler
-and an ``hdrfilm`` (or a ``specfilm``, whose nested spectra are its
-channels' sensor response functions) with a ``gaussian``, ``box`` or
-``tent`` filter; the
+``direct_projective`` and ``prb_projective`` integrators; the ``perspective``,
+``thinlens``, ``orthographic``, ``radiancemeter`` and ``distant`` (with an
+optional ``wavelength``), ``irradiancemeter`` and ``batch`` sensors with an
+``independent`` sampler and an ``hdrfilm`` (or a ``specfilm``, whose nested
+spectra are its channels' sensor response functions) with a ``gaussian``,
+``box``, ``tent``, ``mitchell``, ``catmullrom`` or ``lanczos`` filter and an
+optional crop window; the
 ``diffuse``, ``null``, ``dielectric``, ``thindielectric``, ``roughdielectric``,
 ``conductor``, ``roughconductor`` (a ``material`` preset or ``eta`` and
 ``k``), ``roughplastic``, ``pplastic``, ``polarizer``, ``circular``,
 ``retarder``, ``twosided``, ``mask`` and ``blendbsdf`` BSDFs with ``rgb``,
 scalar or spectrum (``uniform``, ``singleton``, ``d65``, ``blackbody``,
-``regular``, ``irregular``) textures (``normalmap``, ``bumpmap``, ``plastic`` and the
-principled, measured and hair BSDFs raise ``NotImplementedError``);
-``rectangle``, ``cube``, ``obj``, ``ply`` and
-raw-array ``mesh`` shapes, with an ``interior`` and ``exterior`` medium;
+``regular``, ``irregular``), ``checkerboard`` and ``bitmap`` (``data``, a
+raw [H, W(, C)] array, or a ``.npy`` or ``.pfm`` file) textures
+(``normalmap``, ``bumpmap``, ``plastic`` and the principled, measured and
+hair BSDFs raise ``NotImplementedError``); ``rectangle``, ``cube``,
+``sphere`` (analytic), ``disk`` and ``cylinder`` (tessellated as in the JAX
+package), ``obj``, ``ply`` and raw-array ``mesh`` shapes, with an
+``interior`` and ``exterior`` medium;
 ``homogeneous`` and ``heterogeneous`` media (``constvolume``/``gridvolume``
 fields, the ``isotropic``, ``hg``, ``sggx``, ``rayleigh``, ``mie`` (with a
 ``monodisperse``, ``gamma``, ``lognormal`` or ``powerlaw`` size
 distribution), ``tabphase_polarized`` and ``blendphase`` phase functions);
-``area`` emitters, the ``constant`` environment emitter, the
-``directional`` sun and ``point`` lights (more than four with a constant
-intensity are fused into one ``PointEmitterArray``, as in the JAX
-package; ``fuse_point_lights`` True or False at the root of the dict
-forces it either way); ``ref`` to a named BSDF or medium. Any other type
+``area`` emitters (on a sphere: cone-sampled; more than four of constant
+radiance on triangles are fused into one ``AreaEmitterArray``, as in the
+JAX package; ``fuse_area_lights`` True or False at the root of the dict
+forces it either way) and ``directionalarea`` ones, the ``constant`` and
+``envmap`` environment emitters, the ``directional`` sun, ``spot`` and
+``projector`` lights and ``point`` lights (more than four with a constant
+intensity are fused into one ``PointEmitterArray``; ``fuse_point_lights``
+forces it either way); ``emitter_sampler`` "power" at the root selects the
+emitters by their power, as in the JAX package; ``ref`` to a named BSDF or
+medium. Any other type
 raises ``NotImplementedError``: it is not yet ported (``serialized`` and
 ``blender`` meshes among them).
 
@@ -35,9 +45,9 @@ The scene takes the channel count and polarization of the current variant
 (``set_variant``): ``mono`` scenes carry one channel, ``rgb`` three,
 ``spectral`` four wavelengths a lane.
 
-An ``obj`` or ``ply`` ``filename`` is an absolute path or one relative to
-the working directory: the reference's file-resolver search path is not
-yet ported.
+An ``obj``, ``ply``, ``.npy`` or ``.pfm`` ``filename`` is an absolute path
+or one relative to the working directory: the reference's file-resolver
+search path is not yet ported.
 
 The scene is built on the host in numpy, with the same operations as the
 JAX package's loader, then moved to its device once.
@@ -53,17 +63,18 @@ from .. import native
 from ..core.transform import Transform, build_transform
 from . import bsdfs as B
 from ..variant import current_variant
+from . import emitters as E
+from . import sensors as SEN
 from .emitters import (AreaEmitter, ConstantEmitter, DirectionalEmitter, PointEmitter,
                        PointEmitterArray)
 from .film import Film, srf_norms
 from .media import MEDIUM_TYPES, parse_medium
 from .scene import Scene
-from .sensors import PerspectiveCamera, RadiancemeterSensor
 from . import shapes as SH
 from . import textures as TX
 from .textures import ConstantTexture
 
-SHAPE_TYPES = ("rectangle", "cube", "obj", "ply", "mesh")
+SHAPE_TYPES = ("rectangle", "cube", "sphere", "disk", "cylinder", "obj", "ply", "mesh")
 BSDF_TYPES = ("diffuse", "null", "roughdielectric", "dielectric", "thindielectric", "conductor",
               "roughconductor", "roughplastic", "pplastic", "polarizer", "circular", "retarder",
               "twosided", "mask", "blendbsdf")
@@ -71,11 +82,10 @@ BSDF_TYPES = ("diffuse", "null", "roughdielectric", "dielectric", "thindielectri
 BSDF_TYPES_NOT_PORTED = ("normalmap", "bumpmap", "plastic", "principled", "principledthin",
                          "principled_thin", "measured", "measured_polarized", "hair")
 ALL_BSDF_TYPES = BSDF_TYPES + BSDF_TYPES_NOT_PORTED
-# the reference's environment and delta emitters; "constant",
-# "directional" and "point" are ported
+# the environment and delta emitters
 EMITTER_TYPES = ("constant", "point", "directional", "envmap", "spot", "projector")
-SENSOR_TYPES = ("perspective", "radiancemeter")
-FILM_KEYS_NOT_PORTED = ("crop_offset_x", "crop_offset_y", "crop_width", "crop_height")
+SENSOR_TYPES = ("perspective", "thinlens", "orthographic", "radiancemeter", "irradiancemeter",
+                "distant", "batch")
 
 
 def resolve_device(device=None):
@@ -153,8 +163,23 @@ def parse_texture(spec, device, default=1.0, emissive=False):
         value = np.asarray([float(spec)], np.float32)
     elif isinstance(spec, (list, tuple, np.ndarray)):
         value = np.asarray(spec, np.float32)
-        if value.ndim != 1:
-            raise _not_ported("a bitmap texture")
+        if value.ndim >= 2:
+            # a raw [H, W(, C)] image is a bitmap
+            return TX.BitmapTexture(data=t32(value if value.ndim == 3 else value[..., None])), \
+                "data"
+    elif spec.get("type") == "bitmap":
+        data = np.asarray(spec["data"] if "data" in spec else load_image(spec["filename"]),
+                          np.float32)
+        return TX.BitmapTexture(data=t32(data if data.ndim == 3 else data[..., None])), "data"
+    elif spec.get("type") == "checkerboard":
+        uv_scale, uv_offset = [1.0, 1.0], [0.0, 0.0]
+        if spec.get("to_uv") is not None:
+            m = np.asarray(build_transform(spec["to_uv"]).m)
+            uv_scale, uv_offset = [m[0, 0], m[1, 1]], [m[0, 3], m[1, 3]]
+        return TX.CheckerboardTexture(
+            color0=parse_texture(spec.get("color0", 0.4), device)[0].value,
+            color1=parse_texture(spec.get("color1", 0.2), device)[0].value,
+            uv_scale=t32(uv_scale), uv_offset=t32(uv_offset)), "color0"
     elif spec.get("type") in ("rgb", "srgb"):
         value = np.asarray(spec["color"] if "color" in spec else spec["value"], np.float32)
     elif spec.get("type") == "uniform":
@@ -178,6 +203,29 @@ def parse_texture(spec, device, default=1.0, emissive=False):
     else:
         raise _not_ported(f"texture type {spec.get('type')!r}")
     return ConstantTexture(value=torch.from_numpy(value).to(device), emissive=emissive), "value"
+
+
+def load_image(filename):
+    """An image array from a ``.npy`` or ``.pfm`` file (the formats the JAX
+    package reads; any other raises its ValueError)."""
+    fn = os.fspath(filename)
+    if fn.endswith(".npy"):
+        return np.load(fn)
+    if fn.endswith(".pfm"):
+        return read_pfm(fn)
+    raise ValueError(
+        f"unsupported image format for {fn!r} (npy/pfm supported; pass 'data' directly)"
+    )
+
+
+def read_pfm(fn):
+    """A portable float map [H, W, 3 or 1], row 0 at the top."""
+    with open(fn, "rb") as f:
+        color = f.readline().strip() == b"PF"
+        w, h = (int(x) for x in f.readline().split())
+        scale = float(f.readline().strip())
+        data = np.fromfile(f, "<f4" if scale < 0 else ">f4")
+    return data.reshape(h, w, 3 if color else 1)[::-1]
 
 
 _IOR_PRESETS = {"bk7": 1.5046, "water": 1.3330, "diamond": 2.419, "air": 1.000277}
@@ -326,14 +374,16 @@ def parse_bsdf(spec, name, paths, device):
 
 
 def parse_sensor(spec, device):
+    """(sensor, film, spp) of a sensor dict, with the JAX package's
+    conventions: the fov along x (tan_y = tan_x / aspect), a distant
+    sensor's disk of radius 1 about the origin (its ``target`` where
+    given), a batch's nested sensors each with its own film's aspect."""
     t = spec["type"]
     if t not in SENSOR_TYPES:
         raise _not_ported(f"sensor type {t!r}")
     film_spec = spec.get("film", {})
     if film_spec.get("type", "hdrfilm") not in ("hdrfilm", "specfilm"):
         raise _not_ported(f"film type {film_spec.get('type')!r}")
-    if any(k in film_spec for k in FILM_KEYS_NOT_PORTED):
-        raise _not_ported("a film crop window")
     w = int(film_spec.get("width", 768))
     h = int(film_spec.get("height", 576))
     rfilter = film_spec.get("rfilter", {"type": "gaussian"})
@@ -345,9 +395,15 @@ def parse_sensor(spec, device):
                      and v.get("type") in ("regular", "irregular", "uniform", "d65"))
         if not srfs:
             raise ValueError("specfilm needs at least one nested spectrum (SRF)")
+    crop_size = None
+    if "crop_width" in film_spec or "crop_height" in film_spec:
+        crop_size = (int(film_spec.get("crop_width", w)), int(film_spec.get("crop_height", h)))
     film = Film(width=w, height=h,
                 rfilter=rfilter["type"] if isinstance(rfilter, dict) else str(rfilter),
-                srfs=srfs, srf_norms=srf_norms(srfs, device))
+                srfs=srfs, srf_norms=srf_norms(srfs, device),
+                crop_offset=(int(film_spec.get("crop_offset_x", 0)),
+                             int(film_spec.get("crop_offset_y", 0))),
+                crop_size=crop_size)
     sampler_spec = spec.get("sampler", {})
     if sampler_spec.get("type", "independent") != "independent":
         raise _not_ported(f"sampler type {sampler_spec.get('type')!r}")
@@ -355,11 +411,37 @@ def parse_sensor(spec, device):
     to_world = build_transform(spec.get("to_world", Transform.identity()))
     aspect = w / h
     to_world_m = torch.from_numpy(np.asarray(to_world.m, np.float32)).to(device)
-    if t == "radiancemeter":
-        wl = float(spec.get("wavelength", -1.0))
-        return RadiancemeterSensor(
-            to_world_m=to_world_m, aspect=aspect,
-            wavelength=torch.tensor(wl, dtype=torch.float32, device=device)), film, spp
+
+    def scalar(v):
+        return torch.tensor(float(v), dtype=torch.float32, device=device)
+
+    if t in ("radiancemeter", "distant"):
+        wl = scalar(spec.get("wavelength", -1.0))
+        if t == "radiancemeter":
+            return SEN.RadiancemeterSensor(to_world_m=to_world_m, aspect=aspect,
+                                           wavelength=wl), film, spp
+        dirn = np.asarray(spec.get("direction", [0, 0, -1]), np.float32)
+        target = spec.get("target")
+        return SEN.DistantSensor(
+            direction=torch.from_numpy(dirn / np.linalg.norm(dirn)).to(device),
+            target=torch.tensor(target if target is not None else [0.0, 0.0, 0.0],
+                                dtype=torch.float32, device=device),
+            # the JAX package's loader sets no scene bounds here
+            scene_center=torch.zeros(3, dtype=torch.float32, device=device),
+            scene_radius=scalar(1.0), wavelength=wl, has_target=target is not None), film, spp
+    if t == "orthographic":
+        return SEN.OrthographicCamera(to_world_m=to_world_m, aspect=aspect), film, spp
+    if t == "irradiancemeter":
+        return SEN.IrradiancemeterSensor(to_world_m=to_world_m, aspect=aspect), film, spp
+    if t == "batch":
+        nested = []
+        for v in spec.values():
+            for sub in (v if isinstance(v, (list, tuple)) else [v]):
+                if isinstance(sub, dict) and sub.get("type") in SENSOR_TYPES:
+                    nested.append(parse_sensor(sub, device)[0])
+        if not nested:
+            raise ValueError("batch sensor needs nested sensors")
+        return SEN.BatchSensor(sensors=tuple(nested)), film, spp
     fov = float(spec.get("fov", 45.0))
     fov_axis = spec.get("fov_axis", "x")
     tan_half = np.tan(np.deg2rad(fov) / 2)
@@ -368,12 +450,13 @@ def parse_sensor(spec, device):
         fov_axis == "larger" and aspect < 1.0
     ):
         tan_half = tan_half * aspect
-    cam = PerspectiveCamera(
-        to_world_m=to_world_m,
-        tan_half_fov_x=torch.tensor(float(tan_half), dtype=torch.float32, device=device),
-        aspect=aspect,
-    )
-    return cam, film, spp
+    if t == "thinlens":
+        return SEN.ThinLensCamera(
+            to_world_m=to_world_m, tan_half_fov_x=scalar(tan_half),
+            aperture_radius=scalar(spec.get("aperture_radius", 0.1)),
+            focus_distance=scalar(spec.get("focus_distance", 1.0)), aspect=aspect), film, spp
+    return SEN.PerspectiveCamera(to_world_m=to_world_m, tan_half_fov_x=scalar(tan_half),
+                                 aspect=aspect), film, spp
 
 
 INTEGRATOR_TYPES = ("path", "prb", "prb_basic", "volpath", "volpathmis", "prbvolpath",
@@ -398,6 +481,8 @@ def load_dict(d, device=None, intersector="smem"):
     if d.pop("type", "scene") != "scene":
         raise ValueError("the root of a scene dict must have type 'scene'")
     fuse_point_lights = d.pop("fuse_point_lights", None)   # None: fuse more than four
+    fuse_area_lights = d.pop("fuse_area_lights", None)     # None: fuse more than four
+    emitter_sampler = d.pop("emitter_sampler", "uniform")  # or "power"
 
     named_bsdfs = {}      # id -> index
     bsdf_list = []
@@ -405,6 +490,7 @@ def load_dict(d, device=None, intersector="smem"):
     spp = 16
     integrator_spec = {"type": "path"}
     tri_meshes = []
+    spheres = []
     shape_records = []    # per shape: dict(name, bsdf, emitter, interior, exterior)
     emitter_specs = []    # (shape index, emitter spec, shape name)
     env_specs = []        # (name, spec) of top-level emitters
@@ -468,21 +554,31 @@ def load_dict(d, device=None, intersector="smem"):
         elif t in SENSOR_TYPES:
             sensor, film, spp = parse_sensor(spec, device)
         elif t in EMITTER_TYPES:
-            if t not in ("constant", "directional", "point"):
-                raise _not_ported(f"emitter type {t!r}")
             env_specs.append((name, spec))
         elif t in SHAPE_TYPES:
             to_world = build_transform(spec.get("to_world", Transform.identity()))
-            if t == "rectangle":
-                m = SH.make_rectangle(to_world)
-            elif t == "cube":
-                m = SH.make_cube(to_world)
-            elif t in ("obj", "ply"):
-                m = load_mesh_file(t, spec["filename"], to_world)
+            if t == "sphere":
+                s_i = len(spheres)
+                spheres.append({**SH.make_sphere(spec, to_world),
+                                "shape_index": len(shape_records)})
+                for key in ("center", "radius"):
+                    param_paths.append((f"{name}.{key}",
+                                        ("geometry", f"sph_{key}", ("slice", s_i, s_i + 1))))
             else:
-                m = raw_mesh(spec, to_world)
-            m["shape_index"] = len(shape_records)
-            tri_meshes.append(m)
+                if t == "rectangle":
+                    m = SH.make_rectangle(to_world)
+                elif t == "cube":
+                    m = SH.make_cube(to_world)
+                elif t == "disk":
+                    m = SH.make_disk(to_world)
+                elif t == "cylinder":
+                    m = SH.make_cylinder(spec, to_world)
+                elif t in ("obj", "ply"):
+                    m = load_mesh_file(t, spec["filename"], to_world)
+                else:
+                    m = raw_mesh(spec, to_world)
+                m["shape_index"] = len(shape_records)
+                tri_meshes.append(m)
             if "emitter" in spec:
                 emitter_specs.append((len(shape_records), spec["emitter"], name))
             shape_records.append({
@@ -494,9 +590,9 @@ def load_dict(d, device=None, intersector="smem"):
             raise _not_ported(f"scene entry {name!r} of plugin type {t!r}")
 
     if sensor is None:
-        raise _not_ported("a scene without a perspective or radiancemeter sensor")
+        raise _not_ported("a scene without a sensor")
 
-    geometry = SH.build_geometry(tri_meshes, device, intersector)
+    geometry = SH.build_geometry(tri_meshes, device, intersector, spheres)
     for mesh, (v_start, v_count) in zip(tri_meshes, geometry.mesh_vertex_slices):
         sname = shape_records[mesh["shape_index"]]["name"]
         param_paths.append(
@@ -504,7 +600,8 @@ def load_dict(d, device=None, intersector="smem"):
              ("geometry", "vertices", ("slice", v_start, v_start + v_count)))
         )
 
-    # the bounding box of the real triangles and its sphere's radius
+    # the bounding box of the real triangles and the spheres, and its
+    # sphere's radius
     real = geometry.tri_shape.cpu().numpy() >= 0
     if real.any():
         v0 = geometry.tri_v0.detach().cpu().numpy()
@@ -514,41 +611,46 @@ def load_dict(d, device=None, intersector="smem"):
         bbox_min, bbox_max = pts.min(0), pts.max(0)
     else:
         bbox_min, bbox_max = np.full(3, -1.0, np.float32), np.full(3, 1.0, np.float32)
+    if spheres:
+        sc = np.stack([sp["center"] for sp in spheres])
+        sr = np.asarray([sp["radius"] for sp in spheres])
+        bbox_min = np.minimum(bbox_min, (sc - sr[:, None]).min(0))
+        bbox_max = np.maximum(bbox_max, (sc + sr[:, None]).max(0))
     radius = 0.5 * float(np.linalg.norm(bbox_max - bbox_min)) or 1.0
 
     emitters = []
+    sphere_of_shape = {sp["shape_index"]: i for i, sp in enumerate(spheres)}
     for shape_index, em_spec, shape_name in emitter_specs:
-        if em_spec.get("type") != "area":
-            raise _not_ported(f"emitter type {em_spec.get('type')!r}")
+        em_type = em_spec.get("type")
+        if em_type not in ("area", "directionalarea"):
+            raise _not_ported(f"emitter type {em_type!r}")
         tex, leaf = parse_texture(em_spec.get("radiance", 1.0), device, emissive=True)
         e_idx = len(emitters)
-        emitters.append(AreaEmitter.attach(tex, shape_index, geometry))
+        if shape_index in sphere_of_shape:
+            if em_type != "area":
+                raise _not_ported("a directionalarea emitter on a sphere")
+            emitters.append(E.SphereAreaEmitter(radiance=tex,
+                                                sphere_index=sphere_of_shape[shape_index],
+                                                shape_index=shape_index))
+        else:
+            cls = AreaEmitter if em_type == "area" else E.DirectionalAreaEmitter
+            emitters.append(cls.attach(tex, shape_index, geometry))
         param_paths.append(
             (f"{shape_name}.emitter.radiance.{leaf}", ("emitters", e_idx, "radiance", leaf))
         )
         shape_records[shape_index]["emitter"] = e_idx
+    emitters, param_paths = _fuse_area_lights(emitters, param_paths, shape_records,
+                                              fuse_area_lights, geometry, device)
     env_emitter = -1
     scene_radius = torch.tensor(radius, dtype=torch.float32, device=device)
     env_specs = _fuse_point_lights(env_specs, fuse_point_lights, emitters, param_paths, device)
     for name, spec in env_specs:
         e_idx = len(emitters)
-        if spec["type"] == "point":
-            tex, leaf = parse_texture(spec.get("intensity", 1.0), device, emissive=True)
-            emitters.append(PointEmitter(intensity=tex, position=_point_position(spec, device)))
-            param_paths.append((f"{name}.intensity.{leaf}", ("emitters", e_idx, "intensity", leaf)))
-            continue
-        if spec["type"] == "directional":
-            tex, leaf = parse_texture(spec.get("irradiance", 1.0), device, emissive=True)
-            dirn = np.asarray(spec.get("direction", [0, 0, -1]), np.float32)
-            emitters.append(DirectionalEmitter(
-                irradiance=tex, scene_radius=scene_radius,
-                direction=torch.from_numpy(dirn / np.linalg.norm(dirn)).to(device)))
-            param_paths.append((f"{name}.irradiance.{leaf}", ("emitters", e_idx, "irradiance", leaf)))
-            continue
-        tex, leaf = parse_texture(spec.get("radiance", 1.0), device, emissive=True)
-        env_emitter = e_idx
-        emitters.append(ConstantEmitter(radiance=tex, scene_radius=scene_radius))
-        param_paths.append((f"{name}.radiance.{leaf}", ("emitters", e_idx, "radiance", leaf)))
+        em, paths = _parse_env_or_delta(name, spec, scene_radius, device)
+        emitters.append(em)
+        param_paths.extend((key, ("emitters", e_idx) + sub) for key, sub in paths)
+        if em.is_environment:
+            env_emitter = e_idx
 
     if not bsdf_list:
         bsdf_list.append(B.DiffuseBSDF(reflectance=parse_texture(0.5, device)[0]))
@@ -566,6 +668,9 @@ def load_dict(d, device=None, intersector="smem"):
     def dev(x, dtype=None):
         return torch.from_numpy(np.asarray(x, dtype)).to(device)
 
+    emitter_pmf = None
+    if emitter_sampler == "power" and len(emitters) > 1:
+        emitter_pmf = dev([emitter_power(em, radius, geometry) for em in emitters], np.float32)
     var = current_variant()
     return Scene(
         geometry=geometry,
@@ -589,7 +694,137 @@ def load_dict(d, device=None, intersector="smem"):
         env_emitter=env_emitter,
         n_channels=var.n_channels,
         polarized=var.polarized,
+        emitter_pmf=emitter_pmf,
     )
+
+
+def _parse_env_or_delta(name, spec, scene_radius, device):
+    """(emitter, [(key, path within it)]) of a top-level emitter dict:
+    constant, envmap, point, directional, spot or projector."""
+    t = spec["type"]
+
+    def t32(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+
+    def texture(key):
+        tex, leaf = parse_texture(spec.get(key, 1.0), device, emissive=True)
+        return tex, [(f"{name}.{key}.{leaf}", (key, leaf))]
+
+    if t == "constant":
+        tex, paths = texture("radiance")
+        return ConstantEmitter(radiance=tex, scene_radius=scene_radius), paths
+    if t == "point":
+        tex, paths = texture("intensity")
+        return PointEmitter(intensity=tex, position=_point_position(spec, device)), paths
+    if t == "directional":
+        tex, paths = texture("irradiance")
+        dirn = np.asarray(spec.get("direction", [0, 0, -1]), np.float32)
+        return DirectionalEmitter(irradiance=tex, scene_radius=scene_radius,
+                                  direction=t32(dirn / np.linalg.norm(dirn))), paths
+    if t == "envmap":
+        data = np.asarray(spec["data"] if "data" in spec else load_image(spec["filename"]),
+                          np.float32)
+        row_cdf, cond_cdf = E.build_envmap_tables(data)
+        rot = np.asarray(build_transform(spec.get("to_world", Transform.identity())).m)[:3, :3]
+        return E.EnvmapEmitter(data=t32(data), row_cdf=t32(row_cdf), cond_cdf=t32(cond_cdf),
+                               scale=t32(float(spec.get("scale", 1.0))),
+                               scene_radius=scene_radius, to_world_rot=t32(rot)), \
+            [(f"{name}.data", ("data",))]
+    m = np.asarray(build_transform(spec.get("to_world", Transform.identity())).m)
+    if t == "spot":
+        tex, paths = texture("intensity")
+        cutoff = np.deg2rad(float(spec.get("cutoff_angle", 20.0)))
+        # as in the JAX package, the default beam width is 0.75 of the
+        # cutoff in radians, taken for degrees
+        beam = np.deg2rad(float(spec.get("beam_width", cutoff * 0.75)))
+        return E.SpotEmitter(intensity=tex, position=t32(m[:3, 3]), direction=t32(m[:3, 2]),
+                             cos_cutoff=t32(np.cos(cutoff)), cos_beam_width=t32(np.cos(beam))), \
+            paths
+    tex, paths = texture("irradiance")
+    return E.ProjectorEmitter(
+        irradiance=tex, scale=t32(float(spec.get("scale", 1.0))), position=t32(m[:3, 3]),
+        to_world_r=t32(m[:3, :3]),
+        tan_half_fov_x=t32(np.tan(np.deg2rad(float(spec.get("fov", 45.0))) / 2))), paths
+
+
+def _fuse_area_lights(emitters, param_paths, shape_records, fuse, geometry, device):
+    """(emitters, param_paths) with the area lights of constant radiance on
+    triangles fused into one AreaEmitterArray, appended after the others,
+    when there are more than four of them (or more than one, when `fuse`
+    is True; never when it is False), as the JAX package's loader does:
+    the shapes' emitter slots and the parameter paths are remapped (a fused
+    light's radiance is its row of the array's ``values``)."""
+    area_idx = [i for i, em in enumerate(emitters)
+                if type(em) is AreaEmitter and type(em.radiance) is ConstantTexture
+                and em.tri_index.shape[0] > 0]
+    if not (len(area_idx) > 4 if fuse is None else (fuse and len(area_idx) > 1)):
+        return emitters, param_paths
+    fused = {i: k for k, i in enumerate(area_idx)}
+    kept = [i for i in range(len(emitters)) if i not in fused]
+    remap = {i: j for j, i in enumerate(kept)}
+    g_idx = len(kept)
+    values, tri_ids, tri_light = [], [], []
+    shape_to_light = np.full(max(len(shape_records), 1), -1, np.int64)
+    for k, i in enumerate(area_idx):
+        em = emitters[i]
+        v = em.radiance.value.detach().cpu().numpy().astype(np.float32)
+        values.append(np.repeat(v, 3) if v.shape == (1,) else v)
+        tri_ids.append(em.tri_index.cpu().numpy())
+        tri_light.append(np.full(em.tri_index.shape[0], k, np.int64))
+        shape_to_light[em.shape_index] = k
+    values = np.stack(values)
+    tri_ids, tri_light = np.concatenate(tri_ids), np.concatenate(tri_light)
+    cdf, area_pdf, power = E.fused_area_tables(values, tri_ids, tri_light, geometry)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    array = E.AreaEmitterArray(values=t(values), tri_index=t(tri_ids), tri_light=t(tri_light),
+                               tri_cdf=t(cdf), area_pdf=t(area_pdf),
+                               shape_to_light=t(shape_to_light), total_power=power)
+    for rec in shape_records:
+        if rec["emitter"] >= 0:
+            rec["emitter"] = g_idx if rec["emitter"] in fused else remap[rec["emitter"]]
+    paths = []
+    for key, path in param_paths:
+        if path and path[0] == "emitters":
+            old = path[1]
+            path = (("emitters", g_idx, "values", ("slice", fused[old], fused[old] + 1))
+                    if old in fused else ("emitters", remap[old]) + tuple(path[2:]))
+        paths.append((key, path))
+    return [emitters[i] for i in kept] + [array], paths
+
+
+def emitter_power(em, scene_radius, geometry):
+    """The relative power of an emitter, for the "power" emitter selection
+    (the JAX package's heuristic: only the ratios matter)."""
+    def tex_mean(tex):
+        v = getattr(tex, "value", None)
+        return 1.0 if v is None else float(torch.mean(v.detach()))
+
+    r = float(scene_radius)
+    if isinstance(em, PointEmitterArray):
+        return 4.0 * np.pi * float(torch.sum(torch.mean(em.values.detach(), dim=-1)))
+    if isinstance(em, AreaEmitter):        # and DirectionalAreaEmitter
+        return float(np.pi * float(em.total_area) * tex_mean(em.radiance))
+    if isinstance(em, E.AreaEmitterArray):
+        return float(em.total_power)
+    if isinstance(em, E.SphereAreaEmitter):
+        r_s = float(geometry.sph_radius[em.sphere_index])
+        return float(np.pi * (4.0 * np.pi * r_s ** 2) * tex_mean(em.radiance))
+    if isinstance(em, PointEmitter):
+        return 4.0 * np.pi * tex_mean(em.intensity)
+    if isinstance(em, ConstantEmitter):
+        return 4.0 * np.pi ** 2 * r * r * tex_mean(em.radiance)
+    if isinstance(em, E.EnvmapEmitter):
+        return 4.0 * np.pi ** 2 * r * r * float(em.data.detach().mean() * em.scale)
+    if isinstance(em, DirectionalEmitter):
+        return float(np.pi * r * r * tex_mean(em.irradiance))
+    if isinstance(em, E.SpotEmitter):
+        return 2.0 * np.pi * (1.0 - float(em.cos_cutoff)) * tex_mean(em.intensity)
+    if isinstance(em, E.ProjectorEmitter):
+        return float(np.pi * tex_mean(em.irradiance) * float(em.scale))
+    return 1.0
 
 
 def _point_position(spec, device):
@@ -772,6 +1007,149 @@ def polarimeter_scene(res=256, spp=64, integrator=None):
                                 {"type": "translate", "value": [x, 0, 2.5]}]}
     d["integrator"] = integrator or {"type": "stokes",
                                      "integrator": {"type": "volpath", "max_depth": 8}}
+    return d
+
+
+SKY_SEED = 7
+PROJECTOR_SEED = 5
+
+
+def sky_envmap(h=128, w=256):
+    """A smooth sky [h, w, 3] float32 for an envmap: a zenith-to-horizon
+    blue, a darker ground below the horizon, slow brightness waves whose
+    phases come from numpy's default_rng(SKY_SEED), and one bright sun
+    patch (peak radiance 60) 35 degrees above the horizon at an azimuth
+    drawn from the same generator."""
+    rng = np.random.default_rng(SKY_SEED)
+    theta = ((np.arange(h) + 0.5) / h * np.pi)[:, None]           # from +y
+    phi = (((np.arange(w) + 0.5) / w - 0.5) * 2 * np.pi)[None, :]
+    up = np.cos(theta)
+    t = np.sqrt(np.clip(up, 0.0, 1.0))[..., None]
+    sky = (1 - t) * np.array([0.9, 0.9, 1.0]) + t * np.array([0.25, 0.45, 0.9])
+    ground = np.array([0.25, 0.22, 0.2])
+    blend = np.clip(up * 8.0 + 0.5, 0.0, 1.0)[..., None]
+    img = blend * sky + (1 - blend) * ground
+    k, ph = rng.integers(1, 4, 3), rng.uniform(0, 2 * np.pi, 3)
+    waves = sum(np.cos(k[i] * phi + ph[i]) for i in range(3)) * np.sin(theta)
+    img = img * (1.0 + 0.08 * waves)[..., None]
+    sun_phi, sun_theta = rng.uniform(-np.pi, np.pi), np.deg2rad(55.0)
+    d = np.stack([-np.sin(theta) * np.sin(phi), np.cos(theta) + 0 * phi,
+                  np.sin(theta) * np.cos(phi)], -1)
+    s = np.array([-np.sin(sun_theta) * np.sin(sun_phi), np.cos(sun_theta),
+                  np.sin(sun_theta) * np.cos(sun_phi)])
+    ang = np.arccos(np.clip(d @ s, -1.0, 1.0))
+    img = img + (60.0 * np.exp(-(ang / 0.06) ** 2))[..., None] * np.array([1.0, 0.95, 0.85])
+    return img.astype(np.float32)
+
+
+def spheres_scene(res=256, spp=64, integrator=None):
+    """The material preview: three analytic spheres of radius 0.33 on a
+    checkerboard floor (a diffuse red one in the middle, gold rough
+    conductor (alpha 0.2) on the left, bk7 glass on the right) beside a
+    blue diffuse cube, lit by a small sphere light, a spot (cutoff 25
+    degrees) and an envmap (sky_envmap), seen through a thin lens
+    (aperture 0.05) focused on the middle sphere, with a mitchell filter;
+    a res x res film at spp, `integrator` (a spec dict) or path max_depth 8."""
+    eye, ball = np.array([0.0, 0.4, 3.2]), np.array([0.0, -0.67, 0.0])
+    return {
+        "type": "scene",
+        "integrator": integrator or {"type": "path", "max_depth": 8},
+        "sensor": {
+            "type": "thinlens", "fov": 40.0, "aperture_radius": 0.05,
+            "focus_distance": float(np.linalg.norm(ball - eye)),
+            "to_world": [{"type": "look_at", "origin": eye.tolist(), "target": [0.0, -0.5, 0.0],
+                          "up": [0, 1, 0]}],
+            "film": {"type": "hdrfilm", "width": res, "height": res,
+                     "rfilter": {"type": "mitchell"}},
+            "sampler": {"type": "independent", "sample_count": spp},
+        },
+        "floor": {
+            "type": "rectangle",
+            "to_world": [{"type": "scale", "value": [3.0, 3.0, 1.0]},
+                         {"type": "rotate", "axis": [1, 0, 0], "angle": -90},
+                         {"type": "translate", "value": [0.0, -1.0, 0.0]}],
+            "bsdf": {"type": "diffuse", "reflectance": {
+                "type": "checkerboard", "color0": {"type": "rgb", "value": [0.8, 0.8, 0.75]},
+                "color1": {"type": "rgb", "value": [0.15, 0.15, 0.2]},
+                "to_uv": {"type": "scale", "value": [6.0, 6.0, 1.0]}}},
+        },
+        "cube": {
+            "type": "cube",
+            "to_world": [{"type": "scale", "value": 0.25},
+                         {"type": "rotate", "axis": [0, 1, 0], "angle": 30},
+                         {"type": "translate", "value": [1.1, -0.75, -0.9]}],
+            "bsdf": {"type": "diffuse", "reflectance": {"type": "rgb", "value": [0.2, 0.4, 0.7]}},
+        },
+        "diffuse-ball": {"type": "sphere", "center": ball.tolist(), "radius": 0.33,
+                         "bsdf": {"type": "diffuse",
+                                  "reflectance": {"type": "rgb", "value": [0.7, 0.25, 0.2]}}},
+        "gold-ball": {"type": "sphere", "center": [-0.8, -0.67, 0.0], "radius": 0.33,
+                      "bsdf": {"type": "roughconductor", "material": "Au", "alpha": 0.2}},
+        "glass-ball": {"type": "sphere", "center": [0.8, -0.67, 0.0], "radius": 0.33,
+                       "bsdf": {"type": "dielectric", "int_ior": "bk7"}},
+        "bulb": {"type": "sphere", "center": [-0.5, 0.6, 0.7], "radius": 0.08,
+                 "emitter": {"type": "area",
+                             "radiance": {"type": "rgb", "value": [40.0, 36.0, 30.0]}}},
+        "spot": {"type": "spot", "cutoff_angle": 25.0,
+                 "intensity": {"type": "rgb", "value": [12.0, 12.0, 10.0]},
+                 "to_world": {"type": "look_at", "origin": [1.6, 1.6, 1.2],
+                              "target": [0.8, -0.67, 0.0], "up": [0, 1, 0]}},
+        "sky": {"type": "envmap", "data": sky_envmap()},
+    }
+
+
+def manylights_scene(res=256, spp=64, integrator=None, beam=False):
+    """The Cornell box with its ceiling light split into 8 panels of
+    constant radiance (a 4 x 2 grid of the light's rectangle, radiances
+    0.8-1.15 of the cbox's), which the loader fuses into one
+    AreaEmitterArray; with `beam`, also a collimated (directionalarea)
+    panel under the ceiling shining down. A res x res film at spp,
+    `integrator` or the cbox's path tracer."""
+    d = cornell_box()
+    d["sensor"]["film"]["width"] = d["sensor"]["film"]["height"] = res
+    d["sensor"]["sampler"]["sample_count"] = spp
+    base = np.array(d.pop("light")["emitter"]["radiance"]["value"])
+    for k in range(8):
+        x, z = -0.1725 + 0.115 * (k % 4), 0.01 - 0.095 + 0.19 * (k // 4)
+        d[f"light-{k}"] = {
+            "type": "rectangle",
+            "to_world": [{"type": "scale", "value": [0.0575, 0.095, 1.0]},
+                         {"type": "rotate", "axis": [1, 0, 0], "angle": 90},
+                         {"type": "translate", "value": [x, 0.99, z]}],
+            "bsdf": {"type": "ref", "id": "white"},
+            "emitter": {"type": "area", "radiance": {
+                "type": "rgb", "value": (base * (0.8 + 0.05 * k)).tolist()}},
+        }
+    if beam:
+        d["beam"] = {
+            "type": "rectangle",
+            "to_world": [{"type": "scale", "value": 0.12},
+                         {"type": "rotate", "axis": [1, 0, 0], "angle": 90},
+                         {"type": "translate", "value": [-0.45, 0.95, 0.3]}],
+            "bsdf": {"type": "ref", "id": "white"},
+            "emitter": {"type": "directionalarea",
+                        "radiance": {"type": "rgb", "value": [6.0, 5.0, 4.0]}},
+        }
+    if integrator is not None:
+        d["integrator"] = integrator
+    return d
+
+
+def projector_scene(res=256, spp=64):
+    """The Cornell box with a projector at (0, 0, 1.5) throwing a 64 x 64
+    bitmap (a smooth colour pattern with a seeded numpy texture,
+    default_rng(PROJECTOR_SEED)) on the back wall through a 40 degree frustum, scale
+    2, beside the ceiling light."""
+    d = cornell_box()
+    d["sensor"]["film"]["width"] = d["sensor"]["film"]["height"] = res
+    d["sensor"]["sampler"]["sample_count"] = spp
+    y, x = np.mgrid[0:64, 0:64] / 63.0
+    noise = np.random.default_rng(PROJECTOR_SEED).random((64, 64))
+    img = np.stack([0.5 + 0.5 * np.cos(6 * x), 0.5 + 0.5 * np.sin(5 * y), 0.3 + 0.7 * noise], -1)
+    d["projector"] = {"type": "projector", "fov": 40.0, "scale": 2.0,
+                      "irradiance": {"type": "bitmap", "data": img.astype(np.float32)},
+                      "to_world": {"type": "look_at", "origin": [0.0, 0.0, 1.5],
+                                   "target": [0.0, 0.0, -1.0], "up": [0, 1, 0]}}
     return d
 
 

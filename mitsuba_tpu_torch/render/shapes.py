@@ -1,5 +1,6 @@
-"""Triangle geometry: host-side build, closest-hit and shadow queries, and
-shading (counterpart of mitsuba_tpu/render/shapes.py, triangles only).
+"""Geometry: host-side build, closest-hit and shadow queries, and shading
+(counterpart of mitsuba_tpu/render/shapes.py, triangles and analytic
+spheres).
 
 All shapes of a scene are compiled into one struct-of-arrays triangle table
 (a rectangle is 2 triangles, a cube 12, a mesh its faces), padded with
@@ -12,12 +13,22 @@ triangles, through kernel K3 (``ops/intersect_mxu.py``), which takes every
 determinant from one matrix product on the tensor cores. A larger one gets a
 wide-leaf BVH (built on the host, ``native.build_bvh_wide``), its
 triangle arrays permuted into leaf order, and is queried through kernel K2
-(``ops/bvh_sweep.py``): closest hit, and any hit for shadow rays. Spheres,
-capsules and SDF grids are not yet ported.
+(``ops/bvh_sweep.py``): closest hit, and any hit for shadow rays.
+
+Analytic spheres are a second table (centre, radius, shape): primitive ids
+[n_tris, n_tris + S) after the (padded) triangles. Every closest-hit and
+shadow query runs the sphere pass after the triangle kernel: a dense [N, S]
+quadratic in plain PyTorch, bounded by the kernel's t, where a sphere wins
+only when strictly closer than the triangle (the JAX package's
+``_sphere_pass``). A scene without triangles launches no closest-hit
+kernel: there is nothing for it to sweep. Capsules and SDF grids are not
+yet ported; disks and cylinders are tessellated into triangles by the
+loader, as in the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -79,6 +90,13 @@ class Geometry:
     edge_f: torch.Tensor | None = None
     edge_shape: torch.Tensor | None = None
     edge_fv: torch.Tensor | None = None
+    # analytic spheres: centre [S, 3], radius [S], shape [S] int32 (one
+    # zero row of shape -1 when S is 0); traverse() exposes each as
+    # `<shape>.center` and `<shape>.radius`
+    sph_center: torch.Tensor | None = None
+    sph_radius: torch.Tensor | None = None
+    sph_shape: torch.Tensor | None = None
+    n_spheres: int = 0
 
     @property
     def has_bvh(self):
@@ -118,10 +136,11 @@ class Geometry:
         return torch.where(missing, ng[:, None, :], vn)
 
 
-def build_geometry(tri_meshes, device, intersector="smem"):
+def build_geometry(tri_meshes, device, intersector="smem", spheres=()):
     """Host-side geometry compile. tri_meshes: list of dicts {vertices
     [V,3], faces [F,3], shape_index, normals (optional) [V,3], uvs
-    (optional) [V,2]}. `intersector` picks the closest-hit kernel of a
+    (optional) [V,2]}; spheres: list of dicts {center [3], radius,
+    shape_index}. `intersector` picks the closest-hit kernel of a
     triangle table: "smem" (K1) or "mma" (K3, at most MAX_MXU_TRIS
     triangles and no BVH; a ValueError otherwise)."""
     if intersector not in INTERSECTORS:
@@ -210,6 +229,15 @@ def build_geometry(tri_meshes, device, intersector="smem"):
 
     edge_v, edge_f, edge_shape, edge_fv = edge_table(tri["tri_face"][:T], tri["tri_shape"][:T],
                                                      cat(verts_all, (1, 3)))
+    S = len(spheres)
+    sph = {
+        "sph_center": np.asarray([s["center"] for s in spheres], np.float32).reshape(S, 3)
+        if S else np.zeros((1, 3), np.float32),
+        "sph_radius": np.asarray([s["radius"] for s in spheres], np.float32).reshape(S)
+        if S else np.zeros((1,), np.float32),
+        "sph_shape": np.asarray([s["shape_index"] for s in spheres], np.int32).reshape(S)
+        if S else np.full((1,), -1, np.int32),
+    }
     geom = Geometry(
         vertices=dev(cat(verts_all, (1, 3))),
         vertex_normals=dev(cat(vnorms_all, (1, 3))),
@@ -225,6 +253,8 @@ def build_geometry(tri_meshes, device, intersector="smem"):
         edge_f=dev(edge_f),
         edge_shape=dev(edge_shape),
         edge_fv=dev(edge_fv),
+        **{k: dev(x) for k, x in sph.items()},
+        n_spheres=S,
     )
     return dataclasses.replace(geom, tri_vn=geom._shading_normals(geom.tri_ng),
                                bvh_rows=geom._bvh_rows(geom.tri_v0, geom.tri_e1, geom.tri_e2))
@@ -282,43 +312,89 @@ def edge_table(faces, tri_shape, vertices, weld_vertices=True):
 
 def ray_intersect_preliminary(geom: Geometry, ray: Ray, active=None):
     """Closest-hit query through kernel K1 (or K3, as the geometry asks), or
-    K2 on a BVH; inactive lanes never hit. t is inf on a miss. Both queries
-    are differentiable in the rays and the triangle table."""
+    K2 on a BVH, then the sphere pass; inactive lanes never hit. t is inf on
+    a miss. Both queries are differentiable in the rays and the triangle
+    table, the sphere pass in the spheres too."""
     if active is None:
         active = torch.ones(ray.o.shape[0], dtype=torch.bool, device=ray.o.device)
     maxt = torch.where(active, ray.maxt, -float("inf")).contiguous()
-    o, d, table = ray.o.contiguous(), ray.d.contiguous(), build_tri_table(geom)
+    o, d = ray.o.contiguous(), ray.d.contiguous()
     if geom.has_bvh:
-        t, prim, u, v = bvh_sweep_intersect(geom.bvh_nodes, table, o, d, maxt, geom.bvh_rows)
+        t, prim, u, v = bvh_sweep_intersect(geom.bvh_nodes, build_tri_table(geom), o, d, maxt,
+                                            geom.bvh_rows)
         t = torch.where(prim >= 0, t, float("inf"))
+    elif geom.n_real_tris == 0:
+        # no triangle to sweep: every lane misses them
+        return sphere_pass(geom, ray, _miss(maxt), maxt)
     else:
         # the real rows only: a slice, so the cotangent of the hit still
         # reaches the whole table (zero on the padding rows)
-        t, prim, u, v = tri_intersect(table[:geom.n_real_tris], o, d, maxt, geom.intersector)
-    return PreliminaryIntersection(t=t, prim_index=prim, prim_uv=torch.stack([u, v], dim=-1))
+        t, prim, u, v = tri_intersect(build_tri_table(geom)[:geom.n_real_tris], o, d, maxt,
+                                      geom.intersector)
+    pi = PreliminaryIntersection(t=t, prim_index=prim, prim_uv=torch.stack([u, v], dim=-1))
+    return sphere_pass(geom, ray, pi, maxt)
+
+
+def sphere_pass(geom: Geometry, ray: Ray, pi: PreliminaryIntersection, maxt):
+    """The analytic spheres after the triangles' closest hit `pi`, bounded
+    by its t where a triangle was hit and by `maxt` (-inf on inactive
+    lanes) elsewhere: a sphere replaces the hit only when strictly closer,
+    and keeps the triangle's prim_uv (the JAX package's _sphere_pass)."""
+    if geom.n_spheres == 0:
+        return pi
+    best_t = torch.where(pi.prim_index >= 0, pi.t, maxt)
+    # ||o + t d - c||^2 = r^2 over [N, S]
+    oc = ray.o[:, None, :] - geom.sph_center[None]
+    b = dot(oc, ray.d[:, None, :])
+    c = dot(oc, oc) - geom.sph_radius[None] ** 2
+    disc = b * b - c
+    # masked sqrt: sqrt(max(disc, 0)) has a NaN adjoint at disc <= 0
+    pos = disc > 0.0
+    sq = torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
+    t0 = -b - sq
+    t_s = torch.where(t0 > 0.0, t0, -b + sq)
+    t_s = torch.where((disc >= 0.0) & (t_s > 0.0), t_s, float("inf"))
+    tj, j = torch.min(t_s, dim=-1)
+    closer = tj < best_t
+    prim = torch.where(closer, geom.n_tris + j.to(torch.int32), pi.prim_index)
+    t = torch.where(prim >= 0, torch.where(closer, tj, best_t), float("inf"))
+    return PreliminaryIntersection(t=t, prim_index=prim, prim_uv=pi.prim_uv)
 
 
 def ray_test(geom: Geometry, ray: Ray, active=None):
     """Shadow query: any hit through K2 on a BVH (the walk ends at the
-    first hit); on a triangle table it is a closest-hit query through the
-    geometry's intersector."""
+    first hit), ORed with the sphere pass; on a triangle table it is a
+    closest-hit query through the geometry's intersector."""
     if not geom.has_bvh:
         return ray_intersect_preliminary(geom, ray, active).is_valid
     if active is None:
         active = torch.ones(ray.o.shape[0], dtype=torch.bool, device=ray.o.device)
     maxt = torch.where(active, ray.maxt, -float("inf")).contiguous()
-    return bvh_sweep_occluded(
+    occ = bvh_sweep_occluded(
         geom.bvh_nodes, build_tri_table(geom), ray.o.contiguous(), ray.d.contiguous(), maxt,
         geom.bvh_rows,
     )
+    if geom.n_spheres:
+        occ = occ | sphere_pass(geom, ray, _miss(maxt), maxt).is_valid
+    return occ & active
+
+
+def _miss(maxt):
+    """The PreliminaryIntersection of lanes that hit no triangle."""
+    return PreliminaryIntersection(
+        t=torch.full_like(maxt, float("inf")),
+        prim_index=torch.full(maxt.shape, -1, dtype=torch.int32, device=maxt.device),
+        prim_uv=torch.zeros(maxt.shape + (2,), dtype=torch.float32, device=maxt.device))
 
 
 def compute_surface_interaction(geom: Geometry, ray: Ray, pi: PreliminaryIntersection):
     """Shading frame, uv and shape index of the closest hits. With vertex
     normals the shading normal is the normalized barycentric blend of the
-    hit triangle's three."""
+    hit triangle's three. A sphere hit takes the radial normal and the
+    (azimuth, polar angle) uv."""
     valid = pi.is_valid
-    tprim = torch.clamp(pi.prim_index, 0, geom.n_tris - 1).to(torch.int64)
+    prim = torch.clamp(pi.prim_index, min=0).to(torch.int64)
+    tprim = torch.clamp(prim, max=geom.n_tris - 1)
 
     t = torch.where(valid, pi.t, float("inf"))
     p = ray.at(torch.where(valid, pi.t, 0.0))
@@ -336,6 +412,15 @@ def compute_surface_interaction(geom: Geometry, ray: Ray, pi: PreliminaryInterse
     uv = w[:, None] * uv3[:, 0] + u[:, None] * uv3[:, 1] + v[:, None] * uv3[:, 2]
     shape_index = geom.tri_shape[tprim]
 
+    if geom.n_spheres:
+        is_tri = (prim < geom.n_tris)[:, None]
+        sprim = torch.clamp(prim - geom.n_tris, 0, geom.n_spheres - 1)
+        ng_s = normalize(p - geom.sph_center[sprim])
+        ng = torch.where(is_tri, ng, ng_s)
+        sh_n = torch.where(is_tri, sh_n, ng_s)
+        uv = torch.where(is_tri, uv, sphere_uv(ng_s))
+        shape_index = torch.where(is_tri[:, 0], shape_index, geom.sph_shape[sprim])
+
     # orient the geometric normal to the shading normal's hemisphere
     ng = torch.where(dot(ng, sh_n, keepdims=True) < 0.0, -ng, ng)
 
@@ -350,6 +435,14 @@ def compute_surface_interaction(geom: Geometry, ray: Ray, pi: PreliminaryInterse
         prim_index=torch.where(valid, pi.prim_index, -1),
         prim_uv=pi.prim_uv,
     )
+
+
+def sphere_uv(n):
+    """The uv of a unit radial direction n on a sphere: (azimuth / 2 pi +
+    1/2, polar angle / pi)."""
+    theta = torch.arccos(torch.clamp(n[..., 2], -1.0, 1.0))
+    phi = torch.atan2(n[..., 1], n[..., 0])
+    return torch.stack([phi / (2 * math.pi) + 0.5, theta / math.pi], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -399,3 +492,63 @@ def make_cube(to_world):
     UV = np.concatenate(uvs).astype(np.float32)
     Vw = (np.asarray(to_world.m)[:3, :3] @ V.T + np.asarray(to_world.m)[:3, 3:4]).T
     return {"vertices": Vw.astype(np.float32), "faces": F, "uvs": UV}
+
+
+def make_sphere(spec, to_world):
+    """An analytic sphere's {center, radius}: the centre through to_world,
+    the radius scaled by the cube root of its linear part's determinant."""
+    mm = np.asarray(to_world.m)
+    c = mm[:3, :3] @ np.asarray(spec.get("center", [0, 0, 0]), np.float32) + mm[:3, 3]
+    scale = float(np.cbrt(abs(np.linalg.det(mm[:3, :3]))))
+    return {"center": c, "radius": float(spec.get("radius", 1.0)) * scale}
+
+
+# the segments of the tessellated cylinder and disk, as the JAX package's loader has them
+CYLINDER_SEGMENTS = 96
+DISK_SEGMENTS = 64
+
+
+def make_cylinder(spec, to_world):
+    """An open cylinder from p0 to p1 of `radius`, a strip of 2 k triangles
+    (k = CYLINDER_SEGMENTS) with radial vertex normals, as the JAX
+    package's loader tessellates it."""
+    k = CYLINDER_SEGMENTS
+    r = float(spec.get("radius", 1.0))
+    p0 = np.asarray(spec.get("p0", [0, 0, 0]), np.float32)
+    p1 = np.asarray(spec.get("p1", [0, 0, 1]), np.float32)
+    axis = p1 - p0
+    az = axis / max(np.linalg.norm(axis), 1e-12)
+    ax = np.array([1.0, 0, 0], np.float32)
+    if abs(az @ ax) > 0.9:
+        ax = np.array([0, 1.0, 0], np.float32)
+    ax = ax - (ax @ az) * az
+    ax /= np.linalg.norm(ax)
+    ay = np.cross(az, ax)
+    ang = np.linspace(0, 2 * np.pi, k, endpoint=False)
+    ring = (np.outer(np.cos(ang), ax) + np.outer(np.sin(ang), ay)) * r
+    V = np.concatenate([p0 + ring, p1 + ring]).astype(np.float32)
+    N = np.concatenate([ring / r, ring / r]).astype(np.float32)
+    idx = np.arange(k, dtype=np.int32)
+    nxt = np.roll(idx, -1)
+    F = np.concatenate([np.stack([idx, nxt, idx + k], -1),
+                        np.stack([nxt, nxt + k, idx + k], -1)]).astype(np.int32)
+    UV = np.stack([np.concatenate([ang, ang]) / (2 * np.pi),
+                   np.concatenate([np.zeros(k), np.ones(k)])], -1).astype(np.float32)
+    mm = np.asarray(to_world.m)
+    Vw = (mm[:3, :3] @ V.T + mm[:3, 3:4]).T.astype(np.float32)
+    Nw = (np.linalg.inv(mm[:3, :3]).T @ N.T).T
+    Nw = (Nw / np.linalg.norm(Nw, axis=-1, keepdims=True)).astype(np.float32)
+    return {"vertices": Vw, "faces": F, "normals": Nw, "uvs": UV}
+
+
+def make_disk(to_world):
+    """The unit disk in the z = 0 plane, a fan of k = DISK_SEGMENTS
+    triangles, as the JAX package's loader tessellates it."""
+    k = DISK_SEGMENTS
+    ang = np.linspace(0, 2 * np.pi, k, endpoint=False)
+    V = np.concatenate([np.zeros((1, 3), np.float32),
+                        np.stack([np.cos(ang), np.sin(ang), np.zeros(k)], -1).astype(np.float32)])
+    F = np.stack([np.zeros(k, np.int32), np.arange(1, k + 1, dtype=np.int32),
+                  np.roll(np.arange(1, k + 1, dtype=np.int32), -1)], -1)
+    mm = np.asarray(to_world.m)
+    return {"vertices": (mm[:3, :3] @ V.T + mm[:3, 3:4]).T.astype(np.float32), "faces": F}

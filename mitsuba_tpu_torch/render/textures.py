@@ -1,5 +1,4 @@
-"""Textures and spectra with constant values (counterpart of
-mitsuba_tpu/render/textures.py).
+"""Textures and spectra (counterpart of mitsuba_tpu/render/textures.py).
 
 A texture evaluates to an [N, C] spectrum at the surface uv, C being the
 variant's channel count: an rgb value is kept in rgb variants and becomes
@@ -8,8 +7,10 @@ its luminance in mono ones; a scalar is repeated. In the spectral variants
 reflectance through the rgb2spec model, an emitted rgb (``emissive``)
 through the model times D65. The spectra (``singleton``, ``d65``,
 ``blackbody``, ``regular``, ``irregular``) are their value, scale or mean
-outside the spectral variants. The bitmap, checkerboard, volume and mesh
-attribute textures are not yet ported.
+outside the spectral variants. The ``checkerboard`` tiles two constant
+colours over uv; the ``bitmap`` filters an [H, W, C] image bilinearly (row
+0 at the top, v = 1). The volume and mesh attribute textures are not yet
+ported.
 """
 from __future__ import annotations
 
@@ -36,6 +37,15 @@ def to_channels(v, n_channels, wavelengths=None, is_emission=False):
     return spec.rgb_reflectance_eval(v[..., None, :], wavelengths)
 
 
+def gather_texels(data, y, x):
+    """data[y, x] of an image [H, W, C] at per-lane texel indices, as one
+    index_select of its rows: the backward is an index_add_ (atomics on
+    the card, in no fixed order), where an advanced index's backward sorts
+    the lanes by texel and sums each texel's run serially, which a bright
+    texel hit by millions of lanes makes slow."""
+    return torch.index_select(data.reshape(-1, data.shape[-1]), 0, y * data.shape[1] + x)
+
+
 def _uniform(value, uv, n_channels):
     """A value [1] (or []) broadcast to [N, n_channels]."""
     return value.reshape(-1)[-1:].expand(uv.shape[0], n_channels)
@@ -56,6 +66,56 @@ class ConstantTexture:
 
     def mean(self):
         return torch.mean(self.value)
+
+
+@dataclass
+class CheckerboardTexture:
+    """Two colours in a 2 x 2 tiling of the unit uv square, after
+    uv * uv_scale + uv_offset (the texture's ``to_uv``)."""
+
+    color0: torch.Tensor     # [3] or [1]
+    color1: torch.Tensor
+    uv_scale: torch.Tensor   # [2]
+    uv_offset: torch.Tensor  # [2]
+
+    def eval(self, uv, n_channels, wavelengths=None):
+        st = uv * self.uv_scale + self.uv_offset
+        odd = (torch.floor(st[..., 0]).to(torch.int32)
+               ^ torch.floor(st[..., 1]).to(torch.int32)) & 1
+        c0 = to_channels(self.color0, n_channels, wavelengths).expand(uv.shape[0], n_channels)
+        c1 = to_channels(self.color1, n_channels, wavelengths).expand(uv.shape[0], n_channels)
+        return torch.where((odd == 0)[..., None], c0, c1)
+
+    def mean(self):
+        return 0.5 * (torch.mean(self.color0) + torch.mean(self.color1))
+
+
+@dataclass
+class BitmapTexture:
+    """An image [H, W, C] (C 3 or 1), bilinearly filtered at uv with v
+    flipped (image row 0 is v = 1), its edge texels repeated outside."""
+
+    data: torch.Tensor
+
+    def eval(self, uv, n_channels, wavelengths=None):
+        h, w = self.data.shape[0], self.data.shape[1]
+        x = uv[..., 0] * w - 0.5
+        y = (1.0 - uv[..., 1]) * h - 0.5
+        x0, y0 = torch.floor(x), torch.floor(y)
+        fx, fy = x - x0, y - y0
+        x0i = torch.clamp(x0.to(torch.int64), 0, w - 1)
+        y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
+        x1i = torch.clamp(x0i + 1, 0, w - 1)
+        y1i = torch.clamp(y0i + 1, 0, h - 1)
+        d = self.data
+        v = (gather_texels(d, y0i, x0i) * ((1 - fx) * (1 - fy))[..., None]
+             + gather_texels(d, y0i, x1i) * (fx * (1 - fy))[..., None]
+             + gather_texels(d, y1i, x0i) * ((1 - fx) * fy)[..., None]
+             + gather_texels(d, y1i, x1i) * (fx * fy)[..., None])
+        return to_channels(v, n_channels, wavelengths)
+
+    def mean(self):
+        return torch.mean(self.data)
 
 
 @dataclass

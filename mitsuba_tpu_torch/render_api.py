@@ -39,33 +39,33 @@ from .core import spectrum as spec
 from .core.rng import MASK32, RNG
 from .core.frame import cross, normalize
 from .render import mueller as mu
-from .render.film import accumulate, sample_filter_offset, spectral_to_film, stokes_major
+from .render.film import accumulate, develop_sums, sample_filter_offset, spectral_to_film
 from .render.params import traverse
 
 
-def make_wavefront(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx=0,
-                   with_wavelengths=False):
-    """(rng, ray, jitter): per-lane RNG streams, camera rays and in-pixel
-    film offsets for lanes [lane0, lane0 + n) of a pass whose samples start
-    at pass_base; with_wavelengths: (rng, ray, wavelengths, wl_pdf, jitter)
-    (wavefront_for)."""
+def make_wavefront(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx=0):
+    """(rng, ray, wavelengths, wl_pdf, jitter) of lanes [lane0, lane0 + n)
+    of a pass whose samples start at pass_base, pixel-major over the film's
+    lane window (wavefront_for)."""
     lane_local = lane0 + torch.arange(n, dtype=torch.int64, device=scene.device)
     pix = lane_local // spp_pass
     s_local = lane_local % spp_pass
-    return wavefront_for(scene, seed, pix, pass_base + s_local, spp_total, sensor_idx,
-                         with_wavelengths)
+    return wavefront_for(scene, seed, pix, pass_base + s_local, spp_total, sensor_idx)
 
 
-def wavefront_for(scene, seed, pix, sidx, spp_total, sensor_idx=0, with_wavelengths=False):
-    """make_wavefront for explicit (pixel, sample index) pairs. With
-    with_wavelengths it also returns each lane's wavelengths [N, 4] and
-    their pdf [N, 4], as the JAX package's make_wavefront does: hero
-    wavelengths drawn uniformly over [360, 830] nm in the spectral variants,
-    all four pinned to a radiancemeter's ``wavelength`` (pdf 1) where it is
-    set, and None, None in the other variants."""
+def wavefront_for(scene, seed, pix, sidx, spp_total, sensor_idx=0):
+    """make_wavefront for explicit (lane-window pixel, sample index) pairs:
+    each lane's RNG stream (keyed by its pixel in the whole film and its
+    sample index), camera ray, wavelengths [N, 4] and their pdf [N, 4], and
+    in-pixel film offset [N, 2], as the JAX package's make_wavefront
+    returns them. The wavelengths are hero wavelengths drawn uniformly over
+    [360, 830] nm in the spectral variants, all four pinned to a sensor's
+    ``wavelength`` (pdf 1) where it is set, and None, None in the other
+    variants."""
     film = scene.film
     sensor = scene.sensors[sensor_idx]
-    rng = RNG(seed, (pix * spp_total + sidx) & MASK32)
+    fpix = film.film_pixel(pix)
+    rng = RNG(seed, (fpix * spp_total + sidx) & MASK32)
 
     # dims 0-1: film-plane jitter; 2-3: aperture; 4: wavelength
     jx, jy, rng = rng.next_2d()
@@ -73,13 +73,11 @@ def wavefront_for(scene, seed, pix, sidx, spp_total, sensor_idx=0, with_waveleng
     uw, _, rng = rng.next_2d()
 
     jitter = sample_filter_offset(film.rfilter, torch.stack([jx, jy], dim=-1))
-    px = (pix % film.width).to(torch.float32)
-    py = (pix // film.width).to(torch.float32)
+    px = (fpix % film.width).to(torch.float32)
+    py = (fpix // film.width).to(torch.float32)
     size = torch.tensor([film.width, film.height], dtype=torch.float32, device=pix.device)
     pos = (torch.stack([px, py], dim=-1) + jitter) / size
     ray = sensor.sample_ray(pos, torch.stack([ax, ay], dim=-1))
-    if not with_wavelengths:
-        return rng, ray, jitter
     wavelengths = wl_pdf = None
     if scene.n_channels == 4:
         wavelengths = spec.sample_wavelengths_hero(uw, n=4)
@@ -138,14 +136,15 @@ def render_lanes(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_i
                  raw=False):
     """Radiance [n, C] (polarized: [n, C, 4] in the sensor frame) of lanes
     [lane0, lane0 + n) of a pass, and the pass's counters (n_rays,
-    n_invalid, n_negative). In the spectral variants (unpolarized) the
+    n_invalid, n_negative) with the lanes' in-pixel offsets
+    ("film_jitter", as the JAX package's aux holds them, for a weighted
+    filter's film). In the spectral variants (unpolarized) the
     lanes' spectra become the film's channels (film.spectral_to_film);
     with `raw` they stay the wavelength channels, as render_1 returns them
     (the same flag as prb_pass's)."""
     scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
-    rng, ray, wavelengths, wl_pdf, _ = make_wavefront(
-        scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx, with_wavelengths=True
-    )
+    rng, ray, wavelengths, wl_pdf, jitter = make_wavefront(
+        scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_idx)
     active = torch.ones(n, dtype=torch.bool, device=scene.device)
     L, aux = scene.integrator.sample(scene, rng, ray, active, wavelengths)
     # Stokes radiance; an AOV or depth in a polarized variant is [n, C]
@@ -156,7 +155,7 @@ def render_lanes(scene, seed, lane0, n, pass_base, spp_pass, spp_total, sensor_i
         L, stokes, clamp_negative=not getattr(scene.integrator, "signed_output", False))
     if not raw and wavelengths is not None and not scene.polarized:
         L = spectral_to_film(scene.film, L, wavelengths, wl_pdf)
-    return L, {**aux, **inv_stats}
+    return L, {**aux, **inv_stats, "film_jitter": jitter}
 
 
 def regenerates(scene):
@@ -168,11 +167,6 @@ def regenerates(scene):
     integ = scene.integrator
     return (getattr(integ, "regenerate", False)
             and (hasattr(integ, "_bounce") or scene.n_channels != 4))
-
-
-# reconstruction filters whose film weights depend on the sample's offset:
-# spp_grad's refold of the film adjoint is not exact for them
-WEIGHTED_FILTERS = ("mitchell", "catmullrom", "lanczos")
 
 
 class CancelToken:
@@ -202,13 +196,15 @@ def _passes(scene, sensor, seed, spp, spp_per_pass, seed_grad, spp_grad, stats):
     done = 0
     while done < spp:
         this_spp = min(spp_per_pass, spp - done)
+        jitter = None
         if use_prb:
             L, aux = prb_pass(scene, seed, seed_grad, done, this_spp, spp, sensor, spp_grad,
                               stats)
         else:
             L, aux = render_lanes(scene, seed, 0, film.n_pixels * this_spp, done, this_spp, spp,
                                   sensor)
-        acc = accumulate(film, L, this_spp, acc)
+            jitter = aux.pop("film_jitter")
+        acc = accumulate(film, L, this_spp, acc, jitter)
         done += this_spp
         yield done, acc, aux
 
@@ -276,7 +272,9 @@ def render(scene, params=None, sensor=0, seed=0, spp=None, spp_per_pass=None,
                              "reuses the forward lanes)")
         if spp_per_pass != spp:
             raise ValueError("spp_grad requires a single pass (spp_per_pass >= spp)")
-        if film.rfilter in WEIGHTED_FILTERS:
+        if film.weighted:
+            # the film weights depend on each sample's offset: spp_grad's
+            # refold of the film adjoint is not exact for them
             raise ValueError("spp_grad is exact only for filter-importance-sampled "
                              f"films (box/tent/gaussian), not {film.rfilter!r}")
     t_start = time.monotonic()
@@ -294,7 +292,7 @@ def render(scene, params=None, sensor=0, seed=0, spp=None, spp_per_pass=None,
                 break
     if stats is not None:
         stats.update({k: int(v) for k, v in totals.items()})
-    return stokes_major(acc / done)
+    return develop_sums(film, acc, done)
 
 
 def render_progressive(scene, sensor=0, seed=0, spp=None, spp_per_pass=None):
@@ -312,7 +310,7 @@ def render_progressive(scene, sensor=0, seed=0, spp=None, spp_per_pass=None):
     spp_per_pass = min(spp_per_pass or max(1, spp // 8), spp)
     for done, acc, _ in _passes(scene, sensor, seed, spp, spp_per_pass, derive_seed_grad(seed),
                                 None, None):
-        yield done, stokes_major(acc / done)
+        yield done, develop_sums(scene.film, acc, done)
 
 
 def render_1(scene, params=None, sensor=0, seed=0, spp=None, stats=None):
@@ -340,19 +338,26 @@ def _one_pass_lanes(scene, seed, spp, sensor, stats=None):
         scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
         return prb_pass(scene, seed, derive_seed_grad(seed), 0, spp, spp, sensor, stats=stats,
                         raw=True)
-    return render_lanes(scene, seed, 0, scene.film.n_pixels * spp, 0, spp, spp, sensor, raw=True)
+    L, aux = render_lanes(scene, seed, 0, scene.film.n_pixels * spp, 0, spp, spp, sensor, raw=True)
+    aux.pop("film_jitter")
+    return L, aux
 
 
-def render_test(scene, params=None, sensor=0, seed=0, spp=None, sensor_count=1):
+def render_test(scene, params=None, sensor=0, seed=0, spp=None, sensor_count=1, stats=None):
     """Multi-view measurement (mirrors mi.render_test): one pass of spp
     samples per pixel over a wide film split into sensor_count views of
     equal width, each view's samples averaged: [sensor_count, C], or the
-    Stokes vectors [sensor_count, 4, C] in a polarized variant."""
+    Stokes vectors [sensor_count, 4, C] in a polarized variant. `stats`
+    receives the pass's counters as render_1's does."""
     if params is not None and hasattr(params, "scene"):
         scene = params.scene
     film = scene.film
     spp = spp or scene.spp
-    L, _ = _one_pass_lanes(scene, seed, spp, sensor)
+    if film.crop_size is not None:
+        raise NotImplementedError("render_test of a cropped film is not yet ported")
+    L, aux = _one_pass_lanes(scene, seed, spp, sensor, stats)
+    if stats is not None:
+        stats.update({k: int(v) for k, v in aux.items()})
     views = L.reshape((film.height, sensor_count, film.width // sensor_count, spp)
                       + L.shape[1:])
     out = views.mean(dim=(0, 2, 3))
@@ -370,8 +375,11 @@ def _render_regen_pass(scene, seed, spp, sensor_idx):
 
 
 def _regen_image(film, L_px, spp):
-    """Per-pixel sample sums -> the image [H, W, C] or [H, W, 4, C]."""
-    return stokes_major(L_px.reshape((film.height, film.width) + L_px.shape[1:]) / float(spp))
+    """Per-pixel sample sums over the lane window -> the image [H, W, C] or
+    [H, W, 4, C] (a weighted filter's film develops as a box average, as
+    the JAX package's does)."""
+    _, _, w, h = film.lane_window
+    return develop_sums(film, L_px.reshape((h, w) + L_px.shape[1:]), float(spp))
 
 
 def _render_regen(scene, seed, spp, sensor_idx, stats=None):
@@ -401,7 +409,8 @@ def _render_ptracer(scene, seed, spp, sensor_idx, stats=None):
         raise ValueError("ptracer renders in the rgb and mono variants only")
     film = scene.film
     scene = dataclasses.replace(scene, geometry=scene.geometry.refresh())
-    n = film.n_pixels * spp
+    # the whole film (a crop window is ignored, as in the JAX package)
+    n = film.width * film.height * spp
     rng = RNG(seed, torch.arange(n, dtype=torch.int64, device=scene.device))
     acc, aux = scene.integrator.trace_particles(scene, rng, n, sensor_idx)
     if stats is not None:

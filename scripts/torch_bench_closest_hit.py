@@ -146,7 +146,7 @@ def main():
     t64 = K1.build_tri_table(geom)
     t36 = t64[:geom.n_real_tris]
     cols = K3.build_mxu_cols(t36[:, 0:3], t36[:, 3:6], t36[:, 6:9])
-    _, ray, _ = make_wavefront(scene, 0, 0, n, 0, 64, 64)
+    _, ray, _, _, _ = make_wavefront(scene, 0, 0, n, 0, 64, 64)
     o = torch.cat([ray.o, ray.o]).contiguous()
     d = torch.cat([ray.d, ray.d]).contiguous()
     maxt0 = torch.cat([ray.maxt, torch.full_like(ray.maxt, -float("inf"))]).contiguous()

@@ -342,7 +342,7 @@ def test_maybe_sort_order_matches_jax(case, tmp_path):
         maxt = torch.full((1 << 16,), float("inf"))
     else:
         n = scene.film.n_pixels * 256
-        _, ray, _ = make_wavefront(scene, 0, 0, n, 0, 256, 256)
+        _, ray, _, _, _ = make_wavefront(scene, 0, 0, n, 0, 256, 256)
         key = K2.ray_sort_key(ray.o, ray.d, lo, hi, ray.maxt)
         perm = torch.from_numpy(np.argsort(key.numpy(), kind="stable"))
         o, d, maxt = ray.o[perm], ray.d[perm], ray.maxt[perm]

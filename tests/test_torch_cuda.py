@@ -56,7 +56,7 @@ def _cbox_batch(device, share=None):
     rows) and a random `share` of the lanes disabled (made with numpy from
     a seed), scattered over the batch as on the later bounces."""
     scene = mt.load_dict(_cbox(32 if share is None else 64), device=device)
-    _, ray, _ = make_wavefront(scene, 3, 0, scene.film.n_pixels * 4, 0, 4, 4)
+    _, ray, _, _, _ = make_wavefront(scene, 3, 0, scene.film.n_pixels * 4, 0, 4, 4)
     geom = scene.geometry.refresh()
     table = K1.build_tri_table(geom)
     maxt = ray.maxt.clone()
@@ -133,7 +133,7 @@ def _k2_soup(device):
 def _k2_mesh(device, tmp_path):
     """The k=30 mesh scene's camera rays at 32x32 @ 4 spp."""
     scene = mt.load_dict(mesh_scene(tmp_path / "sphere.obj", k=30, res=32), device=device)
-    _, ray, _ = make_wavefront(scene, 3, 0, scene.film.n_pixels * 4, 0, 4, 4)
+    _, ray, _, _, _ = make_wavefront(scene, 3, 0, scene.film.n_pixels * 4, 0, 4, 4)
     geom = scene.geometry.refresh()
     return [geom.bvh_nodes, K1.build_tri_table(geom), ray.o.contiguous(), ray.d.contiguous(),
             ray.maxt.contiguous()]

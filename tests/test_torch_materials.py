@@ -181,7 +181,7 @@ def test_last_place_of_sin_parts_a_deep_lane():
     def lane(max_depth, sin=torch.sin, jax_too=True):
         d = mt.materials_scene(64, 16, {"type": "path", "max_depth": max_depth})
         ts = mt.load_dict(d, device="cpu")
-        rng, ray, _ = t_wavefront_for(ts, seed, torch.from_numpy(pix), torch.from_numpy(sidx), 16)
+        rng, ray, _, _, _ = t_wavefront_for(ts, seed, torch.from_numpy(pix), torch.from_numpy(sidx), 16)
         saved, torch.sin = torch.sin, sin
         try:
             Lt, _ = ts.integrator.sample(ts, rng, ray, torch.ones(1, dtype=torch.bool))

@@ -122,7 +122,7 @@ def _cbox_rays(n=4096):
     d["sensor"]["film"]["width"] = d["sensor"]["film"]["height"] = 16
     scene = mt.load_dict(d, device="cpu")
     geom = scene.geometry.refresh()
-    _, ray, _ = make_wavefront(scene, 3, 0, n, 0, 16, 16)
+    _, ray, _, _, _ = make_wavefront(scene, 3, 0, n, 0, 16, 16)
     maxt = ray.maxt.clone()
     maxt[1::3] = -float("inf")
     maxt[2::3] = 1.5

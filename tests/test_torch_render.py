@@ -179,7 +179,7 @@ def test_area_emitter_sample_direction_matches_jax():
 def test_compute_surface_interaction_matches_jax():
     js, ts = _pair()
     _, jray, _, _, _ = j_make_wavefront(js, jnp.uint32(0), 0, W * W * SPP, 0, SPP, SPP, 0)
-    _, tray, _ = t_make_wavefront(ts, 0, 0, W * W * SPP, 0, SPP, SPP, 0)
+    _, tray, _, _, _ = t_make_wavefront(ts, 0, 0, W * W * SPP, 0, SPP, SPP, 0)
     _close(tray.o, jray.o)
     _close(tray.d, jray.d, atol=1e-6)
     # shade the same rays on both sides
@@ -331,18 +331,33 @@ def test_unported_parts_raise():
     mt.set_variant("llvm_ad_spectral_polarized")
     mt.set_variant("rgb")
     d = _cbox()
-    d["ball"] = {"type": "sphere", "radius": 0.2}
+    d["white"] = {"type": "normalmap", "bsdf": {"type": "diffuse"}}
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
     d = _cbox()
-    d["env"] = {"type": "envmap", "filename": "sky.exr"}
+    d["sensor"]["sampler"] = {"type": "sobol", "sample_count": 4}
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
     d = _cbox()
-    d["sensor"]["film"]["rfilter"] = {"type": "mitchell"}
+    d["sdf"] = {"type": "sdfgrid", "data": np.zeros((4, 4, 4), np.float32)}
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
     d = _cbox()
     d["mesh"] = {"type": "serialized", "filename": "mesh.serialized"}
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
+    # an envmap file of a format neither package reads: the JAX package's
+    # own ValueError
+    d = _cbox()
+    d["env"] = {"type": "envmap", "filename": "sky.exr"}
+    with pytest.raises(ValueError, match="unsupported image format"):
+        mt.load_dict(d, device="cpu")
+    # what the port now loads: an analytic sphere, an envmap from data, a
+    # mitchell film
+    d = _cbox()
+    d["ball"] = {"type": "sphere", "radius": 0.2}
+    d["env"] = {"type": "envmap", "data": np.ones((4, 8, 3), np.float32)}
+    d["sensor"]["film"]["rfilter"] = {"type": "mitchell"}
+    scene = mt.load_dict(d, device="cpu")
+    assert scene.geometry.n_spheres == 1 and scene.film.rfilter == "mitchell"
+    assert scene.env_emitter >= 0 and "env.data" in mt.traverse(scene)

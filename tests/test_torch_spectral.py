@@ -184,17 +184,17 @@ def test_hero_wavelengths_bitwise_jax(jax_cbox_lanes):
     d = cbox("path")
     ts = mt.load_dict(d, device="cpu")
     _, wj, pj, _ = jax_cbox_lanes
-    _, _, wt, pt, _ = t_make_wavefront(ts, 0, 0, N, 0, SPP, SPP, with_wavelengths=True)
+    _, _, wt, pt, _ = t_make_wavefront(ts, 0, 0, N, 0, SPP, SPP)
     np.testing.assert_array_equal(wt.numpy(), wj)
     np.testing.assert_array_equal(pt.numpy(), pj)
     assert float(wt.min()) >= 360.0 and float(wt.max()) < 830.0
     _variant("spectral_polarized")
     ts = mt.load_dict(mt.atmo_scene(res=4, spp=4), device="cpu")
-    _, _, wt, pt, _ = t_make_wavefront(ts, 5, 0, 64, 0, 4, 4, with_wavelengths=True)
+    _, _, wt, pt, _ = t_make_wavefront(ts, 5, 0, 64, 0, 4, 4)
     assert bool((wt == 550.0).all()) and bool((pt == 1.0).all())
     _variant("rgb")
     ts = mt.load_dict(d, device="cpu")
-    assert t_make_wavefront(ts, 5, 0, N, 0, SPP, SPP, with_wavelengths=True)[2:4] == (None, None)
+    assert t_make_wavefront(ts, 5, 0, N, 0, SPP, SPP)[2:4] == (None, None)
 
 
 # ---------------------------------------------------------------------------

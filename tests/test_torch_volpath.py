@@ -400,9 +400,13 @@ def test_volume_scene_refusals():
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
     d = het_vol_scene()
-    d["lamp"] = {"type": "spot", "position": [0, 2, 0]}
+    d["fiber"] = {"type": "linearcurve", "control_points": [[0, 0, 0, 0.1], [0, 1, 0, 0.1]]}
     with pytest.raises(NotImplementedError):
         mt.load_dict(d, device="cpu")
+    # the spot light is ported (tests/test_torch_emitters.py)
+    d = het_vol_scene()
+    d["lamp"] = {"type": "spot", "position": [0, 2, 0]}
+    assert type(mt.load_dict(d, device="cpu").emitters[-1]).__name__ == "SpotEmitter"
     assert get_ops(True).polarized
     mt.set_variant("mono_polarized")
     try:
